@@ -1,0 +1,295 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU and check what it computes.
+
+    python3 chip_smoke.py
+
+Run from the root of the repository on a machine with a CUDA card and
+nvcc. Phases, in order; any failure exits non-zero and nothing falls
+back:
+
+1. device: the card as ``nvidia-smi`` reports it (name, power limit);
+2. build: every kernel of ``kubernetes_tpu_torch/csrc`` with nvcc;
+3. vector_add: the kernel against plain ``x + y``, exactly, and timed;
+4. flash_attn: the flash-attention forward against plain attention at
+   the listed shapes, and timed beside PyTorch's SDPA as a yardstick;
+5. entry: the tiny entry-point forward on the card against the CPU;
+6. main path: the payload ``smoke_test`` and the 600M-config LM forward
+   (d_model 2048, 8 layers, 16 heads of 128, d_ff 8192, vocab 32768,
+   bf16 params, random weights from a seed) at the t2k and t8k cases,
+   with every launch counter set to 0 just before and read just after;
+   then its logits against the plain-attention forward and an f32
+   forward, and its time, tokens/s and MFU;
+7. a ``kernels`` line, then the card line, then the last line
+   ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import subprocess
+import sys
+import time
+
+import torch
+import torch.nn.functional as F
+
+from kubernetes_tpu_torch.kernels import build
+from kubernetes_tpu_torch.perf import chip_bench
+from kubernetes_tpu_torch.entry import entry
+from kubernetes_tpu_torch.workloads import flash_attention as fa
+from kubernetes_tpu_torch.workloads import lm
+from kubernetes_tpu_torch.workloads import vector_add as va
+from kubernetes_tpu_torch.workloads.ring_attention import (
+    reference_attention_with_lse)
+
+#: Flash-attention shapes (B, H, T, D): ragged tails and every head dim,
+#: then the main path's shapes (the t2k and t8k cases at 16 heads), which
+#: are also timed.
+FLASH_SHAPES = [(2, 4, 65, 32), (1, 2, 1000, 64), (4, 16, 2048, 128),
+                (1, 16, 8192, 128)]
+MAIN_FLASH_SHAPES = FLASH_SHAPES[2:]
+MAIN_CASES = ("lm-600m-t2k-flash", "lm-600m-t8k-flash")
+#: o against the plain version: both round o to bf16 and the kernel also
+#: rounds P to bf16 for the tensor cores, so allow two bf16 steps of |o|
+#: (2^-6) plus an absolute 1e-2 for outputs near 0.
+O_ATOL, O_RTOL = 1e-2, 2 ** -6
+#: lse is f32 in both; only the order of the sums differs.
+LSE_ATOL = 1e-3
+#: f32 arithmetic outside the tensor cores, H100 SXM (the vector add).
+F32_FLOPS = 67e12
+
+
+def say(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def time_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls, by CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(flops: float, nbytes: float, name: str,
+             peak_ops: float | None = None) -> tuple[float, str]:
+    """Least time for the work on this card: the larger of operations
+    over the peak rate for their type (bf16 tensor cores unless
+    ``peak_ops`` is given) and bytes over the memory rate."""
+    t_ops = flops / (peak_ops or chip_bench.peak_flops_for(name)[0])
+    t_bytes = nbytes / chip_bench.peak_bytes_for(name)[0]
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def check_vector_add(gen, name: str) -> dict:
+    results = []
+    for n in (1 << 16, 1 << 26):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(n, generator=gen, device="cuda").to(dtype)
+            y = torch.randn(n, generator=gen, device="cuda").to(dtype)
+            before = va.launches
+            out = va.vector_add(x, y)
+            torch.cuda.synchronize()
+            if va.launches != before + 1:
+                raise AssertionError("vector_add did not count its launch")
+            if not torch.equal(out, va.vector_add_plain(x, y)):
+                raise AssertionError(f"vector_add mismatch at n={n} {dtype}")
+            row = {"n": n, "dtype": str(dtype).replace("torch.", ""),
+                   "max_abs_err": 0.0}
+            if dtype == torch.float32:
+                b, by = bound_ms(n, 3 * n * x.element_size(), name, F32_FLOPS)
+                iters = 200 if n <= 1 << 16 else 50
+                row.update(
+                    ms=time_ms(lambda: va.vector_add(x, y), iters),
+                    plain_ms=time_ms(lambda: va.vector_add_plain(x, y), iters),
+                    library_ms=time_ms(lambda: torch.add(x, y), iters),
+                    bound_ms=b, bound_by=by)
+            results.append(row)
+    say("vector_add", ok=True, results=results)
+    return results[0]  # the main path's shape: n = 1 << 16, f32
+
+
+def check_flash(gen, name: str) -> dict:
+    results = {}
+    for b, h, t, d in FLASH_SHAPES:
+        q, k, v = (torch.randn((b, h, t, d), generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+        before = fa.launches
+        o, lse = fa.flash_attention_fwd(q, k, v)
+        torch.cuda.synchronize()
+        if fa.launches != before + 1:
+            raise AssertionError("flash_attn_fwd did not count its launch")
+        o_ref, lse_ref = reference_attention_with_lse(q, k, v)
+        err = (o.float() - o_ref.float()).abs()
+        lse_err = float((lse - lse_ref).abs().max())
+        bad = int((err > O_ATOL + O_RTOL * o_ref.float().abs()).sum())
+        row = {"shape": [b, h, t, d], "max_abs_err": float(err.max()),
+               "lse_max_abs_err": lse_err, "o_outside_tol": bad}
+        if bad or not lse_err <= LSE_ATOL or not bool(torch.isfinite(o).all()):
+            raise AssertionError(f"flash_attn_fwd disagrees: {row}")
+        del o_ref, lse_ref, err
+        if (b, h, t, d) in MAIN_FLASH_SHAPES:
+            flops = 4.0 * b * h * d * t * (t + 1) / 2
+            nbytes = 4 * b * h * t * d * 2 + b * h * t * 4
+            bnd, by = bound_ms(flops, nbytes, name)
+            row.update(
+                ms=time_ms(lambda: fa.flash_attention_fwd(q, k, v), 20),
+                plain_ms=time_ms(
+                    lambda: reference_attention_with_lse(q, k, v), 3, 1),
+                library_ms=time_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=True), 20),
+                bound_ms=bnd, bound_by=by)
+            row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
+            torch.cuda.empty_cache()
+        results[(b, h, t, d)] = row
+    say("flash_attn", ok=True, o_atol=O_ATOL, o_rtol=O_RTOL,
+        lse_atol=LSE_ATOL, results=list(results.values()))
+    return results[MAIN_FLASH_SHAPES[0]]
+
+
+def check_entry() -> None:
+    """The tiny entry-point forward on the card against the CPU's plain
+    path, at the reference tests' bf16 bound (5e-2)."""
+    fn, (params, _) = entry()
+    tokens = torch.randint(0, 256, (2, 64), device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(3))
+    got = fn(params, tokens).cpu()
+    cpu_params = {k: ({kk: vv.cpu() for kk, vv in v.items()}
+                      if isinstance(v, dict) else v.cpu())
+                  for k, v in params.items()}
+    cfg = lm.LMConfig(vocab=256, d_model=128, n_layers=2, n_heads=4,
+                      d_ff=512, attn_impl="flash")
+    want = lm.make_forward(cfg, "cpu")(cpu_params, tokens.cpu())
+    err = float((got - want).abs().max())
+    if not (got.shape == (2, 64, 256) and err < 5e-2):
+        raise AssertionError(f"entry forward on the card: {got.shape}, {err}")
+    say("entry", ok=True, shape=list(got.shape), max_abs_err_vs_cpu=err)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    name = torch.cuda.get_device_name(0)
+    peak, known = chip_bench.peak_flops_for(name)
+    # A reference states its f32 precision: full f32, no TF32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    say("device", name=name, nvidia_smi=smi, count=torch.cuda.device_count(),
+        torch=torch.__version__, cuda=torch.version.cuda,
+        peak_bf16_tflops=peak / 1e12, peak_known=known)
+
+    t0 = time.perf_counter()
+    logs = build.build()
+    ptxas = {src: [ln.strip() for ln in log.splitlines()
+                   if any(w in ln for w in ("entry function", "registers",
+                                            "spill"))]
+             for src, log in logs.items()}
+    say("build", ok=True, seconds=time.perf_counter() - t0, ptxas=ptxas)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    va_row = check_vector_add(gen, name)
+    fa_row = check_flash(gen, name)
+    check_entry()
+
+    # The main path, counted: every counter to 0 just before, read after.
+    cases = [chip_bench.case(c) for c in MAIN_CASES]
+    base = lm.LMConfig(vocab=32768, d_model=2048, n_layers=8, n_heads=16,
+                       d_ff=8192, param_dtype=torch.bfloat16,
+                       attn_impl="flash")
+    params = lm.init_params(torch.Generator("cuda").manual_seed(0), base)
+    batches = [lm.synthetic_batch(torch.Generator("cuda").manual_seed(1), base,
+                                  c.batch, c.seq)[:, :-1] for c in cases]
+    torch.cuda.synchronize()
+    forward = lm.make_forward(base)
+    va.launches = fa.launches = 0
+    report = va.smoke_test()
+    logits, per_forward = [], []
+    for tokens in batches:
+        before = fa.launches
+        logits.append(forward(params, tokens))
+        per_forward.append(fa.launches - before)
+    torch.cuda.synchronize()
+    launches = {"vector_add": va.launches, "flash_attn_fwd": fa.launches}
+    if not report["ok"] or launches["vector_add"] != 1:
+        raise AssertionError(f"payload smoke test: {report}, {launches}")
+    if per_forward != [base.n_layers] * len(cases):
+        raise AssertionError(f"flash launches per forward: {per_forward}")
+
+    local = lm.make_forward(dataclasses.replace(base, attn_impl="local"))
+    exact = lm.make_forward(dataclasses.replace(
+        base, attn_impl="local", compute_dtype=torch.float32))
+    for case, tokens, out in zip(cases, batches, logits):
+        if out.shape != (case.batch, case.seq, base.vocab) or \
+                not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{case.name}: logits {tuple(out.shape)}, "
+                                 f"finite={bool(torch.isfinite(out).all())}")
+        plain = local(params, tokens)
+        ref32 = exact(params, tokens)
+        # The kernel's forward must be as close to the f32 forward as the
+        # plain bf16 forward is: within twice its largest and 1.5 times
+        # its mean deviation.
+        dev_flash = (out - ref32).abs()
+        dev_plain = (plain - ref32).abs()
+        errs = {"max_abs_vs_plain": float((out - plain).abs().max()),
+                "max_abs_vs_f32": float(dev_flash.max()),
+                "plain_max_abs_vs_f32": float(dev_plain.max()),
+                "mean_abs_vs_f32": float(dev_flash.mean()),
+                "plain_mean_abs_vs_f32": float(dev_plain.mean())}
+        del plain, ref32, dev_flash, dev_plain
+        if not (errs["max_abs_vs_f32"] <= 2 * errs["plain_max_abs_vs_f32"]
+                and errs["mean_abs_vs_f32"]
+                <= 1.5 * errs["plain_mean_abs_vs_f32"]):
+            raise AssertionError(f"{case.name}: flash forward drifts: {errs}")
+        ms = time_ms(lambda: forward(params, tokens), 10)
+        plain_ms = time_ms(lambda: local(params, tokens), 3, 1)
+        ntok = case.batch * case.seq
+        flops = chip_bench.forward_flops_per_token(case) * ntok
+        say("main_path", case=case.name, batch=case.batch, seq=case.seq,
+            shape=list(out.shape), flash_launches=per_forward[0],
+            forward_ms=ms, plain_attention_forward_ms=plain_ms,
+            tokens_per_s=ntok / (ms * 1e-3),
+            mfu=flops / (ms * 1e-3) / peak, peak_known=known,
+            forward_bound_ms=flops / peak * 1e3, **errs)
+        torch.cuda.empty_cache()
+    say("main_path_counts", launches=launches, payload=report)
+
+    kernels = [
+        {"name": "vector_add", "route": "cuda",
+         "source": "kubernetes_tpu_torch/csrc/vector_add.cu",
+         "replaces": "kubernetes_tpu/workloads/vector_add.py:17-26",
+         "launches": launches["vector_add"], "at": "n=65536 float32",
+         **{k: va_row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")}},
+        {"name": "flash_attn_fwd", "route": "cuda",
+         "source": "kubernetes_tpu_torch/csrc/flash_attn_fwd.cu",
+         "replaces": "kubernetes_tpu/workloads/lm.py:163-239",
+         "launches": launches["flash_attn_fwd"],
+         "at": "B{} H{} T{} D{} bf16".format(*MAIN_FLASH_SHAPES[0]),
+         **{k: fa_row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")}},
+    ]
+    for kern in kernels:
+        if not all(math.isfinite(kern[k]) for k in ("ms", "plain_ms", "bound_ms")):
+            raise AssertionError(f"bad timing: {kern}")
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
