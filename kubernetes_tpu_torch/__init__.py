@@ -7,7 +7,9 @@ hand for Hopper (``csrc/``, built by ``kernels/build.py``).
 
 Layout mirrors the reference, so each counterpart sits under the same
 name: ``workloads/lm.py``, ``workloads/vector_add.py``,
-``workloads/ring_attention.py``, ``perf/chip_bench.py``, and
-``entry.py`` for ``__graft_entry__.py``. This package imports
-``torch`` and never ``jax`` or ``kubernetes_tpu``.
+``workloads/ring_attention.py``, ``workloads/checkpoint.py``,
+``workloads/metrics_reporter.py``, ``preemption.py`` (its marker
+helpers), ``perf/chip_bench.py``, and ``entry.py`` for
+``__graft_entry__.py``. This package imports ``torch`` and never
+``jax`` or ``kubernetes_tpu``.
 """

@@ -1,21 +1,24 @@
 """Benchmark cases and FLOP accounting for the flagship LM on a GPU.
 
-Counterpart of ``kubernetes_tpu/perf/chip_bench.py``, limited to what
-the forward path needs: the cases, the analytic FLOPs per token and the
-card's peak rates. FLOPs are counted from the model config, not from a
-profiler, so the number is comparable across runs:
+Counterpart of ``kubernetes_tpu/perf/chip_bench.py``: the cases, the
+analytic FLOPs per token, the card's peak rates and the train bench
+(:func:`run_case`, :func:`run`):
+
+    python -m kubernetes_tpu_torch.perf.chip_bench
+
+FLOPs are counted from the model config, not from a profiler, so the
+number is comparable across runs:
 
 - matmul params N = L*(4*e^2 + 3*e*f) + e*V (the tied embedding counted
   once, via the output projection; the input embedding is a gather);
 - attention score and value FLOPs per token per layer = 2*T*e, the
   CAUSAL (useful) FLOPs of the standard MFU convention;
 - forward flops/token = 2*N + 2*T*e*L; a training step ~= 3x that.
-
-The train bench itself is ported with the train step.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 
 #: (substring of ``torch.cuda.get_device_name()``, lower-cased; dense
 #: bf16 FLOP/s; device-memory bytes/s). NVIDIA's data sheets; the
@@ -105,3 +108,82 @@ def forward_flops_per_token(case: BenchCase) -> float:
 
 def train_flops_per_token(case: BenchCase) -> float:
     return 3.0 * forward_flops_per_token(case)
+
+
+def run_case(case: BenchCase, steps: int = 10, warmup: int = 2) -> dict:
+    """Train-step throughput of one case on the GPU: init, ``warmup``
+    steps, then the best of three trials of ``steps`` steps, each timed
+    with CUDA events. Raises without a CUDA device; a case the port
+    cannot run (``attn_impl="ring"``) raises ``NotImplementedError``."""
+    import torch
+
+    from ..device import resolve_device
+    from ..workloads import lm
+
+    dev = resolve_device()
+    cfg = lm.LMConfig(vocab=case.vocab, d_model=case.d_model,
+                      n_layers=case.n_layers, n_heads=case.n_heads,
+                      d_ff=case.d_ff, attn_impl=case.attn_impl,
+                      param_dtype=getattr(torch, case.param_dtype))
+    params, opt_state = lm.init_train_state(
+        torch.Generator(device=dev).manual_seed(0), cfg)
+    step = lm.make_train_step(cfg, device=dev)
+    batch = lm.synthetic_batch(torch.Generator(device=dev).manual_seed(1),
+                               cfg, case.batch, case.seq, dev)
+    for _ in range(max(warmup, 1)):
+        params, opt_state, loss = step(params, opt_state, batch)
+    torch.cuda.synchronize(dev)
+    best_ms = float("inf")
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(steps):
+            params, opt_state, loss = step(params, opt_state, batch)
+        end.record()
+        end.synchronize()
+        best_ms = min(best_ms, start.elapsed_time(end))
+
+    tok_s = case.batch * case.seq * steps / (best_ms * 1e-3)
+    name = torch.cuda.get_device_name(dev)
+    peak, peak_known = peak_flops_for(name)
+    res = {
+        "case": case.name,
+        "tokens_per_sec_per_chip": round(tok_s, 1),
+        "mfu": round(tok_s * train_flops_per_token(case) / peak, 4),
+        "step_ms": round(best_ms / steps, 2),
+        "loss": round(float(loss), 4),
+        "device_kind": name,
+        "peak_bf16_tflops": peak / 1e12,
+    }
+    if not peak_known:
+        res["peak_is_fallback_guess"] = True
+    return res
+
+
+def run(steps: int = 10) -> dict:
+    """Run every case; returns the best-MFU result and the per-case
+    details, a case that fails as ``{"case", "error"}``. Raises without
+    a CUDA device: a CPU has no train throughput to report."""
+    import torch
+
+    from ..device import resolve_device
+
+    resolve_device()
+    results = []
+    for case in CASES:
+        try:
+            results.append(run_case(case, steps=steps))
+        except Exception as exc:  # noqa: BLE001 -- OOM etc: report others
+            results.append({"case": case.name,
+                            "error": f"{type(exc).__name__}: {exc}"[:200]})
+        torch.cuda.empty_cache()
+    ok = [r for r in results if "mfu" in r]
+    if not ok:
+        return {"cases": results}
+    best = max(ok, key=lambda r: r["mfu"])
+    return {**best, "cases": results}
+
+
+if __name__ == "__main__":
+    print(json.dumps(run(), indent=2))

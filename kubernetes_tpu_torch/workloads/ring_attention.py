@@ -12,13 +12,17 @@ import torch
 _NEG = -1e30
 
 
+def causal_mask(t: int, device) -> torch.Tensor:
+    """[T, T] bool, True where query row ``i`` may see key ``j <= i``."""
+    pos = torch.arange(t, device=device)
+    return pos[:, None] >= pos[None, :]
+
+
 def _masked_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """f32 ``q k^T / sqrt(D)`` plus an additive causal mask, [B,H,T,T]."""
     d, t = q.shape[-1], q.shape[2]
     scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / (d ** 0.5)
-    pos = torch.arange(t, device=q.device)
-    mask = torch.where(pos[:, None] >= pos[None, :], 0.0, _NEG)
-    return scores + mask
+    return scores + torch.where(causal_mask(t, q.device), 0.0, _NEG)
 
 
 def reference_attention(q, k, v) -> torch.Tensor:

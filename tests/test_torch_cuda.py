@@ -9,7 +9,10 @@ GPU machine without it:
 Tolerances: vector add is exact (both add in f32 and round once); the
 flash kernel's ``o`` within 1e-2 + 2^-6 |o| (both round ``o`` to bf16,
 the kernel also rounds P to bf16), its ``lse`` within 1e-3 (f32 in
-both, sums in another order).
+both, sums in another order). The backward kernel's dq, dk, dv within
+the same 1e-2 + 2^-6 |g| of the plain backward on the same inputs: both
+round the result to bf16; the kernel sums in another order and takes P
+and dS as two bf16 parts (hi + lo, ~16 bits).
 """
 import dataclasses
 
@@ -20,7 +23,7 @@ from kubernetes_tpu_torch.workloads import flash_attention as fa
 from kubernetes_tpu_torch.workloads import lm
 from kubernetes_tpu_torch.workloads import vector_add as va
 from kubernetes_tpu_torch.workloads.ring_attention import (
-    reference_attention_with_lse)
+    reference_attention, reference_attention_with_lse)
 
 pytestmark = pytest.mark.cuda
 
@@ -82,6 +85,66 @@ def test_flash_kernel_rejects_what_it_does_not_take(gen):
         fa.flash_attention_fwd(t, t, t)
 
 
+def _bwd_inputs(gen, shape):
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 1, 1, 32), (1, 2, 63, 32), (2, 1, 64, 64), (1, 3, 129, 128),
+    (2, 2, 200, 64), (1, 1, 1000, 128)])
+def test_flash_bwd_kernel_matches_plain(gen, shape):
+    q, k, v, o, lse, do = _bwd_inputs(gen, shape)
+    before = fa.bwd_launches
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    assert fa.bwd_launches == before + 1
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == q.shape, name
+        torch.testing.assert_close(g.float(), w.float(), atol=1e-2,
+                                   rtol=2 ** -6, msg=name)
+
+
+def test_flash_bwd_kernel_rejects_what_it_does_not_take(gen):
+    q, k, v, o, lse, do = _bwd_inputs(gen, (1, 2, 8, 32))
+    with pytest.raises(TypeError):
+        fa.flash_attention_bwd(q, k, v, o, lse, do.float())
+    bad_d = torch.zeros((1, 1, 8, 48), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_bwd(bad_d, bad_d, bad_d, bad_d,
+                               torch.zeros((1, 1, 8), device="cuda"), bad_d)
+    strided = torch.zeros((1, 8, 2, 32), device="cuda",
+                          dtype=torch.bfloat16).transpose(1, 2)
+    assert not strided.is_contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_bwd(q, k, v, o, lse, strided)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_attention_bwd(q, k, v, o, lse[:, :1], do)
+
+
+def test_flash_function_grads_match_local_autograd(gen):
+    """FlashAttention through autograd against autograd through the
+    plain attention, with a strided dO as the LM's backward gives it."""
+    shape = (2, 3, 100, 64)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+               .to(torch.bfloat16).requires_grad_() for _ in range(3))
+    w = torch.randn((2, 100, 3, 64), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    fwd, bwd = fa.launches, fa.bwd_launches
+    out = fa.FlashAttention.apply(q, k, v)
+    (out.transpose(1, 2) * w).float().sum().backward()
+    assert (fa.launches, fa.bwd_launches) == (fwd + 1, bwd + 1)
+    got = [x.grad.float() for x in (q, k, v)]
+    for x in (q, k, v):
+        x.grad = None
+    ref = reference_attention(q, k, v)
+    (ref.transpose(1, 2) * w).float().sum().backward()
+    for g, x in zip(got, (q, k, v)):
+        torch.testing.assert_close(g, x.grad.float(), atol=2e-2, rtol=2 ** -6)
+
+
 def test_lm_flash_forward_matches_local(gen):
     """Small LM on the card: the kernel path against plain attention,
     at the reference tests' bf16 bound (5e-2)."""
@@ -95,3 +158,33 @@ def test_lm_flash_forward_matches_local(gen):
     want = lm.make_forward(dataclasses.replace(cfg, attn_impl="local"))(
         params, tokens)
     torch.testing.assert_close(got, want, atol=5e-2, rtol=0)
+
+
+def test_lm_train_step_on_the_card_matches_local(gen):
+    """A small LM train step through both kernels: its launches per step
+    (two forward launches per layer under remat, one backward), then
+    loss and grads against the same params with plain attention. The
+    loss at the reference tests' bf16 bound (5e-2); each grad within 5%
+    of that leaf's largest plain grad (the two differ only in where
+    attention rounds to bf16)."""
+    cfg = lm.LMConfig(vocab=128, d_model=128, n_layers=2, n_heads=2,
+                      d_ff=256, param_dtype=torch.bfloat16,
+                      attn_impl="flash")
+    local = dataclasses.replace(cfg, attn_impl="local")
+    batch = lm.synthetic_batch(gen, cfg, 2, 130)
+    params, opt_state = lm.init_train_state(
+        torch.Generator("cuda").manual_seed(1), cfg)
+    va.launches = fa.launches = fa.bwd_launches = 0
+    lm.make_train_step(cfg)(params, opt_state, batch)
+    torch.cuda.synchronize()
+    assert (va.launches, fa.launches, fa.bwd_launches) == (
+        0, 2 * cfg.n_layers, cfg.n_layers)
+
+    loss_f, grads_f = lm.loss_and_grads(params, batch, cfg)
+    loss_l, grads_l = lm.loss_and_grads(params, batch, local)
+    assert abs(float(loss_f) - float(loss_l)) < 5e-2
+    for g_f, g_l in zip(lm._leaves(grads_f), lm._leaves(grads_l)):
+        assert g_f.dtype == g_l.dtype == torch.bfloat16
+        scale = float(g_l.float().abs().max())
+        assert float((g_f.float() - g_l.float()).abs().max()) \
+            <= 0.05 * scale + 1e-6

@@ -46,7 +46,9 @@ def test_port_imports_no_jax_at_run_time():
     assert report["shape"] == [2, 64, 256]
     for mod in ("entry", "workloads.lm", "workloads.vector_add",
                 "workloads.flash_attention", "workloads.ring_attention",
-                "perf.chip_bench", "kernels.build"):
+                "workloads.checkpoint", "workloads.metrics_reporter",
+                "preemption", "perf.chip_bench", "perf.profile_forward",
+                "kernels.build"):
         assert f"kubernetes_tpu_torch.{mod}" in report["modules"]
 
 
