@@ -11,10 +11,13 @@ back:
 2. build: every kernel of ``kubernetes_tpu_torch/csrc`` with nvcc;
 3. vector_add: the kernel against plain ``x + y``, exactly, and timed;
 4. flash_attn: the flash-attention forward against plain attention at
-   the listed shapes, and timed beside PyTorch's SDPA as a yardstick;
+   the listed shapes (ragged tails, the edges of the kernels' tiles and
+   TMA boxes, many heads and a batch, the main path's shapes), and timed
+   at the main shapes beside PyTorch's SDPA pinned to each backend that
+   takes the inputs (flash, cuDNN, efficient) as a yardstick;
 5. flash_attn_bwd: the flash-attention backward against the plain
    backward at the same shapes, gated against an f32 backward, and timed
-   beside the backward of PyTorch's SDPA as a yardstick;
+   beside the backward of SDPA under each backend;
 6. entry: the tiny entry-point forward on the card against the CPU;
 7. main path (serving): the payload ``smoke_test`` and the 600M-config
    LM forward (d_model 2048, 8 layers, 16 heads of 128, d_ff 8192, vocab
@@ -42,6 +45,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -49,6 +53,8 @@ import time
 
 import torch
 import torch.nn.functional as F
+
+from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from kubernetes_tpu_torch.kernels import build
 from kubernetes_tpu_torch.perf import chip_bench
@@ -61,12 +67,21 @@ from kubernetes_tpu_torch.workloads import vector_add as va
 from kubernetes_tpu_torch.workloads.ring_attention import (
     reference_attention_with_lse)
 
-#: Flash-attention shapes (B, H, T, D): ragged tails and every head dim,
-#: then the main path's shapes (the t2k and t8k cases at 16 heads), which
-#: are also timed.
-FLASH_SHAPES = [(2, 4, 65, 32), (1, 2, 1000, 64), (4, 16, 2048, 128),
-                (1, 16, 8192, 128)]
-MAIN_FLASH_SHAPES = FLASH_SHAPES[2:]
+#: Flash-attention shapes (B, H, T, D): ragged tails and every head dim;
+#: T at the edges of the kernels' 64- and 128-row tiles and 64-row TMA
+#: boxes at every head dim; many heads and a batch (the grid's y and z
+#: axes); then the main path's shapes (the t2k and t8k cases at 16
+#: heads), which are also timed.
+MAIN_FLASH_SHAPES = [(4, 16, 2048, 128), (1, 16, 8192, 128)]
+FLASH_SHAPES = ([(2, 4, 65, 32), (1, 2, 1000, 64)]
+                + [(1, 2, t, d) for d in (32, 64, 128)
+                   for t in (1, 127, 128, 129, 255, 257)]
+                + [(8, 32, 129, 64)] + MAIN_FLASH_SHAPES)
+#: SDPA backends timed as the attention kernels' yardstick, each pinned
+#: with ``sdpa_kernel``; ``library_ms`` is the fastest that runs.
+SDPA_BACKENDS = {"flash": SDPBackend.FLASH_ATTENTION,
+                 "cudnn": SDPBackend.CUDNN_ATTENTION,
+                 "efficient": SDPBackend.EFFICIENT_ATTENTION}
 MAIN_CASES = ("lm-600m-t2k-flash", "lm-600m-t8k-flash")
 #: o against the plain version: both round o to bf16 and the kernel also
 #: rounds P to bf16 for the tensor cores, so allow two bf16 steps of |o|
@@ -101,6 +116,70 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def timed(kernel, plain, libraries: dict, iters: int,
+          plain_iters: int = 3) -> dict:
+    """Device times of ``kernel`` and of each library call, in turns
+    (kernel, libraries, libraries in reverse, kernel), each reported as
+    the mean of its two runs; ``plain`` timed once after."""
+    k1 = time_ms(kernel, iters)
+    first = {n: time_ms(f, iters) for n, f in libraries.items()}
+    second = {n: time_ms(f, iters) for n, f in reversed(libraries.items())}
+    k2 = time_ms(kernel, iters)
+    lib = {n: (first[n] + second[n]) / 2 for n in libraries}
+    best = min(lib, key=lib.get) if lib else None
+    return {"ms": (k1 + k2) / 2, "ms_runs": [k1, k2],
+            "plain_ms": time_ms(plain, plain_iters, 1),
+            "library_ms": lib[best] if best else None,
+            "library": best, "library_ms_by_name": lib,
+            "library_runs": {n: [first[n], second[n]] for n in libraries}}
+
+
+def add_bound(row: dict, flops: float, nbytes: float, name: str,
+              peak_ops: float | None = None) -> dict:
+    """``bound_ms`` and ``bound_by`` of the work, and the row's
+    ``share_of_bound`` (bound over its time) and ``ratio_to_library``
+    (its time over the fastest library call's)."""
+    row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes, name, peak_ops)
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    row["ratio_to_library"] = (row["ms"] / row["library_ms"]
+                               if row["library_ms"] else None)
+    return row
+
+
+def sdpa_forwards(q, k, v) -> dict:
+    """{backend: SDPA forward pinned to it} for each backend that takes
+    these inputs."""
+    fns = {}
+    for name, backend in SDPA_BACKENDS.items():
+        def fn(backend=backend):
+            with sdpa_kernel(backend):
+                return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        try:
+            fn()
+        except RuntimeError:
+            continue
+        fns[name] = fn
+    return fns
+
+
+def sdpa_backwards(q, k, v, do) -> dict:
+    """{backend: SDPA backward of a forward pinned to it} for each
+    backend that takes these inputs."""
+    fns = {}
+    for name, backend in SDPA_BACKENDS.items():
+        qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+        try:
+            with sdpa_kernel(backend):
+                out = F.scaled_dot_product_attention(qs, ks, vs,
+                                                     is_causal=True)
+            torch.autograd.grad(out, (qs, ks, vs), do, retain_graph=True)
+        except RuntimeError:
+            continue
+        fns[name] = (lambda out=out, leaves=(qs, ks, vs): torch.autograd.grad(
+            out, leaves, do, retain_graph=True))
+    return fns
+
+
 def bound_ms(flops: float, nbytes: float, name: str,
              peak_ops: float | None = None) -> tuple[float, str]:
     """Least time for the work on this card: the larger of operations
@@ -127,19 +206,18 @@ def check_vector_add(gen, name: str) -> dict:
             row = {"n": n, "dtype": str(dtype).replace("torch.", ""),
                    "max_abs_err": 0.0}
             if dtype == torch.float32:
-                b, by = bound_ms(n, 3 * n * x.element_size(), name, F32_FLOPS)
                 iters = 200 if n <= 1 << 16 else 50
-                row.update(
-                    ms=time_ms(lambda: va.vector_add(x, y), iters),
-                    plain_ms=time_ms(lambda: va.vector_add_plain(x, y), iters),
-                    library_ms=time_ms(lambda: torch.add(x, y), iters),
-                    bound_ms=b, bound_by=by)
+                row.update(timed(lambda: va.vector_add(x, y),
+                                 lambda: va.vector_add_plain(x, y),
+                                 {"torch.add": lambda: torch.add(x, y)},
+                                 iters, iters))
+                add_bound(row, n, 3 * n * x.element_size(), name, F32_FLOPS)
             results.append(row)
     say("vector_add", ok=True, results=results)
     return results[0]  # the main path's shape: n = 1 << 16, f32
 
 
-def check_flash(gen, name: str) -> dict:
+def check_flash(gen, name: str) -> list[dict]:
     results = {}
     for b, h, t, d in FLASH_SHAPES:
         q, k, v = (torch.randn((b, h, t, d), generator=gen, device="cuda")
@@ -161,21 +239,16 @@ def check_flash(gen, name: str) -> dict:
         if (b, h, t, d) in MAIN_FLASH_SHAPES:
             flops = 4.0 * b * h * d * t * (t + 1) / 2
             nbytes = 4 * b * h * t * d * 2 + b * h * t * 4
-            bnd, by = bound_ms(flops, nbytes, name)
-            row.update(
-                ms=time_ms(lambda: fa.flash_attention_fwd(q, k, v), 20),
-                plain_ms=time_ms(
-                    lambda: reference_attention_with_lse(q, k, v), 3, 1),
-                library_ms=time_ms(
-                    lambda: F.scaled_dot_product_attention(
-                        q, k, v, is_causal=True), 20),
-                bound_ms=bnd, bound_by=by)
+            row.update(timed(lambda: fa.flash_attention_fwd(q, k, v),
+                             lambda: reference_attention_with_lse(q, k, v),
+                             sdpa_forwards(q, k, v), 20))
+            add_bound(row, flops, nbytes, name)
             row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
             torch.cuda.empty_cache()
         results[(b, h, t, d)] = row
     say("flash_attn", ok=True, o_atol=O_ATOL, o_rtol=O_RTOL,
         lse_atol=LSE_ATOL, results=list(results.values()))
-    return results[MAIN_FLASH_SHAPES[0]]
+    return [results[shape] for shape in MAIN_FLASH_SHAPES]
 
 
 def drift(got: torch.Tensor, plain: torch.Tensor,
@@ -195,7 +268,7 @@ def drift(got: torch.Tensor, plain: torch.Tensor,
     return row
 
 
-def check_flash_bwd(gen, name: str) -> dict:
+def check_flash_bwd(gen, name: str) -> list[dict]:
     """The backward kernel against the plain backward on the same bf16
     inputs (o and lse from the forward kernel). Gate: each gradient's
     deviation from the f32 gradient (the plain backward of f32 attention
@@ -221,30 +294,30 @@ def check_flash_bwd(gen, name: str) -> dict:
             for g, p in zip(got, plain))}
         for gname, g, p, e in zip(("dq", "dk", "dv"), got, plain, exact):
             row[gname] = drift(g, p, e)
+            if gname in ("dq", "dk") and t == 1:
+                # At T = 1 a softmax over one key has no score gradient:
+                # dS, dq and dk are 0, and both deviations are f32
+                # rounding of the cancelling dP - delta, whose ratio says
+                # nothing. The kernel is held to O_ATOL of them, the
+                # bound the card tests keep against the plain version.
+                row[gname]["ok"] = row[gname]["max_abs_vs_f32"] <= O_ATOL
             if not (row[gname]["ok"] and bool(torch.isfinite(g).all())):
                 raise AssertionError(f"flash_attn_bwd {gname} drifts: {row}")
         del plain, exact, x32
         if (b, h, t, d) in MAIN_FLASH_SHAPES:
             flops = 10.0 * b * h * d * t * (t + 1) / 2
             nbytes = 8 * b * h * t * d * 2 + b * h * t * 4
-            bnd, by = bound_ms(flops, nbytes, name)
-            qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
-            out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
-            row.update(
-                ms=time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse,
-                                                          do), 20),
-                plain_ms=time_ms(lambda: fa.flash_attention_bwd_plain(
-                    q, k, v, o, lse, do), 3, 1),
-                library_ms=time_ms(lambda: torch.autograd.grad(
-                    out, (qs, ks, vs), do, retain_graph=True), 20),
-                bound_ms=bnd, bound_by=by)
+            row.update(timed(
+                lambda: fa.flash_attention_bwd(q, k, v, o, lse, do),
+                lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do),
+                sdpa_backwards(q, k, v, do), 20))
+            add_bound(row, flops, nbytes, name)
             row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
-            del out, qs, ks, vs
         del got, q, k, v, do, o, lse
         torch.cuda.empty_cache()
         results[(b, h, t, d)] = row
     say("flash_attn_bwd", ok=True, results=list(results.values()))
-    return results[MAIN_FLASH_SHAPES[0]]
+    return [results[shape] for shape in MAIN_FLASH_SHAPES]
 
 
 def check_entry() -> None:
@@ -420,12 +493,15 @@ def main() -> int:
                    if any(w in ln for w in ("entry function", "registers",
                                             "spill"))]
              for src, log in logs.items()}
-    say("build", ok=True, seconds=time.perf_counter() - t0, ptxas=ptxas)
+    spills = [ln for lines in ptxas.values() for ln in lines
+              if re.search(r"[1-9][0-9]* bytes spill", ln)]
+    say("build", ok=True, seconds=time.perf_counter() - t0, spills=spills,
+        ptxas=ptxas)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     va_row = check_vector_add(gen, name)
-    fa_row = check_flash(gen, name)
-    bwd_row = check_flash_bwd(gen, name)
+    fa_rows = check_flash(gen, name)
+    bwd_rows = check_flash_bwd(gen, name)
     check_entry()
 
     # The main path, counted: every counter to 0 just before, read after.
@@ -493,22 +569,23 @@ def main() -> int:
                for k in launches}
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
-    at = "B{} H{} T{} D{} bf16".format(*MAIN_FLASH_SHAPES[0])
+            "library_ms", "library", "ratio_to_library", "share_of_bound")
     kernels = [
         {"name": "vector_add", "route": "cuda",
          "source": "kubernetes_tpu_torch/csrc/vector_add.cu",
          "replaces": "kubernetes_tpu/workloads/vector_add.py:17-26",
-         "at": "n=65536 float32", **{k: va_row[k] for k in keys}},
-        {"name": "flash_attn_fwd", "route": "cuda",
-         "source": "kubernetes_tpu_torch/csrc/flash_attn_fwd.cu",
-         "replaces": "kubernetes_tpu/workloads/lm.py:163-239",
-         "at": at, **{k: fa_row[k] for k in keys}},
-        {"name": "flash_attn_bwd", "route": "cuda",
-         "source": "kubernetes_tpu_torch/csrc/flash_attn_bwd.cu",
-         "replaces": "kubernetes_tpu/workloads/lm.py:193-197, 232-236",
-         "at": at, **{k: bwd_row[k] for k in keys}},
-    ]
+         "at": "n=65536 float32", **{k: va_row[k] for k in keys}}]
+    for shape, fa_row, bwd_row in zip(MAIN_FLASH_SHAPES, fa_rows, bwd_rows):
+        at = "B{} H{} T{} D{} bf16".format(*shape)
+        kernels += [
+            {"name": "flash_attn_fwd", "route": "cuda",
+             "source": "kubernetes_tpu_torch/csrc/flash_attn_fwd.cu",
+             "replaces": "kubernetes_tpu/workloads/lm.py:163-239",
+             "at": at, **{k: fa_row[k] for k in keys}},
+            {"name": "flash_attn_bwd", "route": "cuda",
+             "source": "kubernetes_tpu_torch/csrc/flash_attn_bwd.cu",
+             "replaces": "kubernetes_tpu/workloads/lm.py:193-197, 232-236",
+             "at": at, **{k: bwd_row[k] for k in keys}}]
     for kern in kernels:
         kern["launches"] = sum(by_path[kern["name"]].values())
         kern["launches_by_path"] = by_path[kern["name"]]

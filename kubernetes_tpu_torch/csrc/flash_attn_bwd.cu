@@ -14,158 +14,77 @@
 // One backward takes every T, as one forward does (flash_attn_fwd.cu).
 //
 // Layout: q, k, v, o, do, dq, dk, dv contiguous [B, H, T, D] bf16; lse and
-// the delta scratch [B, H, T] f32. Products are `mma.sync.m16n8k16` bf16
-// -> f32; scores, exponentials, dP, delta and the accumulators are f32.
-// P and dS, the operands the kernel makes itself, enter the tensor cores
-// as two bf16 parts, hi + lo (acc_to_a_split). Rounded once to bf16, as
-// FlashAttention-2 takes them, their error over a long sum reached 2.1x
-// the largest deviation of the f32 backward of the same bf16 inputs at
-// T = 8192 (measured on an H100); the split keeps the kernel's deviation
-// equal to that backward's for 18% more kernel time.
-//
-// Design (FlashAttention-2's dK/dV and dQ kernels, written from the math
-// above):
-//   1. delta kernel: rowsum(do * o) in f32, D/8 threads per row.
-//   2. dK/dV kernel: one block of four warps per (64-key tile, head,
-//      batch); each warp owns 16 keys and keeps their dK and dV
-//      accumulators in registers. A loop over the q-tiles from the
-//      diagonal tile to the end stages q, do, lse and delta in shared
-//      memory. With keys as rows it computes S^T = K Q^T, so P^T sits in
-//      the accumulator layout, which is the A-operand layout of
-//      dV += P^T dO: P never goes through shared memory. Likewise
-//      dP^T = V dO^T, dS^T = P^T * (dP^T - delta) and dK += dS^T Q. Each
-//      q-tile is taken in two passes of 32 columns to keep S^T and dP^T
-//      to 16 registers each beside the 128 of the accumulators at D128;
-//      K and V stay in shared memory and are read per k-step.
-//   3. dQ kernel: one block per (64-query tile, head, batch); a loop over
-//      the key tiles up to the diagonal computes S, P, dP = dO V^T and dS,
-//      and accumulates dQ += dS K in registers. No atomics: every output
-//      element has one writer, so the result is deterministic.
-// Keys and queries past T are zero-filled and masked: P is 0 there, so
-// rows past T add nothing to dK/dV and keys past T nothing to dQ.
+// the delta scratch [B, H, T] f32. Scores, exponentials, dP, delta and the
+// accumulators are f32. P and dS, the operands the kernel makes itself,
+// enter the tensor cores as two bf16 parts, hi + lo (acc_to_a_split in
+// hopper.cuh). Rounded once to bf16, as FlashAttention-2 takes them,
+// their error over a long sum reached 2.1x the largest deviation of the
+// f32 backward of the same bf16 inputs at T = 8192 (measured on an
+// H100); the split keeps the kernel's deviation equal to that backward's.
 //
 // Bound: operations. The useful work is five causal matmuls (S, dP, dV,
 // dK, dQ), 2.5x the forward's: 10 * B * H * D * T(T+1)/2 FLOPs, 171.9
 // GFLOP at B4 H16 T2048 D128, >= 0.174 ms at 989 TFLOP/s, while its
 // ~270 MB of bf16 tensors take 0.08 ms at 3.35 TB/s. This design
-// recomputes S and dP in both kernels and takes the three products with
-// P or dS twice (hi and lo): ten matmuls of the size of the five counted.
-// It is simple rather than fast: no wgmma, no TMA, no copy/compute
-// overlap.
-#include <cuda_bf16.h>
+// executes ten products of that size: S and dP in both the dK/dV and the
+// dQ kernel, and the three products with P or dS twice (hi and lo). So
+// every product is a `wgmma` (the only path to the tensor cores' full
+// rate), every tile arrives by TMA into a ring that overlaps the next
+// tile's copy with this tile's products, and no operand is gathered by
+// hand.
+//
+// Design (FlashAttention-2's split into three kernels, no atomics: every
+// output element has one writer, so the result is deterministic;
+// building blocks in hopper.cuh):
+//   1. delta kernel: rowsum(do * o) in f32, D/8 threads per row.
+//   2. dK/dV kernel: one block per (128-key tile, head, batch). K and V
+//      stay in shared memory for the whole loop. A producer warp
+//      TMA-loads the Q and dO tiles of 64 queries into a two-stage ring
+//      and copies their lse (log2-scaled) and delta beside them with
+//      ordinary loads (their row stride T * 4 is not a TMA stride). Two
+//      consumer warpgroups own 64 keys each and, for every q-tile from
+//      the diagonal to the end, compute S^T = K Q^T and dP^T = V dO^T
+//      (both operands in shared memory), P^T and dS^T in f32 registers,
+//      then dV += P^T dO and dK += dS^T Q with A from registers (the
+//      accumulator layout of S^T is the A layout) and Q, dO as
+//      transposed B operands. dK and dV take 128 f32 registers per
+//      thread at D128; `setmaxnreg` gives the consumers 240, and at D128
+//      each q-tile is taken in two passes of 32 queries, so S^T, dP^T
+//      and their bf16 parts fit beside the accumulators without spills.
+//   3. dQ kernel: one block per (128-query tile, head, batch). Q and dO
+//      stay in shared memory; K and V tiles of 64 keys go through the
+//      ring up to the diagonal. Per tile: S = Q K^T, dP = dO V^T, dS in
+//      registers, dQ += dS K with K as a transposed B.
+// Rows past T arrive as zeros from TMA. Their lse reads as +inf, so P is
+// 0 there and they add nothing to dK and dV; keys past T lie after every
+// valid query, so the causal mask hides them from dQ.
 #include <math.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kBlock = 64;  // rows of a tile: keys (dK/dV) or queries (dQ)
-constexpr int kWarps = 4;   // 16 rows each
-constexpr int kThreads = kWarps * 32;
-constexpr int kSub = 32;    // q columns per register pass, dK/dV kernel
+using namespace hopper;
+
+constexpr int kStages = 2;
+constexpr int kConsumers = 256;             // two warpgroups of 64 rows
+constexpr int kThreads = kConsumers + 128;  // + the producer warpgroup
+constexpr int kKeyBlock = 128;  // dK/dV kernel: keys per block
+constexpr int kQTile = 64;      // dK/dV kernel: queries per ring tile
+constexpr int kQBlock = 128;    // dQ kernel: queries per block
+constexpr int kKeyTile = 64;    // dQ kernel: keys per ring tile
 constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
-                                          const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Two f32 values as one register of two bf16, `lo` in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t load_pair(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// A fragment (16 rows x 16 k) of a row-major tile in shared memory;
-// `m` points at row 0, column k0 of the 16-row slab.
-__device__ __forceinline__ void load_a(uint32_t* a, const uint16_t* m,
-                                       int stride, int g, int c) {
-  a[0] = load_pair(m + g * stride + 2 * c);
-  a[1] = load_pair(m + (g + 8) * stride + 2 * c);
-  a[2] = load_pair(m + g * stride + 2 * c + 8);
-  a[3] = load_pair(m + (g + 8) * stride + 2 * c + 8);
-}
-
-// B fragment (16 k x 8 n) of a product with M^T, M row-major in shared
-// memory: B[k][n] = M[n][k], so each register is two neighbours of one
-// row. `m` points at row n0, column k0.
-__device__ __forceinline__ void load_b_rows(uint32_t* b, const uint16_t* m,
-                                            int stride, int g, int c) {
-  b[0] = load_pair(m + g * stride + 2 * c);
-  b[1] = load_pair(m + g * stride + 2 * c + 8);
-}
-
-// B fragment (16 k x 8 n) of a product with M itself: B[k][n] = M[k][n],
-// so each register pairs two rows of one column. `m` points at row k0,
-// column n0.
-__device__ __forceinline__ void load_b_cols(uint32_t* b, const uint16_t* m,
-                                            int stride, int g, int c) {
-  const uint16_t* p = m + (2 * c) * stride + g;
-  b[0] = static_cast<uint32_t>(p[0]) |
-         (static_cast<uint32_t>(p[stride]) << 16);
-  b[1] = static_cast<uint32_t>(p[8 * stride]) |
-         (static_cast<uint32_t>(p[9 * stride]) << 16);
-}
-
-// The accumulators of n-tiles 2kk (`c0`) and 2kk+1 (`c1`) as the A
-// fragment of k-step kk of a product that contracts over those 16
-// columns, in two parts: `hi`, the values rounded to bf16, and `lo`, the
-// bf16 rounding of what `hi` left out. hi + lo carries ~16 significant
-// bits, so a product taken as two mma (hi, then lo) loses almost nothing
-// to the bf16 operand.
-__device__ __forceinline__ void acc_to_a_split(uint32_t* hi, uint32_t* lo,
-                                               const float* c0,
-                                               const float* c1) {
-  const float v[8] = {c0[0], c0[1], c0[2], c0[3], c1[0], c1[1], c1[2], c1[3]};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-    const float2 hf = __bfloat1622float2(h);
-    hi[i] = *reinterpret_cast<const uint32_t*>(&h);
-    lo[i] = pack_bf16(v[2 * i] - hf.x, v[2 * i + 1] - hf.y);
-  }
-}
-
-// Rows [row0, row0 + kBlock) of a [T, D] matrix into shared memory with
-// row stride D + 8 (16-byte aligned, spread over the banks); rows past T
-// are zero.
-template <int D>
-__device__ __forceinline__ void load_tile(uint16_t* dst, const uint16_t* src,
-                                          int row0, int T) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < kBlock * kChunks; i += kThreads) {
-    const int row = i / kChunks;
-    const int col = (i % kChunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + row < T) {
-      val = *reinterpret_cast<const uint4*>(
-          src + static_cast<int64_t>(row0 + row) * D + col);
-    }
-    *reinterpret_cast<uint4*>(dst + row * (D + 8) + col) = val;
-  }
-}
-
-template <int D>
-constexpr int smem_bytes() {
-  return 4 * kBlock * (D + 8) * 2 + 2 * kBlock * 4;
-}
+constexpr int kDeltaThreads = 128;
 
 // delta[r] = sum_d do[r, d] * o[r, d] in f32, for rows = B * H * T rows.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kDeltaThreads)
 flash_bwd_delta_kernel(const uint16_t* __restrict__ o,
                        const uint16_t* __restrict__ dout,
                        float* __restrict__ delta, int64_t rows) {
   constexpr int kLanes = D / 8;  // threads per row, 16 bytes each
-  constexpr int kRows = kThreads / kLanes;
+  constexpr int kRows = kDeltaThreads / kLanes;
   const int64_t row = static_cast<int64_t>(blockIdx.x) * kRows +
                       threadIdx.x / kLanes;
   const int part = threadIdx.x % kLanes;
@@ -190,313 +109,389 @@ flash_bwd_delta_kernel(const uint16_t* __restrict__ o,
   if (part == 0 && row < rows) delta[row] = sum;
 }
 
+// dK/dV kernel shared memory, from a 1024-byte aligned base: K, V, then
+// per stage Q, dO, lse, delta (padded to 1024 B), then the barriers.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const uint16_t* __restrict__ q,
-                      const uint16_t* __restrict__ k,
-                      const uint16_t* __restrict__ v,
-                      const uint16_t* __restrict__ dout,
+struct DkvSmem {
+  static constexpr int kK = 0;
+  static constexpr int kV = Tile<D>::bytes(kKeyBlock);
+  static constexpr int kStage0 = 2 * Tile<D>::bytes(kKeyBlock);
+  static constexpr int kQ = 0;  // offsets within a stage
+  static constexpr int kDo = Tile<D>::bytes(kQTile);
+  static constexpr int kLse = 2 * Tile<D>::bytes(kQTile);
+  static constexpr int kDelta = kLse + kQTile * 4;
+  static constexpr int kStage = (kDelta + kQTile * 4 + 1023) / 1024 * 1024;
+  static constexpr int kBar = kStage0 + kStages * kStage;
+  // kv_full, full[kStages], empty[kStages]
+  static constexpr int kAlloc = kBar + 8 * (1 + 2 * kStages) + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdo,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta,
                       uint16_t* __restrict__ dk, uint16_t* __restrict__ dv,
                       int T, float scale, float scale_log2) {
-  constexpr int S = D + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  uint16_t* ks = reinterpret_cast<uint16_t*>(smem);  // this block's keys
-  uint16_t* vs = ks + kBlock * S;
-  uint16_t* qs = vs + kBlock * S;  // the current q-tile
-  uint16_t* dos = qs + kBlock * S;
-  float* lse_s = reinterpret_cast<float*>(dos + kBlock * S);  // log2 domain
-  float* delta_s = lse_s + kBlock;
+  using L = DkvSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t kv_full = base + L::kBar;
+  const uint32_t full = kv_full + 8;
+  const uint32_t empty = full + 8 * kStages;
 
-  // Key tile 0 loops over every q-tile: issue the longest first.
-  const int tile = blockIdx.x;
-  const int64_t head = static_cast<int64_t>(blockIdx.z) * gridDim.y + blockIdx.y;
-  const uint16_t* qh = q + head * T * D;
-  const uint16_t* kh = k + head * T * D;
-  const uint16_t* vh = v + head * T * D;
-  const uint16_t* doh = dout + head * T * D;
-  const float* lseh = lse + head * T;
-  const float* deltah = delta + head * T;
+  // One block per (key tile, head), the tile-major index walking every
+  // head's key tile 0, which loops over every q-tile, first.
+  const int key_blocks = (T + kKeyBlock - 1) / kKeyBlock;
+  const int heads = gridDim.x / key_blocks;
+  const int tile = static_cast<int>(blockIdx.x) / heads;
+  const int head = blockIdx.x % heads;
+  const int n0 = tile * kKeyBlock;
+  // Causal: the q-tiles from the one holding key n0 to the end.
+  const int m_first = n0 / kQTile;
+  const int n_iters = (T + kQTile - 1) / kQTile - m_first;
 
-  const int warp = threadIdx.x / 32;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 32);  // the producer warp's lanes
+      mbar_init(empty + 8 * s, kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x < kConsumers + 32) {
+      // Producer warp: lane 0 issues the copies; every lane copies two
+      // rows of lse and delta.
+      const int lane = threadIdx.x - kConsumers;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(kv_full, 2 * Tile<D>::bytes(kKeyBlock));
+        Tile<D>::load(base + L::kK, &tk, kv_full, n0, kKeyBlock, head);
+        Tile<D>::load(base + L::kV, &tv, kv_full, n0, kKeyBlock, head);
+      }
+      const float* lseh = lse + static_cast<int64_t>(head) * T;
+      const float* deltah = delta + static_cast<int64_t>(head) * T;
+      for (int it = 0; it < n_iters; ++it) {
+        const int s = it % kStages;
+        const int m0 = (m_first + it) * kQTile;
+        const uint32_t stage = base + L::kStage0 + s * L::kStage;
+        mbar_wait(empty + 8 * s, ((it / kStages) & 1) ^ 1);
+        float* lse_s = reinterpret_cast<float*>(smem + (stage - base) + L::kLse);
+        float* delta_s =
+            reinterpret_cast<float*>(smem + (stage - base) + L::kDelta);
+#pragma unroll
+        for (int r = lane; r < kQTile; r += 32) {
+          const bool in = m0 + r < T;
+          lse_s[r] = in ? lseh[m0 + r] * kLog2e : INFINITY;
+          delta_s[r] = in ? deltah[m0 + r] : 0.f;
+        }
+        if (lane == 0) {
+          mbar_arrive_expect_tx(full + 8 * s, 2 * Tile<D>::bytes(kQTile));
+          Tile<D>::load(stage + L::kQ, &tq, full + 8 * s, m0, kQTile, head);
+          Tile<D>::load(stage + L::kDo, &tdo, full + 8 * s, m0, kQTile, head);
+        } else {
+          mbar_arrive(full + 8 * s);
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<240>();
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x % 128) / 32;
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;
   const int c = lane % 4;
-  const int n0 = tile * kBlock;
-  const int wkey = n0 + warp * 16;  // this warp's first key
-  const int key0 = wkey + g;        // this thread's two keys
-  const int key1 = key0 + 8;
-  const uint16_t* kw = ks + warp * 16 * S;
-  const uint16_t* vw = vs + warp * 16 * S;
+  const int kw0 = n0 + wg * 64;            // this warpgroup's first key
+  const int key0 = kw0 + warp * 16 + g;    // this thread's keys key0, key0+8
+  // Query columns per register pass: at D128 dK and dV already hold 128
+  // f32 per thread, so a q-tile is taken in two passes of 32.
+  constexpr int kCols = D == 128 ? 32 : kQTile;
 
-  load_tile<D>(ks, kh, n0, T);
-  load_tile<D>(vs, vh, n0, T);
-
-  float dk_acc[D / 8][4];
-  float dv_acc[D / 8][4];
+  float dk_acc[D / 2];
+  float dv_acc[D / 2];
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[dt][e] = dv_acc[dt][e] = 0.f;
-  }
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
-  const int n_tiles = (T + kBlock - 1) / kBlock;
-  // Causal: queries at or after this tile's first key, i.e. q-tiles
-  // tile..n_tiles-1.
-  for (int i = tile; i < n_tiles; ++i) {
-    const int m0 = i * kBlock;
-    __syncthreads();  // every warp is done with the previous q-tile
-    load_tile<D>(qs, qh, m0, T);
-    load_tile<D>(dos, doh, m0, T);
-    if (threadIdx.x < kBlock) {
-      const int r = m0 + threadIdx.x;
-      lse_s[threadIdx.x] = r < T ? lseh[r] * kLog2e : 0.f;
-      delta_s[threadIdx.x] = r < T ? deltah[r] : 0.f;
-    }
-    __syncthreads();
-
+  mbar_wait(kv_full, 0);
+  for (int it = 0; it < n_iters; ++it) {
+    const int s = it % kStages;
+    const int m = m_first + it;
+    const uint32_t stage = base + L::kStage0 + s * L::kStage;
+    mbar_wait(full + 8 * s, (it / kStages) & 1);
+    const uint32_t qs = stage + L::kQ;
+    const uint32_t dos = stage + L::kDo;
+    const float* lse_s =
+        reinterpret_cast<const float*>(smem + (stage - base) + L::kLse);
+    const float* delta_s =
+        reinterpret_cast<const float*>(smem + (stage - base) + L::kDelta);
 #pragma unroll 1
-    for (int c0 = 0; c0 < kBlock; c0 += kSub) {
-      // Warp-uniform skips (no barrier inside this loop): every query of
-      // the pass is before this warp's first key, or past T.
-      if (m0 + c0 + kSub - 1 < wkey) continue;
-      if (m0 + c0 >= T) break;
+    for (int c0 = 0; c0 < kQTile; c0 += kCols) {
+      const int q0 = m * kQTile + c0;  // the pass's first query
+      // Passes wholly before this warpgroup's keys add nothing.
+      if (q0 + kCols - 1 < kw0) continue;
 
-      // S^T = K Q^T: this warp's 16 keys x the pass's 32 queries.
-      float st[kSub / 8][4];
+      // S^T = K Q^T and dP^T = V dO^T: 64 keys x kCols queries each.
+      float st[kCols / 2];
+      float dpt[kCols / 2];
+      wgmma_fence();
 #pragma unroll
-      for (int nt = 0; nt < kSub / 8; ++nt) {
-        st[nt][0] = st[nt][1] = st[nt][2] = st[nt][3] = 0.f;
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wgmma_ss<kCols>(st, Tile<D>::kmajor(base + L::kK, kKeyBlock, wg * 64, kk),
+                        Tile<D>::kmajor(qs, kQTile, c0, kk), kk > 0);
       }
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t a[4];
-        load_a(a, kw + kk * 16, S, g, c);
-#pragma unroll
-        for (int nt = 0; nt < kSub / 8; ++nt) {
-          uint32_t b[2];
-          load_b_rows(b, qs + (c0 + nt * 8) * S + kk * 16, S, g, c);
-          mma_16816(st[nt], a, b);
-        }
+        wgmma_ss<kCols>(dpt, Tile<D>::kmajor(base + L::kV, kKeyBlock, wg * 64, kk),
+                        Tile<D>::kmajor(dos, kQTile, c0, kk), kk > 0);
       }
-      // P^T = exp2(S^T * scale * log2(e) - lse * log2(e)); 0 where the
-      // key is after the query or the query is past T.
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<kCols / 2>(st);
+      fence_regs<kCols / 2>(dpt);
+
+      // P^T = exp2(S^T * scale * log2(e) - lse * log2(e)), 0 where the
+      // key is after the query; dS^T = P^T * (dP^T - delta) in place of
+      // dP^T. Queries are the columns here.
+      const bool diagonal = q0 <= kw0 + 63;
 #pragma unroll
-      for (int nt = 0; nt < kSub / 8; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = c0 + nt * 8 + 2 * c + (e & 1);  // within the tile
-          const int qrow = m0 + col;
-          const int key = e < 2 ? key0 : key1;
-          st[nt][e] = (key > qrow || qrow >= T)
-                          ? 0.f
-                          : exp2f(st[nt][e] * scale_log2 - lse_s[col]);
-        }
+      for (int i = 0; i < kCols / 2; i += 2) {
+        const int col = c0 + 8 * (i / 4) + 2 * c;  // within the q-tile
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_s + col);
+        const float2 dl = *reinterpret_cast<const float2*>(delta_s + col);
+        const int key = key0 + 8 * ((i % 4) / 2);
+        const int q = m * kQTile + col;
+        float p0 = exp2f(st[i] * scale_log2 - l2.x);
+        float p1 = exp2f(st[i + 1] * scale_log2 - l2.y);
+        if (diagonal && key > q) p0 = 0.f;
+        if (diagonal && key > q + 1) p1 = 0.f;
+        dpt[i] = p0 * (dpt[i] - dl.x);
+        dpt[i + 1] = p1 * (dpt[i + 1] - dl.y);
+        st[i] = p0;
+        st[i + 1] = p1;
       }
-      // dV += P^T dO, contracting over the pass's 32 queries.
+
+      // dV += P^T dO, then dK += dS^T Q, contracting over the pass's
+      // queries (k-slices c0/16.. of the q-tile).
+      uint32_t p_hi[kCols / 16][4], p_lo[kCols / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < kSub / 16; ++kk) {
-        uint32_t hi[4], lo[4];
-        acc_to_a_split(hi, lo, st[2 * kk], st[2 * kk + 1]);
-#pragma unroll
-        for (int dt = 0; dt < D / 8; ++dt) {
-          uint32_t b[2];
-          load_b_cols(b, dos + (c0 + kk * 16) * S + dt * 8, S, g, c);
-          mma_16816(dv_acc[dt], hi, b);
-          mma_16816(dv_acc[dt], lo, b);
-        }
+      for (int kk = 0; kk < kCols / 16; ++kk) {
+        acc_to_a_split(p_hi[kk], p_lo[kk], st + 8 * kk);
       }
-      // dP^T = V dO^T.
-      float dpt[kSub / 8][4];
+      wgmma_fence();
 #pragma unroll
-      for (int nt = 0; nt < kSub / 8; ++nt) {
-        dpt[nt][0] = dpt[nt][1] = dpt[nt][2] = dpt[nt][3] = 0.f;
+      for (int kk = 0; kk < kCols / 16; ++kk) {
+        const uint64_t b = Tile<D>::mnmajor(dos, kQTile, c0 / 16 + kk);
+        wgmma_rs<D>(dv_acc, p_hi[kk], b, 1);
+        wgmma_rs<D>(dv_acc, p_lo[kk], b, 1);
       }
+      wgmma_commit();
+      uint32_t ds_hi[kCols / 16][4], ds_lo[kCols / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t a[4];
-        load_a(a, vw + kk * 16, S, g, c);
-#pragma unroll
-        for (int nt = 0; nt < kSub / 8; ++nt) {
-          uint32_t b[2];
-          load_b_rows(b, dos + (c0 + nt * 8) * S + kk * 16, S, g, c);
-          mma_16816(dpt[nt], a, b);
-        }
+      for (int kk = 0; kk < kCols / 16; ++kk) {
+        acc_to_a_split(ds_hi[kk], ds_lo[kk], dpt + 8 * kk);
       }
-      // dS^T = P^T * (dP^T - delta), in place of dP^T.
+      wgmma_fence();
 #pragma unroll
-      for (int nt = 0; nt < kSub / 8; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = c0 + nt * 8 + 2 * c + (e & 1);
-          dpt[nt][e] = st[nt][e] * (dpt[nt][e] - delta_s[col]);
-        }
+      for (int kk = 0; kk < kCols / 16; ++kk) {
+        const uint64_t b = Tile<D>::mnmajor(qs, kQTile, c0 / 16 + kk);
+        wgmma_rs<D>(dk_acc, ds_hi[kk], b, 1);
+        wgmma_rs<D>(dk_acc, ds_lo[kk], b, 1);
       }
-      // dK += dS^T Q (scaled once, at the store).
-#pragma unroll
-      for (int kk = 0; kk < kSub / 16; ++kk) {
-        uint32_t hi[4], lo[4];
-        acc_to_a_split(hi, lo, dpt[2 * kk], dpt[2 * kk + 1]);
-#pragma unroll
-        for (int dt = 0; dt < D / 8; ++dt) {
-          uint32_t b[2];
-          load_b_cols(b, qs + (c0 + kk * 16) * S + dt * 8, S, g, c);
-          mma_16816(dk_acc[dt], hi, b);
-          mma_16816(dk_acc[dt], lo, b);
-        }
-      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<D / 2>(dv_acc);
+      fence_regs<D / 2>(dk_acc);
     }
+    mbar_arrive(empty + 8 * s);  // this stage's Q, dO, lse, delta are read
   }
 
-  uint16_t* dkh = dk + head * T * D;
-  uint16_t* dvh = dv + head * T * D;
+  uint16_t* dkh = dk + static_cast<int64_t>(head) * T * D;
+  uint16_t* dvh = dv + static_cast<int64_t>(head) * T * D;
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int col = dt * 8 + 2 * c;
-    if (key0 < T) {
-      const int64_t off = static_cast<int64_t>(key0) * D + col;
+  for (int i = 0; i < D / 2; i += 2) {
+    const int key = key0 + 8 * ((i % 4) / 2);
+    const int col = 8 * (i / 4) + 2 * c;
+    if (key < T) {
+      const int64_t off = static_cast<int64_t>(key) * D + col;
       *reinterpret_cast<uint32_t*>(dkh + off) =
-          pack_bf16(dk_acc[dt][0] * scale, dk_acc[dt][1] * scale);
+          pack_bf16(dk_acc[i] * scale, dk_acc[i + 1] * scale);
       *reinterpret_cast<uint32_t*>(dvh + off) =
-          pack_bf16(dv_acc[dt][0], dv_acc[dt][1]);
-    }
-    if (key1 < T) {
-      const int64_t off = static_cast<int64_t>(key1) * D + col;
-      *reinterpret_cast<uint32_t*>(dkh + off) =
-          pack_bf16(dk_acc[dt][2] * scale, dk_acc[dt][3] * scale);
-      *reinterpret_cast<uint32_t*>(dvh + off) =
-          pack_bf16(dv_acc[dt][2], dv_acc[dt][3]);
+          pack_bf16(dv_acc[i], dv_acc[i + 1]);
     }
   }
 }
 
+// dQ kernel shared memory: Q, dO, then per stage K and V, then barriers.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const uint16_t* __restrict__ q,
-                    const uint16_t* __restrict__ k,
-                    const uint16_t* __restrict__ v,
-                    const uint16_t* __restrict__ dout,
+struct DqSmem {
+  static constexpr int kQ = 0;
+  static constexpr int kDo = Tile<D>::bytes(kQBlock);
+  static constexpr int kStage0 = 2 * Tile<D>::bytes(kQBlock);
+  static constexpr int kK = 0;  // offsets within a stage
+  static constexpr int kV = Tile<D>::bytes(kKeyTile);
+  static constexpr int kStage = 2 * Tile<D>::bytes(kKeyTile);
+  static constexpr int kBar = kStage0 + kStages * kStage;
+  // qdo_full, full[kStages], empty[kStages]
+  static constexpr int kAlloc = kBar + 8 * (1 + 2 * kStages) + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
-                    uint16_t* __restrict__ dq,
-                    int T, float scale, float scale_log2) {
-  constexpr int S = D + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  uint16_t* qs = reinterpret_cast<uint16_t*>(smem);  // this block's queries
-  uint16_t* dos = qs + kBlock * S;
-  uint16_t* ks = dos + kBlock * S;  // the current key tile
-  uint16_t* vs = ks + kBlock * S;
+                    uint16_t* __restrict__ dq, int T, float scale,
+                    float scale_log2) {
+  using L = DqSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t qdo_full = base + L::kBar;
+  const uint32_t full = qdo_full + 8;
+  const uint32_t empty = full + 8 * kStages;
 
-  // Query tile i loops over key tiles 0..i: issue the longest first.
-  const int tile = gridDim.x - 1 - blockIdx.x;
-  const int64_t head = static_cast<int64_t>(blockIdx.z) * gridDim.y + blockIdx.y;
-  const uint16_t* qh = q + head * T * D;
-  const uint16_t* kh = k + head * T * D;
-  const uint16_t* vh = v + head * T * D;
-  const uint16_t* doh = dout + head * T * D;
-  const float* lseh = lse + head * T;
-  const float* deltah = delta + head * T;
+  // Query tile i loops over key tiles 0..2i+1; the tile-major index
+  // walks every head's longest q-tile first.
+  const int q_blocks = (T + kQBlock - 1) / kQBlock;
+  const int heads = gridDim.x / q_blocks;
+  const int tile = q_blocks - 1 - static_cast<int>(blockIdx.x) / heads;
+  const int head = blockIdx.x % heads;
+  const int m0 = tile * kQBlock;
+  const int key_tiles = (T + kKeyTile - 1) / kKeyTile;
+  const int diag = m0 / kKeyTile;  // key tile of the block's first row
+  const int n_iters = min(diag + kQBlock / kKeyTile, key_tiles);
 
-  const int warp = threadIdx.x / 32;
+  if (threadIdx.x == 0) {
+    mbar_init(qdo_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == kConsumers) {
+      mbar_arrive_expect_tx(qdo_full, 2 * Tile<D>::bytes(kQBlock));
+      Tile<D>::load(base + L::kQ, &tq, qdo_full, m0, kQBlock, head);
+      Tile<D>::load(base + L::kDo, &tdo, qdo_full, m0, kQBlock, head);
+      for (int it = 0; it < n_iters; ++it) {
+        const int s = it % kStages;
+        const uint32_t stage = base + L::kStage0 + s * L::kStage;
+        mbar_wait(empty + 8 * s, ((it / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(full + 8 * s, L::kStage);
+        Tile<D>::load(stage + L::kK, &tk, full + 8 * s, it * kKeyTile,
+                      kKeyTile, head);
+        Tile<D>::load(stage + L::kV, &tv, full + 8 * s, it * kKeyTile,
+                      kKeyTile, head);
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<240>();
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x % 128) / 32;
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;
   const int c = lane % 4;
-  const int m0 = tile * kBlock;
-  const int r0 = m0 + warp * 16 + g;  // this thread's two query rows
-  const int r1 = r0 + 8;
-  const uint16_t* qw = qs + warp * 16 * S;
-  const uint16_t* dow = dos + warp * 16 * S;
+  const int r0 = m0 + wg * 64 + warp * 16 + g;  // this thread's rows r0, r0+8
+  const int last = diag + wg;  // this warpgroup's diagonal key tile
 
-  load_tile<D>(qs, qh, m0, T);
-  load_tile<D>(dos, doh, m0, T);
-  const float lse2[2] = {r0 < T ? lseh[r0] * kLog2e : 0.f,
-                         r1 < T ? lseh[r1] * kLog2e : 0.f};
-  const float dl[2] = {r0 < T ? deltah[r0] : 0.f, r1 < T ? deltah[r1] : 0.f};
-
-  float dq_acc[D / 8][4];
+  // lse in the log2 domain; +inf past T makes P 0 there.
+  float lse2[2], dl[2];
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    dq_acc[dt][0] = dq_acc[dt][1] = dq_acc[dt][2] = dq_acc[dt][3] = 0.f;
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    const int64_t at = static_cast<int64_t>(head) * T + row;
+    lse2[r] = row < T ? lse[at] * kLog2e : INFINITY;
+    dl[r] = row < T ? delta[at] : 0.f;
   }
 
-  for (int j = 0; j <= tile; ++j) {
-    const int n0 = j * kBlock;
-    __syncthreads();  // every warp is done with the previous key tile
-    load_tile<D>(ks, kh, n0, T);
-    load_tile<D>(vs, vh, n0, T);
-    __syncthreads();
+  float dq_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
 
-    // S = Q K^T and dP = dO V^T: this warp's 16 queries x 64 keys.
-    float s[kBlock / 8][4];
-    float dp[kBlock / 8][4];
+  mbar_wait(qdo_full, 0);
+  for (int it = 0; it < n_iters; ++it) {
+    const int s = it % kStages;
+    const uint32_t stage = base + L::kStage0 + s * L::kStage;
+    mbar_wait(full + 8 * s, (it / kStages) & 1);
+    if (it <= last) {  // the key tile after the diagonal is all masked
+      const uint32_t ks = stage + L::kK;
+      const uint32_t vs = stage + L::kV;
+      // S = Q K^T and dP = dO V^T: 64 queries x 64 keys each.
+      float sc[kKeyTile / 2];
+      float dp[kKeyTile / 2];
+      wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < kBlock / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4];
-      load_a(a, qw + kk * 16, S, g, c);
-#pragma unroll
-      for (int nt = 0; nt < kBlock / 8; ++nt) {
-        uint32_t b[2];
-        load_b_rows(b, ks + nt * 8 * S + kk * 16, S, g, c);
-        mma_16816(s[nt], a, b);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wgmma_ss<kKeyTile>(sc, Tile<D>::kmajor(base + L::kQ, kQBlock, wg * 64, kk),
+                           Tile<D>::kmajor(ks, kKeyTile, 0, kk), kk > 0);
       }
-    }
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4];
-      load_a(a, dow + kk * 16, S, g, c);
-#pragma unroll
-      for (int nt = 0; nt < kBlock / 8; ++nt) {
-        uint32_t b[2];
-        load_b_rows(b, vs + nt * 8 * S + kk * 16, S, g, c);
-        mma_16816(dp[nt], a, b);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wgmma_ss<kKeyTile>(dp, Tile<D>::kmajor(base + L::kDo, kQBlock, wg * 64, kk),
+                           Tile<D>::kmajor(vs, kKeyTile, 0, kk), kk > 0);
       }
-    }
-    // P, masked where the key is after the row or the row is past T
-    // (a key past T is after every row before T); then dS in place of dP.
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<kKeyTile / 2>(sc);
+      fence_regs<kKeyTile / 2>(dp);
+
+      // P masked where the key is after the row, then dS in place of dP.
+      const bool diagonal = it == last;
 #pragma unroll
-    for (int nt = 0; nt < kBlock / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = e < 2 ? r0 : r1;
-        const int key = n0 + nt * 8 + 2 * c + (e & 1);
-        const float p = (key > row || row >= T)
-                            ? 0.f
-                            : exp2f(s[nt][e] * scale_log2 - lse2[e / 2]);
-        dp[nt][e] = p * (dp[nt][e] - dl[e / 2]);
+      for (int i = 0; i < kKeyTile / 2; ++i) {
+        const int r = (i % 4) / 2;
+        const int row = r0 + 8 * r;
+        const int key = it * kKeyTile + 8 * (i / 4) + 2 * c + (i % 2);
+        float p = exp2f(sc[i] * scale_log2 - lse2[r]);
+        if (diagonal && key > row) p = 0.f;
+        dp[i] = p * (dp[i] - dl[r]);
       }
-    }
-    // dQ += dS K (scaled once, at the store).
+      // dQ += dS K (scaled once, at the store).
+      uint32_t ds_hi[kKeyTile / 16][4], ds_lo[kKeyTile / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < kBlock / 16; ++kk) {
-      uint32_t hi[4], lo[4];
-      acc_to_a_split(hi, lo, dp[2 * kk], dp[2 * kk + 1]);
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        uint32_t b[2];
-        load_b_cols(b, ks + kk * 16 * S + dt * 8, S, g, c);
-        mma_16816(dq_acc[dt], hi, b);
-        mma_16816(dq_acc[dt], lo, b);
+      for (int kk = 0; kk < kKeyTile / 16; ++kk) {
+        acc_to_a_split(ds_hi[kk], ds_lo[kk], dp + 8 * kk);
       }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kKeyTile / 16; ++kk) {
+        const uint64_t b = Tile<D>::mnmajor(ks, kKeyTile, kk);
+        wgmma_rs<D>(dq_acc, ds_hi[kk], b, 1);
+        wgmma_rs<D>(dq_acc, ds_lo[kk], b, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<D / 2>(dq_acc);
     }
+    mbar_arrive(empty + 8 * s);  // this stage's K and V are read
   }
 
-  uint16_t* dqh = dq + head * T * D;
+  uint16_t* dqh = dq + static_cast<int64_t>(head) * T * D;
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int col = dt * 8 + 2 * c;
-    if (r0 < T) {
-      *reinterpret_cast<uint32_t*>(dqh + static_cast<int64_t>(r0) * D + col) =
-          pack_bf16(dq_acc[dt][0] * scale, dq_acc[dt][1] * scale);
-    }
-    if (r1 < T) {
-      *reinterpret_cast<uint32_t*>(dqh + static_cast<int64_t>(r1) * D + col) =
-          pack_bf16(dq_acc[dt][2] * scale, dq_acc[dt][3] * scale);
+  for (int i = 0; i < D / 2; i += 2) {
+    const int row = r0 + 8 * ((i % 4) / 2);
+    const int col = 8 * (i / 4) + 2 * c;
+    if (row < T) {
+      *reinterpret_cast<uint32_t*>(dqh + static_cast<int64_t>(row) * D + col) =
+          pack_bf16(dq_acc[i] * scale, dq_acc[i + 1] * scale);
     }
   }
 }
@@ -505,44 +500,55 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const void* lse, void* delta, void* dq, void* dk,
            void* dv, int B, int H, int T, float scale, cudaStream_t stream) {
-  constexpr int kSmem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap tq, tk, tv, tdo;
+  int err = make_tile_map<D>(&tq, q, B * H, T);
+  if (err == 0) err = make_tile_map<D>(&tk, k, B * H, T);
+  if (err == 0) err = make_tile_map<D>(&tv, v, B * H, T);
+  if (err == 0) err = make_tile_map<D>(&tdo, dout, B * H, T);
+  if (err == 0) {
+    err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               DkvSmem<D>::kAlloc);
+  }
+  if (err == 0) {
+    err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               DqSmem<D>::kAlloc);
+  }
+  if (err != 0) return err;
 
-  const auto* q16 = static_cast<const uint16_t*>(q);
-  const auto* k16 = static_cast<const uint16_t*>(k);
-  const auto* v16 = static_cast<const uint16_t*>(v);
-  const auto* do16 = static_cast<const uint16_t*>(dout);
   const auto* lse32 = static_cast<const float*>(lse);
   auto* delta32 = static_cast<float*>(delta);
   const float scale_log2 = scale * kLog2e;
 
   const int64_t rows = static_cast<int64_t>(B) * H * T;
-  constexpr int kRowsPerBlock = kThreads / (D / 8);
+  constexpr int kRowsPerBlock = kDeltaThreads / (D / 8);
   const int64_t delta_blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  if (delta_blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  flash_bwd_delta_kernel<D><<<static_cast<unsigned>(delta_blocks), kThreads,
-                              0, stream>>>(
-      static_cast<const uint16_t*>(o), do16, delta32, rows);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  // One block per (128-row tile, head) in both the dK/dV and dQ grids.
+  static_assert(kKeyBlock == kQBlock, "one grid size for both kernels");
+  const int64_t blocks =
+      static_cast<int64_t>((T + kQBlock - 1) / kQBlock) * B * H;
+  if (delta_blocks > 0x7fffffff || blocks > 0x7fffffff) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  flash_bwd_delta_kernel<D><<<static_cast<unsigned>(delta_blocks),
+                              kDeltaThreads, 0, stream>>>(
+      static_cast<const uint16_t*>(o), static_cast<const uint16_t*>(dout),
+      delta32, rows);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
 
-  const dim3 grid((T + kBlock - 1) / kBlock, H, B);
-  flash_bwd_dkdv_kernel<D><<<grid, kThreads, kSmem, stream>>>(
-      q16, k16, v16, do16, lse32, delta32, static_cast<uint16_t*>(dk),
+  flash_bwd_dkdv_kernel<D><<<static_cast<unsigned>(blocks), kThreads,
+                             DkvSmem<D>::kAlloc, stream>>>(
+      tq, tk, tv, tdo, lse32, delta32, static_cast<uint16_t*>(dk),
       static_cast<uint16_t*>(dv), T, scale, scale_log2);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
 
-  flash_bwd_dq_kernel<D><<<grid, kThreads, kSmem, stream>>>(
-      q16, k16, v16, do16, lse32, delta32, static_cast<uint16_t*>(dq), T,
-      scale, scale_log2);
+  flash_bwd_dq_kernel<D><<<static_cast<unsigned>(blocks), kThreads,
+                           DqSmem<D>::kAlloc, stream>>>(
+      tq, tk, tv, tdo, lse32, delta32, static_cast<uint16_t*>(dq), T, scale,
+      scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -12,207 +12,210 @@
 //
 // Layout: q, k, v, o are contiguous [B, H, T, D] bf16 (the reference's
 // layout); lse is [B, H, T] f32. Scores, the running max and sum, and
-// the output accumulator are f32; P is rounded to bf16 for the P.V
+// the output accumulator are f32; P is rounded once to bf16 for the P V
 // product, as the tensor cores take it.
-//
-// Design. One block of four warps per (q-tile of 64 rows, head, batch);
-// each warp owns 16 query rows and keeps its Q fragments and its output
-// accumulator in registers. An inner loop over 64-key tiles of K and V
-// (staged in shared memory) takes the place of the TPU kernel's
-// sequential grid axis, with an online softmax carrying max and sum
-// from tile to tile. The loop stops at the diagonal tile, so blocks
-// that the causal mask hides entirely are never loaded or computed, and
-// q-tiles are issued longest first so the short ones fill the tail.
-// Products are `mma.sync.m16n8k16` bf16 -> f32: the S accumulator's
-// register layout is the A-operand layout of the P.V product, so P
-// never leaves registers. Keys and queries past T are masked, so any T
-// works. D is a template parameter: 32, 64 or 128.
 //
 // Bound: operations. The causal work is 4 * B * H * D * T(T+1)/2 FLOPs
 // against (3 + 1) * B * H * T * D * 2 bytes of q, k, v and o: at
 // B4 H16 T2048 D128 that is 68.7 GFLOP, >= 69 us at 989 TFLOP/s, while
-// its 67 MB take 20 us at 3.35 TB/s. The kernel is simple rather than
-// fast: no wgmma, no TMA, no copy/compute overlap, no warp
-// specialisation. Those are the work of a later change.
-#include <cuda_bf16.h>
+// its 67 MB take 20 us at 3.35 TB/s. So the kernel is built around the
+// tensor cores' full rate, which on Hopper only `wgmma` reaches, fed by
+// TMA so that no thread spends instructions on copies.
+//
+// Design (FlashAttention-3's structure, without its intra-warpgroup
+// pingpong; building blocks in hopper.cuh). One block of three
+// warpgroups per (128-query tile, head, batch):
+//   - a producer warp TMA-loads the Q tile once, then the K and V tiles
+//     of 128 keys into a two-stage ring, each stage guarded by "full"
+//     barriers (K and V apart, so S can start before V lands) and an
+//     "empty" barrier that the consumers release;
+//   - two consumer warpgroups of 64 query rows each compute, per key
+//     tile, S = Q K^T (wgmma, both operands in shared memory), the
+//     online softmax in f32 registers (exp2, in the log2 domain), and
+//     O += P V with P straight from the S accumulator's registers (RS
+//     wgmma, V as a transposed B), so P never touches shared memory;
+//   - `setmaxnreg` moves registers from the producer (24) to the
+//     consumers (240), which hold O and S (64 + 64 f32 at D128).
+// The loop starts at the diagonal key tile, the only one masked, and
+// walks back to key 0; the longest q-tiles of every head are issued
+// first so the short ones fill the tail. Rows past T arrive as zeros from TMA and are never
+// stored; keys past T lie only in the diagonal tile, after every valid
+// row, so the causal mask hides them. D is a template parameter: 32, 64
+// or 128.
 #include <math.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kBlockM = 64;  // query rows per block, 16 per warp
-constexpr int kBlockN = 64;  // keys per inner-loop tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-static_assert(kBlockM == kBlockN, "the causal tile count assumes square tiles");
+using namespace hopper;
 
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
-                                          const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+constexpr int kRows = 128;  // query rows per block: two warpgroups of 64
+constexpr int kKeys = 128;  // keys per K/V tile of the ring
+constexpr int kStages = 2;
+constexpr int kConsumers = 256;
+constexpr int kThreads = kConsumers + 128;  // + the producer warpgroup
+static_assert(kRows == kKeys, "the causal tile count assumes square tiles");
 
-// Two f32 values as one register of two bf16, `lo` in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t load_pair(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+// Shared memory, from a 1024-byte aligned base (the 128-byte swizzle's
+// period): Q, then the K stages, the V stages, then the barriers.
+template <int D>
+struct Smem {
+  static constexpr int kTile = Tile<D>::bytes(kKeys);
+  static constexpr int kQ = 0;
+  static constexpr int kK = Tile<D>::bytes(kRows);
+  static constexpr int kV = kK + kStages * kTile;
+  static constexpr int kBar = kV + kStages * kTile;
+  // q_full, k_full[kStages], v_full[kStages], empty[kStages]
+  static constexpr int kBytes = kBar + 8 * (1 + 3 * kStages);
+  static constexpr int kAlloc = kBytes + 1024;  // slack for the alignment
+};
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-                 const uint16_t* __restrict__ v, uint16_t* __restrict__ o,
-                 float* __restrict__ lse, int T, float scale_log2) {
-  // Shared rows padded by 8 elements: 16-byte aligned and spread over
-  // the banks.
-  constexpr int kStride = D + 8;
-  __shared__ __align__(16) uint16_t ks[kBlockN * kStride];
-  __shared__ __align__(16) uint16_t vs[kBlockN * kStride];
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 uint16_t* __restrict__ o, float* __restrict__ lse, int T,
+                 float scale_log2) {
+  using L = Smem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_full = base + L::kBar;
+  const uint32_t k_full = q_full + 8;
+  const uint32_t v_full = k_full + 8 * kStages;
+  const uint32_t empty = v_full + 8 * kStages;
 
-  const int tile = gridDim.x - 1 - blockIdx.x;  // longest rows first
-  const int64_t head = static_cast<int64_t>(blockIdx.z) * gridDim.y + blockIdx.y;
-  const uint16_t* qh = q + head * T * D;
-  const uint16_t* kh = k + head * T * D;
-  const uint16_t* vh = v + head * T * D;
-  uint16_t* oh = o + head * T * D;
-  float* lseh = lse + head * T;
+  // One block per (q-tile, head), the tile-major index walking every
+  // head's longest q-tile first: the short tiles fill the tail.
+  const int q_tiles = (T + kRows - 1) / kRows;
+  const int heads = gridDim.x / q_tiles;
+  const int tile = q_tiles - 1 - static_cast<int>(blockIdx.x) / heads;
+  const int head = blockIdx.x % heads;
+  const int m0 = tile * kRows;
+  const int n_tiles = tile + 1;  // key tiles tile, tile-1, ..., 0
 
-  const int warp = threadIdx.x / 32;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // Producer warpgroup: one thread issues every copy.
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == kConsumers) {
+      mbar_arrive_expect_tx(q_full, Tile<D>::bytes(kRows));
+      Tile<D>::load(base + L::kQ, &tq, q_full, m0, kRows, head);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kStages;
+        const int n0 = (tile - it) * kKeys;
+        mbar_wait(empty + 8 * s, ((it / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(k_full + 8 * s, L::kTile);
+        Tile<D>::load(base + L::kK + s * L::kTile, &tk, k_full + 8 * s, n0,
+                      kKeys, head);
+        mbar_arrive_expect_tx(v_full + 8 * s, L::kTile);
+        Tile<D>::load(base + L::kV + s * L::kTile, &tv, v_full + 8 * s, n0,
+                      kKeys, head);
+      }
+    }
+    return;
+  }
+
+  // Consumer warpgroups.
+  setmaxnreg_inc<240>();
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x % 128) / 32;
   const int lane = threadIdx.x % 32;
-  const int g = lane / 4;  // fragment row within the 8-row group
-  const int c = lane % 4;  // fragment column pair
-  const int r0 = tile * kBlockM + warp * 16 + g;  // this thread's two rows
-  const int r1 = r0 + 8;
+  const int g = lane / 4;  // accumulator row within the warp's 8-row group
+  const int c = lane % 4;  // accumulator column pair
+  const int r0 = m0 + wg * 64 + warp * 16 + g;  // this thread's rows r0, r0+8
 
-  // Q as A fragments, straight from device memory; rows past T are 0.
-  uint32_t qf[D / 16][4];
+  float acc[D / 2];
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int col = kk * 16 + 2 * c;
-    qf[kk][0] = r0 < T ? load_pair(qh + static_cast<int64_t>(r0) * D + col) : 0u;
-    qf[kk][1] = r1 < T ? load_pair(qh + static_cast<int64_t>(r1) * D + col) : 0u;
-    qf[kk][2] = r0 < T ? load_pair(qh + static_cast<int64_t>(r0) * D + col + 8) : 0u;
-    qf[kk][3] = r1 < T ? load_pair(qh + static_cast<int64_t>(r1) * D + col + 8) : 0u;
-  }
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-  }
-  // Running max (in the log2-scaled score domain) and this thread's
-  // share of the running sum, for rows r0 and r1.
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  // Running max (log2-scaled score domain) and this thread's share of
+  // the running sum, for rows r0 and r0 + 8.
   float m_run[2] = {-INFINITY, -INFINITY};
   float l_run[2] = {0.f, 0.f};
 
-  // Causal: keys up to this q-tile's last row, i.e. tiles 0..tile.
-  for (int j = 0; j <= tile; ++j) {
-    const int n0 = j * kBlockN;
-    __syncthreads();  // every warp is done with the previous tile
-    constexpr int kChunksPerRow = D / 8;  // 16-byte chunks
-#pragma unroll
-    for (int i = threadIdx.x; i < kBlockN * kChunksPerRow; i += kThreads) {
-      const int row = i / kChunksPerRow;
-      const int col = (i % kChunksPerRow) * 8;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u);
-      uint4 vv = kv;
-      if (n0 + row < T) {
-        const int64_t off = static_cast<int64_t>(n0 + row) * D + col;
-        kv = *reinterpret_cast<const uint4*>(kh + off);
-        vv = *reinterpret_cast<const uint4*>(vh + off);
-      }
-      *reinterpret_cast<uint4*>(ks + row * kStride + col) = kv;
-      *reinterpret_cast<uint4*>(vs + row * kStride + col) = vv;
-    }
-    __syncthreads();
+  mbar_wait(q_full, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kStages;
+    const uint32_t parity = (it / kStages) & 1;
+    const int n0 = (tile - it) * kKeys;
+    const uint32_t ks = base + L::kK + s * L::kTile;
+    const uint32_t vs = base + L::kV + s * L::kTile;
 
-    // S = Q K^T for this warp's 16 rows and the tile's 64 keys.
-    float s[kBlockN / 8][4];
+    // S = Q K^T: this warpgroup's 64 rows x 128 keys.
+    float sc[kKeys / 2];
+    mbar_wait(k_full + 8 * s, parity);
+    wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint16_t* kr = ks + (nt * 8 + g) * kStride + kk * 16 + 2 * c;
-        const uint32_t bf[2] = {load_pair(kr), load_pair(kr + 8)};
-        mma_16816(s[nt], qf[kk], bf);
-      }
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss<kKeys>(sc, Tile<D>::kmajor(base + L::kQ, kRows, wg * 64, kk),
+                      Tile<D>::kmajor(ks, kKeys, 0, kk), kk > 0);
     }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<kKeys / 2>(sc);
 
-    // Scale into the log2 domain and mask keys after the row or past T.
+    // Scale into the log2 domain; on the diagonal tile mask keys after
+    // the row.
     float mx[2] = {m_run[0], m_run[1]};
+    const bool diagonal = it == 0;
 #pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = e < 2 ? r0 : r1;
-        const int key = n0 + nt * 8 + 2 * c + (e & 1);
-        const float x = (key > row || key >= T) ? -INFINITY : s[nt][e] * scale_log2;
-        s[nt][e] = x;
-        mx[e / 2] = fmaxf(mx[e / 2], x);
-      }
+    for (int i = 0; i < kKeys / 2; ++i) {
+      const int row = r0 + 8 * ((i % 4) / 2);
+      const int key = n0 + 8 * (i / 4) + 2 * c + (i % 2);
+      const float x = (diagonal && key > row) ? -INFINITY : sc[i] * scale_log2;
+      sc[i] = x;
+      mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], x);
     }
-    // The four lanes sharing a row hold its 64 columns between them.
+    // The four lanes sharing a row hold its 128 columns between them.
     float corr[2];
-    float base[2];
+    float base_max[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      // A row with no visible key so far keeps max -inf; exp2 of
-      // (-inf - 0) is 0, never NaN.
-      base[r] = mx[r] == -INFINITY ? 0.f : mx[r];
-      corr[r] = exp2f(m_run[r] - base[r]);
+      // Every row sees key 0, so its max is finite after the first tile;
+      // the guard keeps exp2 of (-inf - -inf) from making a NaN.
+      base_max[r] = mx[r] == -INFINITY ? 0.f : mx[r];
+      corr[r] = exp2f(m_run[r] - base_max[r]);
       m_run[r] = mx[r];
     }
     float rowsum[2] = {0.f, 0.f};
 #pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nt][e] = exp2f(s[nt][e] - base[e / 2]);
-        rowsum[e / 2] += s[nt][e];
-      }
+    for (int i = 0; i < kKeys / 2; ++i) {
+      sc[i] = exp2f(sc[i] - base_max[(i % 4) / 2]);
+      rowsum[(i % 4) / 2] += sc[i];
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * corr[r] + rowsum[r];
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      acc[dt][0] *= corr[0];
-      acc[dt][1] *= corr[0];
-      acc[dt][2] *= corr[1];
-      acc[dt][3] *= corr[1];
-    }
+    for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i % 4) / 2];
 
-    // O += P V. The S fragments of key columns 16kk..16kk+15 are the A
-    // fragment of k-step kk; V's B fragment pairs two key rows.
+    // O += P V: P's k-slice kk is S's entries 8kk..8kk+7.
+    uint32_t pf[kKeys / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      const uint32_t pa[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]),
-      };
+    for (int kk = 0; kk < kKeys / 16; ++kk) acc_to_a(pf[kk], sc + 8 * kk);
+    mbar_wait(v_full + 8 * s, parity);
+    wgmma_fence();
 #pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        const uint16_t* vc = vs + (kk * 16 + 2 * c) * kStride + dt * 8 + g;
-        const uint32_t bf[2] = {
-            static_cast<uint32_t>(vc[0]) | (static_cast<uint32_t>(vc[kStride]) << 16),
-            static_cast<uint32_t>(vc[8 * kStride]) |
-                (static_cast<uint32_t>(vc[9 * kStride]) << 16),
-        };
-        mma_16816(acc[dt], pa, bf);
-      }
+    for (int kk = 0; kk < kKeys / 16; ++kk) {
+      wgmma_rs<D>(acc, pf[kk], Tile<D>::mnmajor(vs, kKeys, kk), 1);
     }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<D / 2>(acc);
+    mbar_arrive(empty + 8 * s);  // this stage's K and V are read
   }
 
   // Whole-row sums, then normalise and store.
@@ -223,33 +226,44 @@ flash_fwd_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
     inv[r] = 1.f / l_run[r];
   }
+  uint16_t* oh = o + static_cast<int64_t>(head) * T * D;
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int col = dt * 8 + 2 * c;
-    if (r0 < T) {
-      *reinterpret_cast<uint32_t*>(oh + static_cast<int64_t>(r0) * D + col) =
-          pack_bf16(acc[dt][0] * inv[0], acc[dt][1] * inv[0]);
-    }
-    if (r1 < T) {
-      *reinterpret_cast<uint32_t*>(oh + static_cast<int64_t>(r1) * D + col) =
-          pack_bf16(acc[dt][2] * inv[1], acc[dt][3] * inv[1]);
+  for (int i = 0; i < D / 2; i += 2) {
+    const int r = (i % 4) / 2;
+    const int row = r0 + 8 * r;
+    const int col = 8 * (i / 4) + 2 * c;
+    if (row < T) {
+      *reinterpret_cast<uint32_t*>(oh + static_cast<int64_t>(row) * D + col) =
+          pack_bf16(acc[i] * inv[r], acc[i + 1] * inv[r]);
     }
   }
   if (c == 0) {
     constexpr float kLn2 = 0.69314718055994531f;
+    float* lseh = lse + static_cast<int64_t>(head) * T;
     if (r0 < T) lseh[r0] = (m_run[0] + log2f(l_run[0])) * kLn2;
-    if (r1 < T) lseh[r1] = (m_run[1] + log2f(l_run[1])) * kLn2;
+    if (r0 + 8 < T) lseh[r0 + 8] = (m_run[1] + log2f(l_run[1])) * kLn2;
   }
 }
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            int B, int H, int T, float scale_log2, cudaStream_t stream) {
-  const dim3 grid((T + kBlockM - 1) / kBlockM, H, B);
-  flash_fwd_kernel<D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-      static_cast<const uint16_t*>(v), static_cast<uint16_t*>(o),
-      static_cast<float*>(lse), T, scale_log2);
+  CUtensorMap tq, tk, tv;
+  int err = make_tile_map<D>(&tq, q, B * H, T);
+  if (err == 0) err = make_tile_map<D>(&tk, k, B * H, T);
+  if (err == 0) err = make_tile_map<D>(&tv, v, B * H, T);
+  if (err == 0) {
+    err = cudaFuncSetAttribute(flash_fwd_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Smem<D>::kAlloc);
+  }
+  if (err != 0) return err;
+  const int64_t blocks = static_cast<int64_t>((T + kRows - 1) / kRows) * B * H;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  flash_fwd_kernel<D><<<static_cast<unsigned>(blocks), kThreads,
+                        Smem<D>::kAlloc, stream>>>(
+      tq, tk, tv, static_cast<uint16_t*>(o), static_cast<float*>(lse), T,
+      scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -31,8 +31,13 @@ def _lse64(q, k):
     return (m + np.log(np.exp(s - m).sum(-1, keepdims=True)))[..., 0]
 
 
-@pytest.mark.parametrize("d", [16, 32])
-@pytest.mark.parametrize("t", [1, 17, 33])
+#: T at the edges of the CUDA kernels' 64- and 128-row tiles, at every
+#: head dim they take: the plain version is their oracle on the card.
+EDGE_T = [127, 128, 129, 255]
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("t", [1, 17, 33] + EDGE_T)
 def test_reference_attention_matches_jax(d, t):
     q, k, v = _qkv(2, 3, t, d, seed=t * 100 + d)
     want = np.asarray(jax_ra.reference_attention(
@@ -42,8 +47,8 @@ def test_reference_attention_matches_jax(d, t):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("d", [16, 32])
-@pytest.mark.parametrize("t", [1, 33])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("t", [1, 33] + EDGE_T)
 def test_reference_lse_variant(d, t):
     q, k, v = _qkv(1, 2, t, d, seed=7 + t + d)
     tq, tk, tv = map(torch.from_numpy, (q, k, v))

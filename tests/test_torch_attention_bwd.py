@@ -29,8 +29,13 @@ def _plain_grads(q, k, v, do):
     return fa.flash_attention_bwd_plain(tq, tk, tv, o, lse, tdo)
 
 
-@pytest.mark.parametrize("d", [16, 32])
-@pytest.mark.parametrize("t", [1, 17, 65])
+#: T at the edges of the CUDA kernels' 64- and 128-row tiles, at every
+#: head dim they take: the plain backward is their oracle on the card.
+EDGE_T = [127, 128, 129, 255]
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("t", [1, 17, 65] + EDGE_T)
 def test_plain_bwd_matches_jax_vjp(t, d):
     q, k, v, do = _inputs(2, 3, t, d, seed=t * 10 + d)
     _, vjp = jax.vjp(jax_ra.reference_attention,
@@ -43,7 +48,7 @@ def test_plain_bwd_matches_jax_vjp(t, d):
                                    rtol=0, err_msg=name)
 
 
-@pytest.mark.parametrize("t", [1, 17, 65])
+@pytest.mark.parametrize("t", [1, 17, 65] + EDGE_T)
 def test_plain_bwd_matches_torch_autograd(t):
     q, k, v, do = _inputs(1, 2, t, 32, seed=t)
     leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]

@@ -12,7 +12,16 @@ the kernel also rounds P to bf16), its ``lse`` within 1e-3 (f32 in
 both, sums in another order). The backward kernel's dq, dk, dv within
 the same 1e-2 + 2^-6 |g| of the plain backward on the same inputs: both
 round the result to bf16; the kernel sums in another order and takes P
-and dS as two bf16 parts (hi + lo, ~16 bits).
+and dS as two bf16 parts (hi + lo, ~16 bits). At every shape, tile
+edges and the main path's shapes included, each gradient's deviation
+from the f32 gradient stays within 2x the largest and 1.5x the mean
+deviation of the plain backward on the same bf16 inputs (the rule of
+``chip_smoke.py``).
+
+The shapes: ragged tails; T at the edges of the kernels' 64- and
+128-row tiles and of the 64-row TMA boxes (1, 127, 128, 129, 255, 257)
+at every head dim; many heads and a batch (the grid's y and z axes);
+and the main path's t2k and t8k shapes.
 """
 import dataclasses
 
@@ -26,6 +35,12 @@ from kubernetes_tpu_torch.workloads.ring_attention import (
     reference_attention, reference_attention_with_lse)
 
 pytestmark = pytest.mark.cuda
+
+SHAPES = [(1, 1, 1, 32), (1, 2, 63, 32), (2, 1, 64, 64), (1, 3, 129, 128),
+          (2, 2, 200, 64), (1, 1, 1000, 128)]
+EDGE_SHAPES = [(1, 2, t, d) for d in (32, 64, 128)
+               for t in (1, 127, 128, 129, 255, 257)] + [(8, 32, 129, 64)]
+MAIN_SHAPES = [(4, 16, 2048, 128), (1, 16, 8192, 128)]
 
 
 @pytest.fixture
@@ -55,9 +70,7 @@ def test_vector_add_kernel_rejects_what_it_does_not_take(gen):
         va.vector_add(x.T, x.T)
 
 
-@pytest.mark.parametrize("shape", [
-    (1, 1, 1, 32), (1, 2, 63, 32), (2, 1, 64, 64), (1, 3, 129, 128),
-    (2, 2, 200, 64), (1, 1, 1000, 128)])
+@pytest.mark.parametrize("shape", SHAPES + EDGE_SHAPES + MAIN_SHAPES)
 def test_flash_kernel_matches_plain(gen, shape):
     q, k, v = (torch.randn(shape, generator=gen, device="cuda")
                .to(torch.bfloat16) for _ in range(3))
@@ -92,9 +105,7 @@ def _bwd_inputs(gen, shape):
     return q, k, v, o, lse, do
 
 
-@pytest.mark.parametrize("shape", [
-    (1, 1, 1, 32), (1, 2, 63, 32), (2, 1, 64, 64), (1, 3, 129, 128),
-    (2, 2, 200, 64), (1, 1, 1000, 128)])
+@pytest.mark.parametrize("shape", SHAPES + EDGE_SHAPES)
 def test_flash_bwd_kernel_matches_plain(gen, shape):
     q, k, v, o, lse, do = _bwd_inputs(gen, shape)
     before = fa.bwd_launches
@@ -105,6 +116,30 @@ def test_flash_bwd_kernel_matches_plain(gen, shape):
         assert g.dtype == torch.bfloat16 and g.shape == q.shape, name
         torch.testing.assert_close(g.float(), w.float(), atol=1e-2,
                                    rtol=2 ** -6, msg=name)
+
+
+@pytest.mark.parametrize("shape", SHAPES + EDGE_SHAPES + MAIN_SHAPES)
+def test_flash_bwd_kernel_drift_from_f32(gen, shape):
+    x32 = [torch.randn(shape, generator=gen, device="cuda") for _ in range(4)]
+    q, k, v, do = (x.to(torch.bfloat16) for x in x32)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    plain = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
+    o32, lse32 = reference_attention_with_lse(*x32[:3])
+    exact = fa.flash_attention_bwd_plain(*x32[:3], o32, lse32, x32[3])
+    for name, g, p, e in zip(("dq", "dk", "dv"), got, plain, exact):
+        assert bool(torch.isfinite(g).all()), name
+        dev, dev_plain = (g.float() - e).abs(), (p.float() - e).abs()
+        if name in ("dq", "dk") and shape[2] == 1:
+            # At T = 1 a softmax over one key has no score gradient: dS,
+            # dq and dk are 0, and both deviations are f32 rounding of
+            # the cancelling dP - delta, whose ratio says nothing. The
+            # kernel is held to the 1e-2 bound it keeps against the plain
+            # version.
+            assert float(dev.max()) <= 1e-2, name
+            continue
+        assert float(dev.max()) <= 2 * float(dev_plain.max()), name
+        assert float(dev.mean()) <= 1.5 * float(dev_plain.mean()), name
 
 
 def test_flash_bwd_kernel_rejects_what_it_does_not_take(gen):

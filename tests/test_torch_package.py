@@ -100,3 +100,21 @@ def test_build_target_follows_source_and_flags(monkeypatch, tmp_path):
     fourth = build._target("k")
     assert len({first, second, third, fourth}) == 4
     assert first.name.startswith("k-") and first.suffix == ".so"
+
+
+def test_hopper_header_is_in_every_library_hash(monkeypatch, tmp_path):
+    """Every attention kernel includes ``csrc/hopper.cuh``: an edit to it
+    must rebuild every library, so each target's hash covers it."""
+    import shutil
+    from kubernetes_tpu_torch.kernels import build
+    assert (build.CSRC / "hopper.cuh").is_file()
+    for name in ("flash_attn_fwd", "flash_attn_bwd"):
+        assert '#include "hopper.cuh"' in (build.CSRC / f"{name}.cu").read_text()
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    before = {name: build._target(name) for name in build.SOURCES}
+    with open(csrc / "hopper.cuh", "a") as f:
+        f.write("// edited\n")
+    after = {name: build._target(name) for name in build.SOURCES}
+    assert all(before[n] != after[n] for n in build.SOURCES)
