@@ -9,34 +9,47 @@ back:
 
 1. device: the card as ``nvidia-smi`` reports it (name, power limit);
 2. build: every kernel of ``kubernetes_tpu_torch/csrc`` with nvcc;
-3. vector_add: the kernel against plain ``x + y``, exactly, and timed;
-4. flash_attn: the flash-attention forward against plain attention at
+3. vector_add: the kernel against plain ``x + y``, bit for bit, in f32
+   and bf16 at lengths around its 16-byte vectors and their ragged tail
+   (1 to 2^26) and on views at odd offsets (``x[1:]`` with ``y[1:]``
+   and with ``y[2:]``); then at n = 2^16 and 2^26 in both dtypes, timed
+   beside ``torch.add``: device time by CUDA events, in turns, and
+   ``host_us``, the host time per call over back-to-back calls read
+   before the closing synchronize;
+4. host_path: the host cost of each piece of a K1 launch at the payload
+   size (the checks, the allocation, the stream, the ctypes call with
+   and without a launch) beside ``torch.add``'s;
+5. flash_attn: the flash-attention forward against plain attention at
    the listed shapes (ragged tails, the edges of the kernels' tiles and
    TMA boxes, many heads and a batch, the main path's shapes), and timed
    at the main shapes beside PyTorch's SDPA pinned to each backend that
-   takes the inputs (flash, cuDNN, efficient) as a yardstick;
-5. flash_attn_bwd: the flash-attention backward against the plain
+   takes the inputs (flash, cuDNN, efficient) as a yardstick, with the
+   wrapper's ``host_us``;
+6. flash_attn_bwd: the flash-attention backward against the plain
    backward at the same shapes, gated against an f32 backward, and timed
-   beside the backward of SDPA under each backend;
-6. entry: the tiny entry-point forward on the card against the CPU;
-7. main path (serving): the payload ``smoke_test`` and the 600M-config
+   beside the backward of SDPA under each backend, with ``host_us``;
+7. entry: the tiny entry-point forward on the card against the CPU;
+8. main path (serving): the payload ``smoke_test`` and the 600M-config
    LM forward (d_model 2048, 8 layers, 16 heads of 128, d_ff 8192, vocab
    32768, bf16 params, random weights from a seed) at the t2k and t8k
    cases, with every launch counter set to 0 just before and read just
    after; then its logits against the plain-attention forward and an
    f32 forward, and its time, tokens/s and MFU;
-8. train (training path): the 600M train step (forward, backward through
+9. train (training path): the 600M train step (forward, backward through
    both attention kernels under remat, AdamW against an f32 master) at
    t2k and t8k, every counter set to 0 just before one step and read
    just after; its time, tokens/s, MFU and peak memory, and the loss
    over 10 steps, which must fall;
-9. train_grads: at full width but 2 layers (t2k), every gradient of the
+10. train_grads: at full width but 2 layers (t2k), every gradient of the
    kernel path against an f32 plain-attention step, no further from it
    than the plain bf16 step's gradients are;
-10. train_loop: ``lm.train`` on the card at the entry config with
+11. train_loop: ``lm.train`` on the card at the entry config with
    checkpoints every 2 steps, 4 steps then a resume to 6, the marker and
    the metrics report;
-11. a ``kernels`` line, then the card line, then the last line
+12. vector_add_device_us: ``device_us`` of K1 and of ``torch.add`` at
+   the timed cases, from ``torch.profiler`` (CUPTI) kernel events; last,
+   so that nothing is timed after the profiler ran;
+13. a ``kernels`` line, then the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -54,10 +67,13 @@ import time
 import torch
 import torch.nn.functional as F
 
+from torch.autograd import DeviceType
 from torch.nn.attention import SDPBackend, sdpa_kernel
+from torch.profiler import ProfilerActivity, profile
 
 from kubernetes_tpu_torch.kernels import build
 from kubernetes_tpu_torch.perf import chip_bench
+from kubernetes_tpu_torch.perf.launch_cost import host_us
 from kubernetes_tpu_torch.entry import entry
 from kubernetes_tpu_torch.preemption import read_marker
 from kubernetes_tpu_torch.workloads import flash_attention as fa
@@ -91,6 +107,23 @@ O_ATOL, O_RTOL = 1e-2, 2 ** -6
 LSE_ATOL = 1e-3
 #: f32 arithmetic outside the tensor cores, H100 SXM (the vector add).
 F32_FLOPS = 67e12
+#: K1 checked bit for bit at (n, x offset, y offset): lengths around one
+#: 16-byte vector and its ragged tail, the payload's 2^16 and its
+#: neighbours, 2^20 + 3, 2^26; then views at an odd offset, also at two
+#: different offsets, which no vector fits. Each in f32 and bf16.
+VA_EXACT = ([(n, 0, 0) for n in (1, 3, 4, 5, 1000, 65535, 65536, 65537,
+                                 (1 << 20) + 3, 1 << 26)]
+            + [(n, xo, yo) for n in (65537, (1 << 20) + 3)
+               for xo, yo in ((1, 1), (1, 2))])
+#: K1 timed beside torch.add: the payload's n and a size that streams
+#: from device memory, in both dtypes; the main path's case first.
+VA_TIMED = [(n, dtype) for n in (1 << 16, 1 << 26)
+            for dtype in (torch.float32, torch.bfloat16)]
+#: Back-to-back calls over which a host time per call is read; for the
+#: attention kernels, few enough that their queued work never fills the
+#: queue of launches and holds the host back.
+HOST_CALLS = 10_000
+ATTN_HOST_CALLS = 20
 #: Train steps whose loss must fall, on one fixed batch (as the train
 #: bench runs); the steps after the first TRAIN_WARM are timed.
 TRAIN_STEPS = 10
@@ -117,21 +150,27 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
 
 
 def timed(kernel, plain, libraries: dict, iters: int,
-          plain_iters: int = 3) -> dict:
+          plain_iters: int = 3, rounds: int = 1) -> dict:
     """Device times of ``kernel`` and of each library call, in turns
-    (kernel, libraries, libraries in reverse, kernel), each reported as
-    the mean of its two runs; ``plain`` timed once after."""
-    k1 = time_ms(kernel, iters)
-    first = {n: time_ms(f, iters) for n, f in libraries.items()}
-    second = {n: time_ms(f, iters) for n, f in reversed(libraries.items())}
-    k2 = time_ms(kernel, iters)
-    lib = {n: (first[n] + second[n]) / 2 for n in libraries}
+    (kernel, libraries, libraries in reverse, kernel), ``rounds`` times,
+    each reported as the mean of its runs; ``plain`` timed once after.
+    Where the host sets the time, more and shorter rounds keep a drift of
+    its clock out of the comparison."""
+    k_runs, lib_runs = [], {n: [] for n in libraries}
+    for _ in range(rounds):
+        k_runs.append(time_ms(kernel, iters))
+        for n, f in libraries.items():
+            lib_runs[n].append(time_ms(f, iters))
+        for n, f in reversed(libraries.items()):
+            lib_runs[n].append(time_ms(f, iters))
+        k_runs.append(time_ms(kernel, iters))
+    lib = {n: sum(r) / len(r) for n, r in lib_runs.items()}
     best = min(lib, key=lib.get) if lib else None
-    return {"ms": (k1 + k2) / 2, "ms_runs": [k1, k2],
+    return {"ms": sum(k_runs) / len(k_runs), "ms_runs": k_runs,
             "plain_ms": time_ms(plain, plain_iters, 1),
             "library_ms": lib[best] if best else None,
             "library": best, "library_ms_by_name": lib,
-            "library_runs": {n: [first[n], second[n]] for n in libraries}}
+            "library_runs": lib_runs}
 
 
 def add_bound(row: dict, flops: float, nbytes: float, name: str,
@@ -190,31 +229,145 @@ def bound_ms(flops: float, nbytes: float, name: str,
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def check_vector_add(gen, name: str) -> dict:
-    results = []
-    for n in (1 << 16, 1 << 26):
-        for dtype in (torch.float32, torch.bfloat16):
-            x = torch.randn(n, generator=gen, device="cuda").to(dtype)
-            y = torch.randn(n, generator=gen, device="cuda").to(dtype)
+def check_vector_add(gen, name: str) -> list[dict]:
+    """K1 against plain ``x + y``, bit for bit, at VA_EXACT (lengths and
+    offset views); then timed at each VA_TIMED case beside ``torch.add``:
+    device time by CUDA events in turns, and host time per call
+    (``host_us``) in turns. Returns the timed rows, the main path's
+    (2^16 f32) first; ``device_us`` is added by :func:`profile_vector_add`
+    at the end of the run."""
+    exact = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for n, x_off, y_off in VA_EXACT:
+            x = torch.randn(n + x_off, generator=gen, device="cuda").to(dtype)
+            y = torch.randn(n + y_off, generator=gen, device="cuda").to(dtype)
+            x, y = x[x_off:], y[y_off:]
             before = va.launches
             out = va.vector_add(x, y)
             torch.cuda.synchronize()
             if va.launches != before + 1:
                 raise AssertionError("vector_add did not count its launch")
             if not torch.equal(out, va.vector_add_plain(x, y)):
-                raise AssertionError(f"vector_add mismatch at n={n} {dtype}")
-            row = {"n": n, "dtype": str(dtype).replace("torch.", ""),
-                   "max_abs_err": 0.0}
-            if dtype == torch.float32:
-                iters = 200 if n <= 1 << 16 else 50
-                row.update(timed(lambda: va.vector_add(x, y),
-                                 lambda: va.vector_add_plain(x, y),
-                                 {"torch.add": lambda: torch.add(x, y)},
-                                 iters, iters))
-                add_bound(row, n, 3 * n * x.element_size(), name, F32_FLOPS)
-            results.append(row)
-    say("vector_add", ok=True, results=results)
-    return results[0]  # the main path's shape: n = 1 << 16, f32
+                raise AssertionError(f"vector_add mismatch at n={n} {dtype} "
+                                     f"offsets {x_off}, {y_off}")
+            exact.append([n, x_off, y_off, _dtype_name(dtype)])
+    results = []
+    for n, dtype in VA_TIMED:
+        x = torch.randn(n, generator=gen, device="cuda").to(dtype)
+        y = torch.randn(n, generator=gen, device="cuda").to(dtype)
+        err = float((va.vector_add(x, y).float()
+                     - va.vector_add_plain(x, y).float()).abs().max())
+        if err != 0.0:
+            raise AssertionError(f"vector_add mismatch at n={n} {dtype}")
+        row = {"n": n, "dtype": _dtype_name(dtype), "max_abs_err": err}
+        # At 2^16 the host sets both times (some 10 us a call against ~1
+        # us of device work), so they are taken in many short turns. At
+        # 2^26, few enough host calls that the queue of launches never
+        # fills and holds the host back.
+        small = n <= 1 << 16
+        iters, rounds = (200, 10) if small else (50, 1)
+        calls, host_rounds = (HOST_CALLS, 4) if small else (200, 1)
+        kernel = lambda: va.vector_add(x, y)  # noqa: E731
+        library = lambda: torch.add(x, y)  # noqa: E731
+        row.update(timed(kernel, lambda: va.vector_add_plain(x, y),
+                         {"torch.add": library}, iters, iters, rounds))
+        add_bound(row, n, 3 * n * x.element_size(), name, F32_FLOPS)
+        k_runs, l_runs = [], []
+        for _ in range(host_rounds):
+            k_runs.append(host_us(kernel, calls))
+            l_runs += [host_us(library, calls), host_us(library, calls)]
+            k_runs.append(host_us(kernel, calls))
+        row.update(host_us=sum(k_runs) / len(k_runs), host_us_runs=k_runs,
+                   library_host_us=sum(l_runs) / len(l_runs),
+                   library_host_us_runs=l_runs, host_calls=calls)
+        results.append(row)
+        del x, y
+    say("vector_add", ok=True, exact=exact, results=results)
+    return results
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def device_us(fn, calls: int) -> tuple[float, int, list[str]]:
+    """Device time per call of ``fn``, which launches one kernel a call:
+    the mean duration of the kernel events that a ``torch.profiler``
+    (CUPTI) trace of ``calls`` calls shows; also how many it shows and
+    their names. CUPTI may miss an event at the edge of the window, so
+    the trace must show one kernel name and between one and ``calls``
+    events, not exactly ``calls``."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    names = sorted({e.name[:100] for e in kernels})
+    if not 1 <= len(kernels) <= calls or len(names) != 1:
+        raise AssertionError(f"{len(kernels)} kernel events of {names} "
+                             f"for {calls} calls of one kernel")
+    total = sum(e.time_range.elapsed_us() for e in kernels)
+    return total / len(kernels), len(kernels), names
+
+
+def profile_vector_add(rows: list[dict]) -> None:
+    """``device_us`` of K1 and of ``torch.add`` at each timed row's case,
+    from kernel events. Run last: the profiler is the only one in the
+    run, so no other phase is timed after it."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for row in rows:
+        n, dtype = row["n"], getattr(torch, row["dtype"])
+        x = torch.randn(n, generator=gen, device="cuda").to(dtype)
+        y = torch.randn(n, generator=gen, device="cuda").to(dtype)
+        calls = 200 if n <= 1 << 16 else 20
+        for prefix, fn in (("", lambda: va.vector_add(x, y)),
+                           ("library_", lambda: torch.add(x, y))):
+            us, seen, names = device_us(fn, calls)
+            row[f"{prefix}device_us"] = us
+            row[f"{prefix}device_kernel"] = names[0]
+            row[f"{prefix}device_events"] = seen
+        del x, y
+    say("vector_add_device_us", results=[
+        {k: row[k] for k in ("n", "dtype", "device_us", "library_device_us",
+                             "device_kernel", "library_device_kernel",
+                             "device_events", "library_device_events")}
+        for row in rows])
+
+
+def check_host_path() -> None:
+    """What a K1 launch costs the host at the payload size, piece by
+    piece, by the host clock over HOST_CALLS calls of each piece, every
+    piece twice (in order, then in reverse); ``lambda`` is the empty
+    call that each number includes."""
+    n = 1 << 16
+    x, y = (torch.randn(n, device="cuda") for _ in range(2))
+    out, x0, y0 = torch.empty_like(x), x[:0], y[:0]
+    dev = x.get_device()
+    kernel = va.KERNELS[torch.float32]
+    stream = build.current_stream(dev)
+    xp, yp, op = x.data_ptr(), y.data_ptr(), out.data_ptr()
+    pieces = {
+        "lambda": lambda: None,
+        "torch.add": lambda: torch.add(x, y),
+        "vector_add": lambda: va.vector_add(x, y),
+        "vector_add_at_n0": lambda: va.vector_add(x0, y0),
+        "empty_like": lambda: torch.empty_like(x),
+        "data_ptr": lambda: x.data_ptr(),
+        "raw_stream": lambda: build.current_stream(dev),
+        "stream_object": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "ctypes_call_at_n0": lambda: kernel.launch(xp, yp, op, 0, stream),
+        "ctypes_call_and_launch": lambda: kernel.launch(xp, yp, op, n, stream),
+    }
+    first = {k: host_us(f, HOST_CALLS) for k, f in pieces.items()}
+    second = {k: host_us(f, HOST_CALLS) for k, f in reversed(pieces.items())}
+    if not torch.equal(out, x + y):
+        raise AssertionError("the bare launch wrote a wrong sum")
+    say("host_path", n=n, calls=HOST_CALLS,
+        us={k: (first[k] + second[k]) / 2 for k in pieces},
+        us_runs={k: [first[k], second[k]] for k in pieces})
 
 
 def check_flash(gen, name: str) -> list[dict]:
@@ -243,6 +396,8 @@ def check_flash(gen, name: str) -> list[dict]:
                              lambda: reference_attention_with_lse(q, k, v),
                              sdpa_forwards(q, k, v), 20))
             add_bound(row, flops, nbytes, name)
+            row["host_us"] = host_us(lambda: fa.flash_attention_fwd(q, k, v),
+                                     ATTN_HOST_CALLS)
             row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
             torch.cuda.empty_cache()
         results[(b, h, t, d)] = row
@@ -312,6 +467,9 @@ def check_flash_bwd(gen, name: str) -> list[dict]:
                 lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do),
                 sdpa_backwards(q, k, v, do), 20))
             add_bound(row, flops, nbytes, name)
+            row["host_us"] = host_us(
+                lambda: fa.flash_attention_bwd(q, k, v, o, lse, do),
+                ATTN_HOST_CALLS)
             row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
         del got, q, k, v, do, o, lse
         torch.cuda.empty_cache()
@@ -499,7 +657,8 @@ def main() -> int:
         ptxas=ptxas)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    va_row = check_vector_add(gen, name)
+    va_rows = check_vector_add(gen, name)
+    check_host_path()
     fa_rows = check_flash(gen, name)
     bwd_rows = check_flash_bwd(gen, name)
     check_entry()
@@ -568,13 +727,19 @@ def main() -> int:
     by_path = {k: {"forward": launches[k], "train": train_launches[k]}
                for k in launches}
 
+    # Last of all: the one profiled phase (K1's device_us).
+    profile_vector_add(va_rows)
+
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "library", "ratio_to_library", "share_of_bound")
+            "library_ms", "library", "ratio_to_library", "share_of_bound",
+            "host_us")
+    va_keys = keys + ("library_host_us", "device_us", "library_device_us")
     kernels = [
         {"name": "vector_add", "route": "cuda",
          "source": "kubernetes_tpu_torch/csrc/vector_add.cu",
          "replaces": "kubernetes_tpu/workloads/vector_add.py:17-26",
-         "at": "n=65536 float32", **{k: va_row[k] for k in keys}}]
+         "at": f"n={row['n']} {row['dtype']}", **{k: row[k] for k in va_keys}}
+        for row in va_rows]
     for shape, fa_row, bwd_row in zip(MAIN_FLASH_SHAPES, fa_rows, bwd_rows):
         at = "B{} H{} T{} D{} bf16".format(*shape)
         kernels += [
@@ -592,7 +757,8 @@ def main() -> int:
     if not all(kern["launches"] > 0 for kern in kernels):
         raise AssertionError(f"a kernel of the main path never ran: {by_path}")
     for kern in kernels:
-        if not all(math.isfinite(kern[k]) for k in ("ms", "plain_ms", "bound_ms")):
+        if not all(math.isfinite(kern[k])
+                   for k in ("ms", "plain_ms", "bound_ms", "host_us")):
             raise AssertionError(f"bad timing: {kern}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -505,15 +505,23 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   if (err == 0) err = make_tile_map<D>(&tk, k, B * H, T);
   if (err == 0) err = make_tile_map<D>(&tv, v, B * H, T);
   if (err == 0) err = make_tile_map<D>(&tdo, dout, B * H, T);
+  // The shared-memory limits are properties of the kernels on a device:
+  // set once per device, not on every launch.
+  static PerDevice smem_set;
+  int done = 0;
   if (err == 0) {
-    err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               DkvSmem<D>::kAlloc);
-  }
-  if (err == 0) {
-    err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               DqSmem<D>::kAlloc);
+    err = smem_set.get(&done, [](int, int* set) {
+      *set = 1;
+      cudaError_t e = cudaFuncSetAttribute(
+          flash_bwd_dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          DkvSmem<D>::kAlloc);
+      if (e == cudaSuccess) {
+        e = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 DqSmem<D>::kAlloc);
+      }
+      return e;
+    });
   }
   if (err != 0) return err;
 

@@ -252,10 +252,17 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   int err = make_tile_map<D>(&tq, q, B * H, T);
   if (err == 0) err = make_tile_map<D>(&tk, k, B * H, T);
   if (err == 0) err = make_tile_map<D>(&tv, v, B * H, T);
+  // The shared-memory limit is a property of the kernel on a device: set
+  // once per device, not on every launch.
+  static PerDevice smem_set;
+  int done = 0;
   if (err == 0) {
-    err = cudaFuncSetAttribute(flash_fwd_kernel<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               Smem<D>::kAlloc);
+    err = smem_set.get(&done, [](int, int* set) {
+      *set = 1;
+      return cudaFuncSetAttribute(flash_fwd_kernel<D>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  Smem<D>::kAlloc);
+    });
   }
   if (err != 0) return err;
   const int64_t blocks = static_cast<int64_t>((T + kRows - 1) / kRows) * B * H;

@@ -10,8 +10,12 @@ back to another implementation.
 
 Every C entry point takes its pointers and its stream as
 ``ctypes.c_void_p``, launches on the stream it is given, allocates
-nothing, and returns ``cudaGetLastError()``; :func:`check` turns a
-non-zero code into an exception.
+nothing, and returns ``cudaGetLastError()``. A wrapper calls it through
+a :class:`Kernel`, the one launch path of the package: the library is
+built, loaded and its symbol declared at the first launch and kept, so
+every later launch is one ctypes call and one test of its return code.
+:data:`current_stream` gives the raw handle of PyTorch's current stream
+without making a ``torch.cuda.Stream`` object.
 """
 from __future__ import annotations
 
@@ -21,6 +25,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -98,27 +104,62 @@ def build(names=SOURCES) -> dict[str, str]:
     return {n: t.with_suffix(".log").read_text() for n, t in targets.items()}
 
 
-def load(name: str, functions: dict) -> ctypes.CDLL:
-    """Build if needed, load ``csrc/<name>.cu``'s library once, and
-    declare ``functions`` ({symbol: argtypes}); every entry returns a
-    CUDA error code as ``int``."""
+def _library(name: str) -> ctypes.CDLL:
+    """``csrc/<name>.cu``'s library, built if needed and loaded once."""
     lib = _loaded.get(name)
     if lib is None:
         build((name,))
         lib = ctypes.CDLL(str(_target(name)))
-        for symbol, argtypes in functions.items():
-            fn = getattr(lib, symbol)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
         lib.kernel_error_string.argtypes = [ctypes.c_int]
         lib.kernel_error_string.restype = ctypes.c_char_p
         _loaded[name] = lib
     return lib
 
 
-def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
-    """Raise if a launch reported a CUDA error."""
-    if rc != 0:
-        raise RuntimeError(
-            f"{what}: CUDA error {rc} "
-            f"({lib.kernel_error_string(rc).decode()})")
+class Kernel:
+    """One C entry point of ``csrc/<library>.cu``, the launch path that
+    every wrapper of the package shares.
+
+    ``launch(*args)`` calls the entry point and returns its CUDA error
+    code; on a non-zero code the wrapper raises ``error(code)``, a
+    ``RuntimeError`` with CUDA's text for it:
+
+        rc = kernel.launch(x.data_ptr(), ..., current_stream(device))
+        if rc:
+            raise kernel.error(rc)
+
+    The first launch builds and loads the library and declares the
+    symbol (``argtypes``, ``int`` return), then puts the ctypes function
+    itself in ``launch``: every later launch is the ctypes call and
+    nothing else of Python. A failed build raises from the launch that
+    tried it and is tried again by the next: nothing about a failure is
+    kept."""
+
+    __slots__ = ("library", "symbol", "argtypes", "launch")
+
+    def __init__(self, library: str, symbol: str, argtypes) -> None:
+        self.library, self.symbol = library, symbol
+        self.argtypes = tuple(argtypes)
+        self.launch = self._first_launch
+
+    def _first_launch(self, *args) -> int:
+        fn = getattr(_library(self.library), self.symbol)
+        fn.argtypes = list(self.argtypes)
+        fn.restype = ctypes.c_int
+        self.launch = fn
+        return fn(*args)
+
+    def error(self, rc: int) -> RuntimeError:
+        text = _library(self.library).kernel_error_string(rc).decode()
+        return RuntimeError(f"{self.symbol}: CUDA error {rc} ({text})")
+
+
+#: ``current_stream(device_index)``: the raw ``cudaStream_t`` of PyTorch's
+#: current stream on that device, as an int. It is
+#: ``torch._C._cuda_getCurrentRawStream``, the private call that PyTorch's
+#: own Triton launcher makes; where the installed torch lacks it (a build
+#: without CUDA has none), the public
+#: ``torch.cuda.current_stream(i).cuda_stream``, which makes a
+#: ``torch.cuda.Stream`` object on every call.
+current_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
+    lambda device_index: torch.cuda.current_stream(device_index).cuda_stream)

@@ -32,19 +32,25 @@ bwd_launches = 0
 
 HEAD_DIMS = (32, 64, 128)
 
-_ARGS = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 4 + (ctypes.c_float,
-                                                        ctypes.c_void_p)
-_BWD_ARGS = (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 4 + (
-    ctypes.c_float, ctypes.c_void_p)
+_FWD = build.Kernel(
+    "flash_attn_fwd", "flash_attn_fwd_bf16",
+    (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 4 + (ctypes.c_float,
+                                                    ctypes.c_void_p))
+_BWD = build.Kernel(
+    "flash_attn_bwd", "flash_attn_bwd_bf16",
+    (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 4 + (ctypes.c_float,
+                                                     ctypes.c_void_p))
 
 
 def _check_kernel_inputs(what: str, **tensors) -> None:
     """The checks every kernel wrapper makes on its bf16 [B, H, T, D]
     inputs before a launch: dtype, head dim, contiguity, alignment and
     grid limits. Raises on what the kernels do not take."""
-    bad = {n: x.dtype for n, x in tensors.items() if x.dtype != torch.bfloat16}
-    if bad:
-        raise TypeError(f"{what} kernel takes bfloat16, got {bad}")
+    for x in tensors.values():
+        if x.dtype is not torch.bfloat16:
+            bad = {n: t.dtype for n, t in tensors.items()
+                   if t.dtype is not torch.bfloat16}
+            raise TypeError(f"{what} kernel takes bfloat16, got {bad}")
     b, h, _, d = next(iter(tensors.values())).shape
     if d not in HEAD_DIMS:
         raise ValueError(f"{what} kernel takes head dim {HEAD_DIMS}, not {d}")
@@ -59,15 +65,18 @@ def _check_kernel_inputs(what: str, **tensors) -> None:
 
 
 def _check_shapes(**tensors) -> torch.device:
-    shapes = {n: tuple(x.shape) for n, x in tensors.items()}
-    first = next(iter(shapes.values()))
-    if len(first) != 4 or any(s != first for s in shapes.values()):
-        raise ValueError(f"{', '.join(shapes)} must be one [B, H, T, D] "
-                         f"shape, got {shapes}")
-    devices = {x.device for x in tensors.values()}
-    if len(devices) != 1:
-        raise ValueError(f"{', '.join(shapes)} must be on one device")
-    dev = devices.pop()
+    """The one [B, H, T, D] shape and the one device (cuda or cpu) of
+    ``tensors``; raises otherwise. Reads each tensor's shape and device
+    once and builds the message only to raise it."""
+    first = next(iter(tensors.values()))
+    shape, dev = first.shape, first.device
+    for x in tensors.values():
+        if len(shape) != 4 or x.shape != shape:
+            shapes = {n: tuple(t.shape) for n, t in tensors.items()}
+            raise ValueError(f"{', '.join(shapes)} must be one [B, H, T, D] "
+                             f"shape, got {shapes}")
+        if x.device != dev:
+            raise ValueError(f"{', '.join(tensors)} must be on one device")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"flash attention runs on cuda or cpu, not {dev}")
     return dev
@@ -86,13 +95,12 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     if q.numel() == 0:
         return o, lse
-    lib = build.load("flash_attn_fwd", {"flash_attn_fwd_bf16": _ARGS})
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     scale_log2 = (1.0 / math.sqrt(d)) * math.log2(math.e)
-    rc = lib.flash_attn_fwd_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                 o.data_ptr(), lse.data_ptr(), b, h, t, d,
-                                 scale_log2, stream)
-    build.check(lib, rc, "flash_attn_fwd")
+    rc = _FWD.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                     lse.data_ptr(), b, h, t, d, scale_log2,
+                     build.current_stream(q.get_device()))
+    if rc:
+        raise _FWD.error(rc)
     global launches
     launches += 1
     return o, lse
@@ -146,13 +154,12 @@ def flash_attention_bwd(q, k, v, o, lse, do):
     if q.numel() == 0:
         return dq, dk, dv
     delta = torch.empty((b, h, t), dtype=torch.float32, device=dev)
-    lib = build.load("flash_attn_bwd", {"flash_attn_bwd_bf16": _BWD_ARGS})
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.flash_attn_bwd_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), b, h, t, d, 1.0 / math.sqrt(d), stream)
-    build.check(lib, rc, "flash_attn_bwd")
+    rc = _BWD.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                     do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                     dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, t, d,
+                     1.0 / math.sqrt(d), build.current_stream(q.get_device()))
+    if rc:
+        raise _BWD.error(rc)
     global bwd_launches
     bwd_launches += 1
     return dq, dk, dv

@@ -94,3 +94,17 @@ def test_flash_wrapper_rejects_bad_shapes(shapes):
     q, k, v = (torch.zeros(s) for s in shapes)
     with pytest.raises(ValueError):
         fa.flash_attention_fwd(q, k, v)
+
+
+@pytest.mark.parametrize("devices,match", [
+    (("cpu", "meta", "cpu"), "one device"),
+    (("meta", "meta", "meta"), "cuda or cpu"),
+], ids=["mixed", "meta"])
+def test_flash_wrapper_rejects_devices(devices, match):
+    """The device checks that run before any launch, reached without a
+    card: one device for all, and only cuda or cpu."""
+    q, k, v = (torch.zeros((1, 2, 8, 32), device=d) for d in devices)
+    before = fa.launches
+    with pytest.raises(ValueError, match=match):
+        fa.flash_attention_fwd(q, k, v)
+    assert fa.launches == before

@@ -101,3 +101,23 @@ def test_bwd_wrapper_rejects_mismatched_inputs(bad):
             fa.flash_attention_bwd(x, x, x, x, lse, torch.zeros((1, 2, 9, 16)))
         else:
             fa.flash_attention_bwd(x, x, x, x, lse[:, :1], x)
+
+
+@pytest.mark.parametrize("bad", ["mixed", "meta", "lse_device"])
+def test_bwd_wrapper_rejects_devices(bad):
+    """The device checks of the backward wrapper, reached without a
+    card: one device for every input, lse included, and only cuda or
+    cpu."""
+    x = torch.zeros((1, 2, 8, 16))
+    lse = torch.zeros((1, 2, 8))
+    meta = torch.zeros((1, 2, 8, 16), device="meta")
+    before = fa.bwd_launches
+    if bad == "mixed":
+        call, match = (x, x, x, x, lse, meta), "one device"
+    elif bad == "meta":
+        call, match = (meta,) * 4 + (lse.to("meta"), meta), "cuda or cpu"
+    else:
+        call, match = (x, x, x, x, lse.to("meta"), x), "lse"
+    with pytest.raises(ValueError, match=match):
+        fa.flash_attention_bwd(*call)
+    assert fa.bwd_launches == before

@@ -6,7 +6,8 @@ GPU machine without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Tolerances: vector add is exact (both add in f32 and round once); the
+Tolerances: vector add is exact (both add in f32 and round once), at
+lengths around its 16-byte vectors and on views at odd offsets; the
 flash kernel's ``o`` within 1e-2 + 2^-6 |o| (both round ``o`` to bf16,
 the kernel also rounds P to bf16), its ``lse`` within 1e-3 (f32 in
 both, sums in another order). The backward kernel's dq, dk, dv within
@@ -22,6 +23,10 @@ The shapes: ragged tails; T at the edges of the kernels' 64- and
 128-row tiles and of the 64-row TMA boxes (1, 127, 128, 129, 255, 257)
 at every head dim; many heads and a batch (the grid's y and z axes);
 and the main path's t2k and t8k shapes.
+
+Two tests capture a launch in a CUDA graph and replay it after changing
+the inputs in place: they show that the wrappers launch on PyTorch's
+current stream, which the capture makes a side stream.
 """
 import dataclasses
 
@@ -41,6 +46,10 @@ SHAPES = [(1, 1, 1, 32), (1, 2, 63, 32), (2, 1, 64, 64), (1, 3, 129, 128),
 EDGE_SHAPES = [(1, 2, t, d) for d in (32, 64, 128)
                for t in (1, 127, 128, 129, 255, 257)] + [(8, 32, 129, 64)]
 MAIN_SHAPES = [(4, 16, 2048, 128), (1, 16, 8192, 128)]
+#: Vector-add lengths: around one 16-byte vector and its ragged tail,
+#: the payload's 2^16 and its neighbours, and the timed 2^26.
+VECTOR_ADD_NS = [1, 3, 4, 5, 1000, 65535, 65536, 65537, (1 << 20) + 3,
+                 1 << 26]
 
 
 @pytest.fixture
@@ -61,6 +70,34 @@ def test_vector_add_kernel_is_exact(gen, n, dtype):
     assert torch.equal(out, x + y)
 
 
+@pytest.mark.parametrize("n", VECTOR_ADD_NS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vector_add_kernel_is_exact_at_vector_edges(gen, n, dtype):
+    """Lengths around the 16-byte vectors (4 f32, 8 bf16) and their tail,
+    the payload's n and one past, and the 2^26 of the timed case."""
+    x = torch.randn(n, generator=gen, device="cuda").to(dtype)
+    y = torch.randn(n, generator=gen, device="cuda").to(dtype)
+    out = va.vector_add(x, y)
+    assert torch.equal(out, va.vector_add_plain(x, y))
+
+
+@pytest.mark.parametrize("n", [5, 65537, (1 << 20) + 3])
+@pytest.mark.parametrize("x_off,y_off", [(1, 1), (1, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vector_add_kernel_is_exact_on_offset_views(gen, n, x_off, y_off,
+                                                    dtype):
+    """Contiguous views at an odd offset, which no 16-byte vector fits:
+    the kernel's element path, also with x and y at different offsets."""
+    xs = torch.randn(n + x_off, generator=gen, device="cuda").to(dtype)
+    ys = torch.randn(n + y_off, generator=gen, device="cuda").to(dtype)
+    x, y = xs[x_off:], ys[y_off:]
+    assert x.data_ptr() % 16 and x.is_contiguous()
+    before = va.launches
+    out = va.vector_add(x, y)
+    assert va.launches == before + 1
+    assert torch.equal(out, va.vector_add_plain(x, y))
+
+
 def test_vector_add_kernel_rejects_what_it_does_not_take(gen):
     with pytest.raises(TypeError):
         va.vector_add(torch.ones(4, device="cuda", dtype=torch.float64),
@@ -68,6 +105,51 @@ def test_vector_add_kernel_rejects_what_it_does_not_take(gen):
     x = torch.ones(4, 4, device="cuda")
     with pytest.raises(ValueError):
         va.vector_add(x.T, x.T)
+    before = va.launches
+    with pytest.raises(ValueError, match="matching tensors"):
+        va.vector_add(torch.ones(4, device="cuda"), torch.ones(4))
+    with pytest.raises(ValueError, match="matching tensors"):
+        va.vector_add(torch.ones(4, device="cuda"),
+                      torch.ones(4, device="cuda", dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="matching tensors"):
+        va.vector_add(torch.ones(4, device="cuda"),
+                      torch.ones(5, device="cuda"))
+    assert va.vector_add(x[:0], x[:0]).shape == (0, 4)
+    assert va.launches == before
+
+
+def _replayed(fn, *inputs):
+    """Captures ``fn(*inputs)`` in a CUDA graph, which runs the capture
+    on a side stream made current, then writes new values into the
+    inputs in place and replays. Returns the output the replay wrote."""
+    fn(*inputs)  # first launch outside the capture: build and resolve
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(*inputs)
+    for x in inputs:
+        x.copy_(torch.randn(x.shape, device="cuda").to(x.dtype))
+    graph.replay()
+    torch.cuda.synchronize()
+    return out
+
+
+def test_vector_add_launches_on_the_current_stream(gen):
+    """A launch on any stream but the capturing one either breaks the
+    capture or leaves ``out`` stale after the replay."""
+    x, y = (torch.randn(4099, generator=gen, device="cuda") for _ in range(2))
+    out = _replayed(va.vector_add, x, y)
+    assert torch.equal(out, x + y)
+
+
+def test_flash_fwd_launches_on_the_current_stream(gen):
+    q, k, v = (torch.randn((1, 2, 129, 64), generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    o, lse = _replayed(fa.flash_attention_fwd, q, k, v)
+    o_ref, lse_ref = reference_attention_with_lse(q, k, v)
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=1e-2,
+                               rtol=2 ** -6)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0)
 
 
 @pytest.mark.parametrize("shape", SHAPES + EDGE_SHAPES + MAIN_SHAPES)
