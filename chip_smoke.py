@@ -46,19 +46,46 @@ back:
 11. train_loop: ``lm.train`` on the card at the entry config with
    checkpoints every 2 steps, 4 steps then a resume to 6, the marker and
    the metrics report;
-12. vector_add_device_us: ``device_us`` of K1 and of ``torch.add`` at
+12. trainer (the TrainJob worker payload): ``trainer.main()`` in this
+   process as a one-rank gang, ``MODEL=lm`` at the 600M width and depth
+   (f32 params, as the reference trainer's), B4 T2048, 3 steps, every
+   counter set to 0 just before and read just after (16 forward and 8
+   backward attention launches a step); its loss against a direct
+   ``lm.train`` call, its attempt record, and its step time, tokens/s,
+   MFU (from the metrics report of its last step) and peak memory;
+13. trainer_group: ``lm.train`` at full width, 2 layers, t2k, 6 steps,
+   without a process group and under a world-1 NCCL group on a store of
+   its own (the gradient all-reduce through NCCL on CUDA tensors): the
+   same loss at every step, and the step times of both;
+14. trainer_resume: two ``python -m kubernetes_tpu_torch.workloads.
+   trainer`` processes at full width, 2 layers, on one checkpoint dir
+   (4 steps saving every 2, then to 6): the attempt records, the marker
+   and the ``TRAINER DONE`` lines; then the time of one save and one
+   resume of that state in this process;
+15. demo: ``python -m kubernetes_tpu_torch.workloads.distributed_demo``
+   on the card, 6 steps, and its exact final value;
+16. trainer_dp2: with two cards or more, two rank processes over NCCL,
+   one card each, at full width, 2 layers, 6 steps: each step's loss the
+   same on both ranks and within 5e-2 of the world-1 run's, and their
+   step times; with one card, a line that says it was not run;
+17. vector_add_device_us: ``device_us`` of K1 and of ``torch.add`` at
    the timed cases, from ``torch.profiler`` (CUPTI) kernel events; last,
    so that nothing is timed after the profiler ran;
-13. a ``kernels`` line, then the card line, then the last line
+18. a ``kernels`` line, then the card line, then the last line
    ``{"ok": true, "device": {...}}``.
+
+Every subprocess is waited on with a timeout and killed at it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
 import os
 import re
+import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -67,6 +94,7 @@ import time
 import torch
 import torch.nn.functional as F
 
+from torch import distributed as dist
 from torch.autograd import DeviceType
 from torch.nn.attention import SDPBackend, sdpa_kernel
 from torch.profiler import ProfilerActivity, profile
@@ -76,9 +104,12 @@ from kubernetes_tpu_torch.perf import chip_bench
 from kubernetes_tpu_torch.perf.launch_cost import host_us
 from kubernetes_tpu_torch.entry import entry
 from kubernetes_tpu_torch.preemption import read_marker
+from kubernetes_tpu_torch.workloads import checkpoint as ckpt
 from kubernetes_tpu_torch.workloads import flash_attention as fa
 from kubernetes_tpu_torch.workloads import lm
 from kubernetes_tpu_torch.workloads import metrics_reporter
+from kubernetes_tpu_torch.workloads import rendezvous
+from kubernetes_tpu_torch.workloads import trainer
 from kubernetes_tpu_torch.workloads import vector_add as va
 from kubernetes_tpu_torch.workloads.ring_attention import (
     reference_attention_with_lse)
@@ -128,6 +159,18 @@ ATTN_HOST_CALLS = 20
 #: bench runs); the steps after the first TRAIN_WARM are timed.
 TRAIN_STEPS = 10
 TRAIN_WARM = 3
+#: The trainer's model-size env at the main path's 600M width; the
+#: trainer phases run it at full depth or at 2 layers, B4 T2048.
+TRAINER_ENV = {"MODEL": "lm", "LM_VOCAB": "32768", "LM_D_MODEL": "2048",
+               "LM_LAYERS": "8", "LM_HEADS": "16", "LM_D_FF": "8192",
+               "BATCH": "4", "SEQ": "2048"}
+#: Steps of the trainer phase.
+TRAINER_STEPS = 3
+#: Steps of each trainer_group run (five timed after the first) and of
+#: the two-card run, which is held against it.
+GROUP_STEPS = 6
+#: Seconds any subprocess may take before it is killed and the run fails.
+SUBPROCESS_TIMEOUT = 600
 
 
 def say(phase: str, **fields) -> None:
@@ -358,8 +401,10 @@ def check_host_path() -> None:
         "data_ptr": lambda: x.data_ptr(),
         "raw_stream": lambda: build.current_stream(dev),
         "stream_object": lambda: torch.cuda.current_stream(dev).cuda_stream,
-        "ctypes_call_at_n0": lambda: kernel.launch(xp, yp, op, 0, stream),
-        "ctypes_call_and_launch": lambda: kernel.launch(xp, yp, op, n, stream),
+        "ctypes_call_at_n0": lambda: kernel.launch(xp, yp, op, 0, dev,
+                                                   stream),
+        "ctypes_call_and_launch": lambda: kernel.launch(xp, yp, op, n, dev,
+                                                        stream),
     }
     first = {k: host_us(f, HOST_CALLS) for k, f in pieces.items()}
     second = {k: host_us(f, HOST_CALLS) for k, f in reversed(pieces.items())}
@@ -629,6 +674,373 @@ def check_train_loop() -> None:
         report=report)
 
 
+@contextlib.contextmanager
+def environ(values: dict):
+    """``os.environ`` with ``values`` set (None removes a name), put back
+    as it was after."""
+    old = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def gang_of_one(**values) -> dict:
+    """A one-rank gang's env for the trainer on the card, ``values`` on
+    top; None removes a name."""
+    return {"TPU_WORKER_ID": "0",
+            "TPU_WORKER_HOSTNAMES": "smoke-0.smoke-workers.default",
+            "KTPU_TRAINER_PLATFORM": None, "KTPU_DEMO_PLATFORM": None,
+            "KTPU_CHECKPOINT_DIR": None, "KTPU_PREEMPT": None,
+            "KTPU_PREEMPT_FILE": None, "KTPU_SANDBOX": None,
+            "STEP_DELAY": None, **values}
+
+
+def trainer_cfg(n_layers: int) -> lm.LMConfig:
+    """The config the trainer builds from TRAINER_ENV at ``n_layers``
+    on the card: f32 params, bf16 compute, the flash kernels."""
+    return lm.LMConfig(vocab=32768, d_model=2048, n_layers=n_layers,
+                       n_heads=16, d_ff=8192, attn_impl="flash")
+
+
+def run_module(module: str, env: dict) -> subprocess.CompletedProcess:
+    """``python -m module`` from the repository root with this process's
+    env and ``env`` on top; killed at SUBPROCESS_TIMEOUT."""
+    child = dict(os.environ)
+    for k, v in env.items():
+        if v is None:
+            child.pop(k, None)
+        else:
+            child[k] = v
+    return subprocess.run([sys.executable, "-m", module], env=child,
+                          cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True,
+                          timeout=SUBPROCESS_TIMEOUT)
+
+
+def free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _tail(proc: subprocess.CompletedProcess) -> str:
+    return (proc.stdout + proc.stderr)[-3000:]
+
+
+def check_trainer(peak: float, known: bool) -> dict:
+    """The TrainJob worker payload at the 600M width and depth:
+    ``trainer.main()`` as a one-rank gang, counted. Returns its
+    launches."""
+    cfg = trainer_cfg(8)
+    batch, seq = int(TRAINER_ENV["BATCH"]), int(TRAINER_ENV["SEQ"])
+    case = chip_bench.BenchCase("trainer", cfg.d_model, cfg.n_layers,
+                                cfg.n_heads, cfg.d_ff, cfg.vocab, batch, seq)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt_dir = os.path.join(tmp, "job")
+        env = gang_of_one(**TRAINER_ENV, TOTAL_STEPS=str(TRAINER_STEPS),
+                          CHECKPOINT_EVERY="0", CKPT_DIR=ckpt_dir,
+                          KTPU_SANDBOX=tmp)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with environ(env):
+            zero_counters()
+            rc = trainer.main()
+            torch.cuda.synchronize()
+            launches = counters()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        report = metrics_reporter.read_report(tmp)
+        with open(os.path.join(ckpt_dir, "attempt-rank0-start0.json")) as f:
+            record = json.load(f)
+        torch.cuda.empty_cache()
+        direct = timed_train(cfg, None, os.path.join(tmp, "direct"),
+                             TRAINER_STEPS)
+    torch.cuda.empty_cache()
+    events_ms = f32_step_ms(cfg, batch, seq)
+    want = {"vector_add": 0, "flash_attn_fwd": 2 * cfg.n_layers * TRAINER_STEPS,
+            "flash_attn_bwd": cfg.n_layers * TRAINER_STEPS}
+    if rc != 0 or launches != want:
+        raise AssertionError(f"trainer: rc {rc}, launches {launches}, "
+                             f"want {want}")
+    got = {k: record[k] for k in ("resumed_from", "final_step", "steps_run")}
+    if got != {"resumed_from": 0, "final_step": TRAINER_STEPS,
+               "steps_run": TRAINER_STEPS}:
+        raise AssertionError(f"trainer: attempt record {record}")
+    loss = record["loss"]
+    if not (math.isfinite(loss)
+            and abs(loss - direct["loss"]) <= 1e-3 * abs(direct["loss"])):
+        raise AssertionError(f"trainer: loss {loss} against lm.train's "
+                             f"{direct['loss']}")
+    if not (report and report.get("step") == TRAINER_STEPS - 1):
+        raise AssertionError(f"trainer: metrics report {report}")
+    ms = report["step_time_ms"]
+    ntok = batch * seq
+    flops = chip_bench.train_flops_per_token(case) * ntok
+    say("trainer", batch=batch, seq=seq, n_layers=cfg.n_layers,
+        param_dtype="float32", steps=TRAINER_STEPS,
+        launches_per_step={k: n // TRAINER_STEPS for k, n in launches.items()},
+        launches=launches, loss=loss, direct_train_loss=direct["loss"],
+        attempt_record=got, step_ms=ms, step_timed="last step, by the "
+        "metrics report (host clock, to the loss's sync)",
+        tokens_per_s=ntok / (ms * 1e-3), mfu=flops / (ms * 1e-3) / peak,
+        peak_known=known, peak_memory_gb=peak_gb,
+        direct_train_step_ms=direct["step_ms"],
+        f32_step_events_ms=events_ms,
+        f32_step_events_mfu=flops / (events_ms * 1e-3) / peak)
+    return launches
+
+
+def f32_step_ms(cfg: lm.LMConfig, batch: int, seq: int) -> float:
+    """The trainer's step (f32 params) without its loop: back-to-back
+    steps on one batch, timed by CUDA events after TRAIN_WARM steps, as
+    the ``train`` phase times the bf16 step."""
+    params, opt_state = lm.init_train_state(
+        torch.Generator("cuda").manual_seed(0), cfg)
+    step = lm.make_train_step(cfg)
+    tokens = lm.synthetic_batch(torch.Generator("cuda").manual_seed(1), cfg,
+                                batch, seq)
+    for _ in range(TRAIN_WARM):
+        params, opt_state, _ = step(params, opt_state, tokens)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(TRAIN_STEPS - TRAIN_WARM):
+        params, opt_state, _ = step(params, opt_state, tokens)
+    end.record()
+    end.synchronize()
+    del params, opt_state, step
+    torch.cuda.empty_cache()
+    return start.elapsed_time(end) / (TRAIN_STEPS - TRAIN_WARM)
+
+
+@contextlib.contextmanager
+def step_losses():
+    """The loss of every step that ``lm.train`` runs inside the block, in
+    order: ``lm.make_train_step`` is wrapped to record them."""
+    losses, make = [], lm.make_train_step
+
+    def recording(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def run(params, opt_state, batch):
+            params, opt_state, loss = step(params, opt_state, batch)
+            losses.append(float(loss))
+            return params, opt_state, loss
+        return run
+    lm.make_train_step = recording
+    try:
+        yield losses
+    finally:
+        lm.make_train_step = make
+
+
+def timed_train(cfg: lm.LMConfig, group, ckpt_dir: str, steps: int) -> dict:
+    """``lm.train`` for ``steps`` steps at B4 T2048 with no saves; its
+    result with ``losses``, the loss of each step, and ``step_ms``, the
+    host time of each step after the first, each ended by a synchronize
+    in the step callback."""
+    ends = []
+
+    def mark(_step):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+    with step_losses() as losses:
+        out = lm.train(cfg, steps=steps, batch=int(TRAINER_ENV["BATCH"]),
+                       seq=int(TRAINER_ENV["SEQ"]), ckpt_dir=ckpt_dir,
+                       checkpoint_every=0, step_callback=mark, group=group)
+    return {**out, "losses": losses,
+            "step_ms": [(b - a) * 1e3 for a, b in zip(ends, ends[1:])]}
+
+
+def losses_agree(got: list, want: list, rtol: float) -> bool:
+    """As many finite step losses as ``want``, each within ``rtol`` of
+    it, relative."""
+    return len(got) == len(want) and all(
+        math.isfinite(g) and abs(g - w) <= rtol * abs(w)
+        for g, w in zip(got, want))
+
+
+def check_trainer_group() -> list:
+    """``lm.train`` at full width, 2 layers, without a group and under a
+    world-1 NCCL group (its gradient all-reduce, preemption verdict and
+    barriers through NCCL on CUDA tensors): every step's loss within 1e-3
+    relative. Returns the group run's losses."""
+    cfg = trainer_cfg(2)
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        runs["no_group"] = timed_train(cfg, None, os.path.join(tmp, "a"),
+                                       GROUP_STEPS)
+        torch.cuda.empty_cache()
+        rendezvous.init_process_group("127.0.0.1", free_port(), 0, 1, "nccl",
+                                      timeout=120.0, bind_ip="127.0.0.1")
+        try:
+            runs["nccl_world_1"] = timed_train(cfg, dist.group.WORLD,
+                                               os.path.join(tmp, "b"),
+                                               GROUP_STEPS)
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    want, got = runs["no_group"]["losses"], runs["nccl_world_1"]["losses"]
+    if len(want) != GROUP_STEPS or not losses_agree(got, want, 1e-3):
+        raise AssertionError(f"trainer_group: losses {runs}")
+    say("trainer_group", ok=True, n_layers=cfg.n_layers, steps=GROUP_STEPS,
+        runs=runs, mean_step_ms={n: sum(r["step_ms"]) / len(r["step_ms"])
+                                 for n, r in runs.items()})
+    return got
+
+
+def check_trainer_resume() -> None:
+    """Two trainer processes at full width, 2 layers, on one checkpoint
+    dir: 4 steps with a save every 2, then a resume to 6. Then one save
+    and one resume of that state (2 layers, f32 params and AdamW), timed
+    in this process."""
+    env = gang_of_one(**{**TRAINER_ENV, "LM_LAYERS": "2"},
+                      CHECKPOINT_EVERY="2")
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt_dir = os.path.join(tmp, "job")
+        for total in (4, 6):
+            t0 = time.perf_counter()
+            proc = run_module("kubernetes_tpu_torch.workloads.trainer",
+                              {**env, "CKPT_DIR": ckpt_dir,
+                               "TOTAL_STEPS": str(total)})
+            wall = time.perf_counter() - t0
+            done = [ln for ln in proc.stdout.splitlines()
+                    if ln.startswith("TRAINER DONE rank=0 ")]
+            if proc.returncode != 0 or len(done) != 1:
+                raise AssertionError(f"trainer_resume: exit {proc.returncode}"
+                                     f", {done}: {_tail(proc)}")
+            runs.append({"total_steps": total, "wall_s": wall,
+                         "done": done[0]})
+        records = []
+        for start in (0, 4):
+            with open(os.path.join(
+                    ckpt_dir, f"attempt-rank0-start{start}.json")) as f:
+                rec = json.load(f)
+            records.append({k: rec[k] for k in
+                            ("resumed_from", "final_step", "steps_run")})
+        marker = read_marker(ckpt_dir)
+        free_gb = shutil.disk_usage(tmp).free / 1e9
+    if records != [{"resumed_from": 0, "final_step": 4, "steps_run": 4},
+                   {"resumed_from": 4, "final_step": 6, "steps_run": 2}] \
+            or marker != 5:
+        raise AssertionError(f"trainer_resume: {records}, marker {marker}")
+
+    cfg = trainer_cfg(2)
+
+    def init():
+        params, opt_state = lm.init_train_state(
+            torch.Generator("cuda").manual_seed(0), cfg)
+        return {"params": params, "opt_state": opt_state}
+    with tempfile.TemporaryDirectory() as tmp:
+        state = init()
+        nbytes = sum(x.numel() * x.element_size()
+                     for x in lm._leaves(state["params"])
+                     + lm._leaves(state["opt_state"]["mu"])
+                     + lm._leaves(state["opt_state"]["nu"]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save(0, state, tmp)
+        save_s = time.perf_counter() - t0
+        want = state["params"]["embed"].clone()
+        del state
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        restored, start = ckpt.resume_or_init(tmp, init)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        if start != 1 or not torch.equal(restored["params"]["embed"], want):
+            raise AssertionError("trainer_resume: the timed resume")
+        del restored, want
+    torch.cuda.empty_cache()
+    say("trainer_resume", ok=True, runs=runs, records=records, marker=marker,
+        disk_free_gb_after_runs=free_gb, state_gb=nbytes / 1e9,
+        save_s=save_s, resume_s=resume_s)
+
+
+def check_demo() -> None:
+    """The counting demo on the card as a one-rank gang: the exact final
+    value of 6 steps, sum(1 + s)."""
+    total = 6
+    proc = run_module("kubernetes_tpu_torch.workloads.distributed_demo",
+                      gang_of_one(MODEL=None, TOTAL_STEPS=str(total),
+                                  CKPT_DIR=None))
+    want = float(sum(1 + s for s in range(total)))
+    done = [ln for ln in proc.stdout.splitlines() if ln.startswith("DONE ")]
+    if proc.returncode != 0 or done != [f"DONE rank=0 start=0 final={want}"]:
+        raise AssertionError(f"demo: exit {proc.returncode}, {done}, want "
+                             f"{want}: {_tail(proc)}")
+    say("demo", ok=True, final=want, line=done[0])
+
+
+#: One rank of the two-card data-parallel run: NCCL on the card that
+#: CUDA_VISIBLE_DEVICES gives it, ``timed_train`` of this script at full
+#: width, 2 layers; its result as the last line.
+DP2_RANK = r"""
+import json, os, torch
+from torch import distributed as dist
+import chip_smoke
+from kubernetes_tpu_torch.workloads import rendezvous
+torch.cuda.set_device(0)
+rendezvous.init_process_group("127.0.0.1", int(os.environ["DP2_PORT"]),
+                              int(os.environ["DP2_RANK"]), 2, "nccl",
+                              timeout=300.0, bind_ip="127.0.0.1")
+out = chip_smoke.timed_train(chip_smoke.trainer_cfg(2), dist.group.WORLD,
+                             os.environ["DP2_CKPT"], chip_smoke.GROUP_STEPS)
+dist.destroy_process_group()
+print(json.dumps(out))
+"""
+
+
+def check_trainer_dp2(world_1_losses: list) -> None:
+    """Two ranks over NCCL, one card each, on the global batch of the
+    world-1 run: every step's loss the same on both ranks and within
+    5e-2 relative of the world-1 run's; their step times. Not run with
+    one card."""
+    if torch.cuda.device_count() < 2:
+        say("trainer_dp2", skipped="one card")
+        return
+    port = free_port()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", DP2_RANK],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            env={**os.environ, "CUDA_VISIBLE_DEVICES": str(r),
+                 "DP2_RANK": str(r), "DP2_PORT": str(port), "DP2_CKPT": tmp},
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(2)]
+        outs = []
+        try:
+            for proc in procs:
+                out, err = proc.communicate(timeout=SUBPROCESS_TIMEOUT)
+                if proc.returncode != 0:
+                    raise AssertionError(f"trainer_dp2: exit "
+                                         f"{proc.returncode}: {err[-3000:]}")
+                outs.append(json.loads(out.strip().splitlines()[-1]))
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+    losses = [o["losses"] for o in outs]
+    if losses[0] != losses[1] or not losses_agree(losses[0], world_1_losses,
+                                                  5e-2):
+        raise AssertionError(f"trainer_dp2: losses {losses}, world 1 "
+                             f"{world_1_losses}")
+    say("trainer_dp2", ok=True, losses=losses[0],
+        world_1_losses=world_1_losses,
+        step_ms=[o["step_ms"] for o in outs])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -724,7 +1136,16 @@ def main() -> int:
     train_launches = check_train(base, cases, peak, known)
     check_train_grads(base)
     check_train_loop()
-    by_path = {k: {"forward": launches[k], "train": train_launches[k]}
+
+    # The TrainJob worker payload, counted inside check_trainer; then the
+    # trainer's group, resume and demo paths and, with two cards, dp.
+    trainer_launches = check_trainer(peak, known)
+    world_1_losses = check_trainer_group()
+    check_trainer_resume()
+    check_demo()
+    check_trainer_dp2(world_1_losses)
+    by_path = {k: {"forward": launches[k], "train": train_launches[k],
+                   "trainer": trainer_launches[k]}
                for k in launches}
 
     # Last of all: the one profiled phase (K1's device_us).

@@ -13,6 +13,36 @@ extern "C" const char* kernel_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// Makes `device` the calling thread's current CUDA device for the guard's
+// scope and puts the previous one back after. Every entry point takes the
+// device of the tensors it is given and opens one of these first, so it
+// launches on that device (and its stream and its PerDevice values)
+// whatever device the thread had current. When the two already agree it
+// costs one cudaGetDevice, a read of thread-local state.
+class DeviceGuard {
+ public:
+  explicit DeviceGuard(int device) {
+    error_ = cudaGetDevice(&previous_);
+    if (error_ == cudaSuccess && previous_ != device) {
+      error_ = cudaSetDevice(device);
+      switched_ = error_ == cudaSuccess;
+    }
+  }
+  ~DeviceGuard() {
+    if (switched_) cudaSetDevice(previous_);
+  }
+  DeviceGuard(const DeviceGuard&) = delete;
+  DeviceGuard& operator=(const DeviceGuard&) = delete;
+
+  // cudaSuccess (0), or the error of reading or setting the device.
+  int error() const { return static_cast<int>(error_); }
+
+ private:
+  int previous_ = 0;
+  cudaError_t error_ = cudaSuccess;
+  bool switched_ = false;
+};
+
 // Devices whose values a PerDevice keeps; one past them is asked again on
 // every call.
 constexpr int kMaxDevices = 64;

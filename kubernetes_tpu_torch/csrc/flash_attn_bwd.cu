@@ -564,15 +564,19 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 
 // q, k, v, o, dout, dq, dk, dv: contiguous [B, H, T, D] bf16; lse:
 // [B, H, T] f32 (natural log, as flash_attn_fwd_bf16 writes it); delta:
-// [B, H, T] f32 scratch. scale = 1/sqrt(D). Three launches on `stream`.
+// [B, H, T] f32 scratch; all on `device`. scale = 1/sqrt(D). Three
+// launches on `stream`, one of that device's streams.
 extern "C" int flash_attn_bwd_bf16(const void* q, const void* k, const void* v,
                                    const void* o, const void* dout,
                                    const void* lse, void* delta, void* dq,
                                    void* dk, void* dv, int B, int H, int T,
-                                   int D, float scale, void* stream) {
+                                   int D, float scale, int device,
+                                   void* stream) {
   if (B <= 0 || H <= 0 || T <= 0 || H > 65535 || B > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  DeviceGuard guard(device);
+  if (guard.error()) return guard.error();
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 32:

@@ -276,14 +276,18 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
 
 }  // namespace
 
-// q, k, v, o: contiguous [B, H, T, D] bf16; lse: [B, H, T] f32.
-// scale_log2 = sm_scale * log2(e).
+// q, k, v, o: contiguous [B, H, T, D] bf16; lse: [B, H, T] f32; all on
+// `device`, and `stream` one of its streams. scale_log2 = sm_scale *
+// log2(e).
 extern "C" int flash_attn_fwd_bf16(const void* q, const void* k, const void* v,
                                    void* o, void* lse, int B, int H, int T,
-                                   int D, float scale_log2, void* stream) {
+                                   int D, float scale_log2, int device,
+                                   void* stream) {
   if (B <= 0 || H <= 0 || T <= 0 || H > 65535 || B > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  DeviceGuard guard(device);
+  if (guard.error()) return guard.error();
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 32: return launch<32>(q, k, v, o, lse, B, H, T, scale_log2, s);

@@ -138,14 +138,19 @@ int launch(const void* x, const void* y, void* o, int64_t n, void* stream) {
 
 }  // namespace
 
-// x, y, o: n contiguous elements each. Launches one kernel on `stream`
-// (none for n = 0) and returns cudaGetLastError().
+// x, y, o: n contiguous elements each, on `device`. Launches one kernel
+// on `stream` of that device (none for n = 0) and returns
+// cudaGetLastError().
 extern "C" int vector_add_f32(const void* x, const void* y, void* o, int64_t n,
-                              void* stream) {
+                              int device, void* stream) {
+  DeviceGuard guard(device);
+  if (guard.error()) return guard.error();
   return launch<float, float4>(x, y, o, n, stream);
 }
 
 extern "C" int vector_add_bf16(const void* x, const void* y, void* o, int64_t n,
-                               void* stream) {
+                               int device, void* stream) {
+  DeviceGuard guard(device);
+  if (guard.error()) return guard.error();
   return launch<uint16_t, uint4>(x, y, o, n, stream);
 }

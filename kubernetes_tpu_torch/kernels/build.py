@@ -9,8 +9,11 @@ compiler's output; nothing is cached about a failure, and nothing falls
 back to another implementation.
 
 Every C entry point takes its pointers and its stream as
-``ctypes.c_void_p``, launches on the stream it is given, allocates
-nothing, and returns ``cudaGetLastError()``. A wrapper calls it through
+``ctypes.c_void_p`` and the index of its tensors' device as an int,
+makes that device current for the launch (``DeviceGuard``,
+``csrc/common.cuh``) whatever device the calling thread had current,
+launches on the stream it is given, allocates nothing, and returns
+``cudaGetLastError()``. A wrapper calls it through
 a :class:`Kernel`, the one launch path of the package: the library is
 built, loaded and its symbol declared at the first launch and kept, so
 every later launch is one ctypes call and one test of its return code.
@@ -124,7 +127,8 @@ class Kernel:
     code; on a non-zero code the wrapper raises ``error(code)``, a
     ``RuntimeError`` with CUDA's text for it:
 
-        rc = kernel.launch(x.data_ptr(), ..., current_stream(device))
+        rc = kernel.launch(x.data_ptr(), ..., device,
+                           current_stream(device))
         if rc:
             raise kernel.error(rc)
 

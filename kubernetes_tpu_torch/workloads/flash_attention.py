@@ -34,12 +34,12 @@ HEAD_DIMS = (32, 64, 128)
 
 _FWD = build.Kernel(
     "flash_attn_fwd", "flash_attn_fwd_bf16",
-    (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 4 + (ctypes.c_float,
-                                                    ctypes.c_void_p))
+    (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 4
+    + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
 _BWD = build.Kernel(
     "flash_attn_bwd", "flash_attn_bwd_bf16",
-    (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 4 + (ctypes.c_float,
-                                                     ctypes.c_void_p))
+    (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 4
+    + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
 
 
 def _check_kernel_inputs(what: str, **tensors) -> None:
@@ -96,9 +96,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     if q.numel() == 0:
         return o, lse
     scale_log2 = (1.0 / math.sqrt(d)) * math.log2(math.e)
+    device = q.get_device()
     rc = _FWD.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                     lse.data_ptr(), b, h, t, d, scale_log2,
-                     build.current_stream(q.get_device()))
+                     lse.data_ptr(), b, h, t, d, scale_log2, device,
+                     build.current_stream(device))
     if rc:
         raise _FWD.error(rc)
     global launches
@@ -154,10 +155,11 @@ def flash_attention_bwd(q, k, v, o, lse, do):
     if q.numel() == 0:
         return dq, dk, dv
     delta = torch.empty((b, h, t), dtype=torch.float32, device=dev)
+    device = q.get_device()
     rc = _BWD.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                      do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                      dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, t, d,
-                     1.0 / math.sqrt(d), build.current_stream(q.get_device()))
+                     1.0 / math.sqrt(d), device, build.current_stream(device))
     if rc:
         raise _BWD.error(rc)
     global bwd_launches

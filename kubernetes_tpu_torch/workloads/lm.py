@@ -18,6 +18,11 @@ Training: :func:`make_train_step` (forward, loss, backward, AdamW
 against an f32 master for bf16 params), :func:`init_train_state` and
 :func:`train`, the elastic loop with checkpoint/resume
 (``checkpoint.py``) and the metrics report (``metrics_reporter.py``).
+Given a ``torch.distributed`` process group, the step and the loop are
+data-parallel over its ranks, the reference's ``dp`` mesh axis: each
+rank takes its rows of the global batch, and the loss and gradients are
+averaged over the group before AdamW, so every rank holds the same
+params and the step equals one step over the global batch.
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ from torch.utils.checkpoint import (checkpoint,
 
 from ..device import resolve_device
 from .flash_attention import FlashAttention, flash_attention
+from .rendezvous import barrier
 from .ring_attention import reference_attention
 
 
@@ -385,22 +391,50 @@ def init_train_state(generator: torch.Generator, cfg: LMConfig,
     return params, init_opt_state(params, cfg, lr)
 
 
-def loss_and_grads(params: dict, batch: torch.Tensor, cfg: LMConfig):
+def _average_(tensors: list, group) -> None:
+    """Average ``tensors`` over the ranks of ``group`` in place: one
+    all-reduce per dtype, over one flat buffer, as a SUM and then a
+    division by the group's size (gloo has no AVG)."""
+    from torch import distributed as dist
+    world = dist.get_world_size(group)
+    by_dtype: dict = {}
+    for x in tensors:
+        by_dtype.setdefault(x.dtype, []).append(x)
+    for same in by_dtype.values():
+        flat = torch.cat([x.reshape(-1) for x in same])
+        dist.all_reduce(flat, group=group)
+        flat.div_(world)
+        for x, part in zip(same, flat.split([x.numel() for x in same])):
+            x.copy_(part.view_as(x))
+
+
+def loss_and_grads(params: dict, batch: torch.Tensor, cfg: LMConfig,
+                   group=None):
     """``(loss, grads)``: the loss detached, grads a dict shaped like
-    ``params`` in the params' dtype (``jax.value_and_grad(loss_fn)``)."""
+    ``params`` in the params' dtype (``jax.value_and_grad(loss_fn)``).
+    Under a process ``group`` both are averaged over its ranks, each of
+    which holds an equal share of the batch: the loss and gradients of
+    the whole batch."""
     wrt = _tree_map(lambda p: p.detach().requires_grad_(), params)
     loss = loss_fn(wrt, batch, cfg)
-    grads = iter(torch.autograd.grad(loss, _leaves(wrt)))
-    return loss.detach(), _tree_map(lambda _: next(grads), wrt)
+    grads = torch.autograd.grad(loss, _leaves(wrt))
+    loss = loss.detach()
+    if group is not None:
+        _average_([loss, *grads], group)
+    grads = iter(grads)
+    return loss, _tree_map(lambda _: next(grads), wrt)
 
 
-def make_train_step(cfg: LMConfig, lr: float = 3e-3, device=None):
+def make_train_step(cfg: LMConfig, lr: float = 3e-3, device=None,
+                    group=None):
     """``step(params, opt_state, batch) -> (params, opt_state, loss)`` on
     ``device`` (default ``cuda``; raises without one unless
     ``device="cpu"``): forward, loss, backward and AdamW (against the
     f32 master when params are stored low-precision). Params and state
     are updated in place and returned, where the reference donates its
-    buffers; ``loss`` is a 0-dim f32 tensor on the device."""
+    buffers; ``loss`` is a 0-dim f32 tensor on the device. Under a
+    process ``group`` (data parallelism: ``batch`` is this rank's rows)
+    the loss and gradients are averaged over its ranks before AdamW."""
     dev = resolve_device(device)
     opt = make_optimizer(lr)
 
@@ -408,7 +442,7 @@ def make_train_step(cfg: LMConfig, lr: float = 3e-3, device=None):
         if batch.device != dev:
             raise ValueError(f"batch is on {batch.device}, the step was "
                              f"made for {dev}")
-        loss, grads = loss_and_grads(params, batch, cfg)
+        loss, grads = loss_and_grads(params, batch, cfg, group)
         with torch.no_grad():
             if _is_mixed(cfg):
                 inner, master = opt_state
@@ -458,20 +492,27 @@ def train(cfg: LMConfig, steps: int, batch: int, seq: int,
           lr: float = 3e-3, ckpt_dir: str = "",
           checkpoint_every: int = 50, rng_seed: int = 0,
           publish_marker: bool = False, step_callback=None,
-          device=None) -> dict:
-    """Elastic training loop on one device: resumes from the job's
-    checkpoint when one exists (``checkpoint.py``: eviction and
-    reschedule is a resume, not a restart), saving every
-    ``checkpoint_every`` steps. Returns ``{"final_step", "loss",
-    "resumed_from", "preempted"}``.
+          device=None, group=None) -> dict:
+    """Elastic training loop: resumes from the job's checkpoint when one
+    exists (``checkpoint.py``: eviction and reschedule is a resume, not a
+    restart), saving every ``checkpoint_every`` steps. Returns
+    ``{"final_step", "loss", "resumed_from", "preempted"}``.
 
     ``publish_marker``: also publish the checkpoint-complete marker after
     every periodic save, the durable progress record the TrainJob
     controller reads. ``step_callback(step)`` runs after each completed
     step. A preemption request (``checkpoint.preempt_requested``) saves,
     publishes the marker and returns with ``preempted: True``; the next
-    incarnation resumes at step + 1. The reference's multi-process
-    verdict is ported with the multi-process trainer."""
+    incarnation resumes at step + 1.
+
+    Under a process ``group`` the loop is data-parallel over its ranks:
+    ``batch`` is the global batch, a multiple of the group's size; every
+    rank draws the same global batch of each step and trains on its own
+    rows. The ranks agree on the start step (a barrier before reading
+    the checkpoint) and on the preemption verdict (the largest of their
+    flags, every step), so all of them save at the same step. Rank 0 is
+    the one writer of checkpoints and markers; a barrier after each
+    save keeps every rank from going on before it is durable."""
     import time
 
     from ..perf.chip_bench import BenchCase, train_flops_per_token
@@ -480,6 +521,15 @@ def train(cfg: LMConfig, steps: int, batch: int, seq: int,
 
     dev = resolve_device(device)
     ckpt_dir = ckpt_dir or ckpt.checkpoint_dir()
+    rank, rows = 0, batch
+    if group is not None:
+        from torch import distributed as dist
+        rank, world = dist.get_rank(group), dist.get_world_size(group)
+        if batch % world:
+            raise ValueError(f"batch {batch} is not a multiple of the "
+                             f"group's {world} ranks")
+        rows = batch // world
+        barrier(group, dev)
 
     def init():
         params, opt_state = init_train_state(
@@ -487,10 +537,29 @@ def train(cfg: LMConfig, steps: int, batch: int, seq: int,
         return {"params": params, "opt_state": opt_state}
 
     state, start = ckpt.resume_or_init(ckpt_dir, init)
-    # A marker left by the previous incarnation's preemption round must
-    # not satisfy a new round's wait.
-    ckpt.clear_marker(ckpt_dir)
-    step_fn = make_train_step(cfg, lr, dev)
+    if rank == 0:
+        # A marker left by the previous incarnation's preemption round
+        # must not satisfy a new round's wait.
+        ckpt.clear_marker(ckpt_dir)
+
+    def preempt_agreed() -> bool:
+        """The gang's verdict: the signal reaches each pod at its own
+        time, and every rank must save at the same step boundary."""
+        local = ckpt.preempt_requested()
+        if group is None:
+            return local
+        flag = torch.tensor([int(local)], dtype=torch.int32, device=dev)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
+        return bool(flag.item())
+
+    def save(step: int) -> None:
+        if rank == 0:
+            ckpt.save(step, {"params": params, "opt_state": opt_state},
+                      ckpt_dir)
+        if group is not None:
+            barrier(group, dev)
+
+    step_fn = make_train_step(cfg, lr, dev, group)
     params, opt_state = state["params"], state["opt_state"]
     loss = None
     reporter = TrainingMetricsReporter(
@@ -501,23 +570,24 @@ def train(cfg: LMConfig, steps: int, batch: int, seq: int,
         t0 = time.perf_counter()
         data = synthetic_batch(_batch_generator(dev, rng_seed, step), cfg,
                                batch, seq, dev)
+        if group is not None:
+            data = data[rank * rows:(rank + 1) * rows]
         params, opt_state, loss = step_fn(params, opt_state, data)
         if reporter.enabled:
             value = float(loss)  # waits for the step: an honest step time
             reporter.report(step, time.perf_counter() - t0, batch * seq,
                             loss=value)
-        if ckpt.preempt_requested():
-            ckpt.save(step, {"params": params, "opt_state": opt_state},
-                      ckpt_dir)
-            ckpt.write_marker(ckpt_dir, step)
+        if preempt_agreed():
+            save(step)
+            if rank == 0:
+                ckpt.write_marker(ckpt_dir, step)
             return {"final_step": step + 1, "resumed_from": start,
                     "loss": float(loss), "preempted": True}
         if checkpoint_every and (step + 1) % checkpoint_every == 0:
-            ckpt.save(step, {"params": params, "opt_state": opt_state},
-                      ckpt_dir)
-            if publish_marker:
-                # Only after save() returned: the marker asserts the step
-                # is durable.
+            save(step)
+            if publish_marker and rank == 0:
+                # Only after every rank passed the save: the marker
+                # asserts the step is durable.
                 ckpt.write_marker(ckpt_dir, step)
         if step_callback is not None:
             step_callback(step)

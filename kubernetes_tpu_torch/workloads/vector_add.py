@@ -19,7 +19,7 @@ from ..kernels import build
 launches = 0
 
 _ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-         ctypes.c_void_p)
+         ctypes.c_int, ctypes.c_void_p)
 #: The kernel for each dtype it takes, resolved at its first launch.
 KERNELS = {torch.float32: build.Kernel("vector_add", "vector_add_f32", _ARGS),
            torch.bfloat16: build.Kernel("vector_add", "vector_add_bf16", _ARGS)}
@@ -46,7 +46,7 @@ def vector_add(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     n = x.numel()
     if n:
         rc = kernel.launch(x.data_ptr(), y.data_ptr(), out.data_ptr(), n,
-                           build.current_stream(device))
+                           device, build.current_stream(device))
         if rc:
             raise kernel.error(rc)
         global launches

@@ -24,6 +24,10 @@ The shapes: ragged tails; T at the edges of the kernels' 64- and
 at every head dim; many heads and a batch (the grid's y and z axes);
 and the main path's t2k and t8k shapes.
 
+One test, which skips with fewer than two cards, launches the kernels
+on tensors of device 1 while device 0 is current: each launches on its
+tensors' device.
+
 Two tests capture a launch in a CUDA graph and replay it after changing
 the inputs in place: they show that the wrappers launch on PyTorch's
 current stream, which the capture makes a side stream.
@@ -150,6 +154,36 @@ def test_flash_fwd_launches_on_the_current_stream(gen):
     torch.testing.assert_close(o.float(), o_ref.float(), atol=1e-2,
                                rtol=2 ** -6)
     torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0)
+
+
+def test_kernels_launch_on_their_tensors_device(gen):
+    """With device 0 current, K1, the flash forward and its backward on
+    tensors of device 1 launch on device 1 (a launch on device 0 would
+    fault on device 1's memory or leave the outputs unwritten), agree
+    with their plain versions, and leave device 0 current."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 1)
+    g1 = torch.Generator(device=dev).manual_seed(0)
+    x, y = (torch.randn(100_003, generator=g1, device=dev) for _ in range(2))
+    out = va.vector_add(x, y)
+    q, k, v, do = (torch.randn((1, 2, 257, 64), generator=g1, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize(dev)
+    assert torch.cuda.current_device() == 0
+    assert out.device == dev and torch.equal(out, x + y)
+    o_ref, lse_ref = reference_attention_with_lse(q, k, v)
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=1e-2,
+                               rtol=2 ** -6)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
+    for name, g, w in zip(("dq", "dk", "dv"), grads, want):
+        assert g.device == dev, name
+        torch.testing.assert_close(g.float(), w.float(), atol=1e-2,
+                                   rtol=2 ** -6, msg=name)
 
 
 @pytest.mark.parametrize("shape", SHAPES + EDGE_SHAPES + MAIN_SHAPES)

@@ -47,6 +47,8 @@ def test_port_imports_no_jax_at_run_time():
     for mod in ("entry", "workloads.lm", "workloads.vector_add",
                 "workloads.flash_attention", "workloads.ring_attention",
                 "workloads.checkpoint", "workloads.metrics_reporter",
+                "workloads.rendezvous", "workloads.sharding",
+                "workloads.trainer", "workloads.distributed_demo",
                 "preemption", "perf.chip_bench", "perf.profile_forward",
                 "kernels.build"):
         assert f"kubernetes_tpu_torch.{mod}" in report["modules"]
@@ -268,3 +270,95 @@ def test_current_stream_is_the_raw_getter_where_torch_has_it(monkeypatch):
         return types.SimpleNamespace(cuda_stream=1234)
     monkeypatch.setattr(torch.cuda, "current_stream", fake_current_stream)
     assert build.current_stream(3) == 1234 and asked == [3]
+
+
+def _solo_trainer_env(monkeypatch, **env):
+    """A one-rank gang's env for ``trainer.main()``, without the
+    platform knobs."""
+    for name in ("KTPU_TRAINER_PLATFORM", "KTPU_DEMO_PLATFORM", "CKPT_DIR",
+                 "KTPU_CHECKPOINT_DIR", "STEP_DELAY"):
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setenv("TPU_WORKER_ID", "0")
+    monkeypatch.setenv("TPU_WORKER_HOSTNAMES", "solo-0.solo.default")
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+
+
+def test_trainer_needs_cuda_unless_cpu_is_asked(monkeypatch, capsys):
+    """The trainer runs on the card: without one it raises, unless
+    ``KTPU_TRAINER_PLATFORM`` (or ``KTPU_DEMO_PLATFORM``) asks for the
+    CPU; an unknown model is the reference's error."""
+    import torch
+    from kubernetes_tpu_torch.workloads import trainer
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _solo_trainer_env(monkeypatch, MODEL="demo", TOTAL_STEPS="3")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trainer.main()
+    monkeypatch.setenv("KTPU_DEMO_PLATFORM", "cpu")
+    assert trainer.main() == 0
+    monkeypatch.delenv("KTPU_DEMO_PLATFORM")
+    monkeypatch.setenv("KTPU_TRAINER_PLATFORM", "cpu")
+    assert trainer.main() == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines == ["DONE rank=0 start=0 final=6.0"] * 2
+    monkeypatch.setenv("MODEL", "mnist")
+    with pytest.raises(SystemExit, match="unknown MODEL 'mnist'"):
+        trainer.main()
+
+
+def test_train_step_without_a_group_is_the_plain_step():
+    """``make_train_step(..., group=None)`` is the single-process step
+    bit for bit: forward, ``torch.autograd.grad`` and AdamW, composed by
+    hand here."""
+    import torch
+    from kubernetes_tpu_torch.workloads import lm
+    cfg = lm.LMConfig(vocab=64, d_model=32, n_layers=2, n_heads=2, d_ff=64,
+                      attn_impl="local", param_dtype=torch.bfloat16)
+    batch = lm.synthetic_batch(torch.Generator().manual_seed(1), cfg, 2, 16,
+                               device="cpu")
+    params, opt_state = lm.init_train_state(
+        torch.Generator().manual_seed(0), cfg)
+    _, _, loss = lm.make_train_step(cfg, device="cpu", group=None)(
+        params, opt_state, batch)
+
+    want_params, (inner, master) = lm.init_train_state(
+        torch.Generator().manual_seed(0), cfg)
+    wrt = lm._tree_map(lambda p: p.detach().requires_grad_(), want_params)
+    want_loss = lm.loss_fn(wrt, batch, cfg)
+    grads = torch.autograd.grad(want_loss, lm._leaves(wrt))
+    with torch.no_grad():
+        g32 = iter([g.float() for g in grads])
+        lm.make_optimizer().update_(
+            master, lm._tree_map(lambda _: next(g32), master), inner)
+        for p, m in zip(lm._leaves(want_params), lm._leaves(master)):
+            p.copy_(m)
+    assert torch.equal(loss, want_loss.detach())
+    for got, want in zip(lm._leaves(params), lm._leaves(want_params)):
+        assert torch.equal(got, want)
+
+
+def test_train_step_under_a_group_of_one_is_the_plain_step():
+    """Averaging over one rank changes no bit: a world-1 gloo group's
+    step equals the step without a group."""
+    import torch
+    from torch import distributed as dist
+    from kubernetes_tpu_torch.workloads import lm
+    cfg = lm.LMConfig(vocab=64, d_model=32, n_layers=2, n_heads=2, d_ff=64,
+                      attn_impl="local")
+    batch = lm.synthetic_batch(torch.Generator().manual_seed(1), cfg, 2, 16,
+                               device="cpu")
+    runs = []
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        for group in (None, dist.group.WORLD):
+            params, opt_state = lm.init_train_state(
+                torch.Generator().manual_seed(0), cfg)
+            step = lm.make_train_step(cfg, device="cpu", group=group)
+            losses = [step(params, opt_state, batch)[2] for _ in range(2)]
+            runs.append((losses, lm._leaves(params)))
+    finally:
+        dist.destroy_process_group()
+    (loss_a, params_a), (loss_b, params_b) = runs
+    assert all(torch.equal(a, b) for a, b in zip(loss_a, loss_b))
+    assert all(torch.equal(a, b) for a, b in zip(params_a, params_b))
