@@ -9,6 +9,17 @@ back:
 
 1. device: the card as ``nvidia-smi`` reports it (name, power limit);
 2. build: every kernel of ``kubernetes_tpu_torch/csrc`` with nvcc;
+   node: the node layer on every card. The NVML probe and the runtime
+   hook built with g++; the probe's cards (name, UUID, memory) against a
+   ``torch.cuda`` probe and this process's; the GPU device plugin
+   advertising that many chips, served on a socket and read back with
+   the port's client (``ListAndWatch``, ``AdmitPod``, ``InitContainer``)
+   where ``grpc`` imports, else a line that says why not; then for each
+   GPU the hook's device nodes on ``/dev`` and the vector-add payload
+   (``python -m kubernetes_tpu_torch.workloads.vector_add``) under that
+   GPU's ``InitContainer`` env: it must launch K1 and see the GPU of
+   that UUID as its ``cuda:0``. The probe, the plugin's start and each
+   payload run are timed by the wall clock;
 3. vector_add: the kernel against plain ``x + y``, bit for bit, in f32
    and bf16 at lengths around its 16-byte vectors and their ragged tail
    (1 to 2^26) and on views at odd offsets (``x[1:]`` with ``y[1:]``
@@ -21,8 +32,10 @@ back:
    and without a launch) beside ``torch.add``'s;
 5. flash_attn: the flash-attention forward against plain attention at
    the listed shapes (ragged tails, the edges of the kernels' tiles and
-   TMA boxes, many heads and a batch, the main path's shapes), and timed
-   at the main shapes beside PyTorch's SDPA pinned to each backend that
+   TMA boxes at every head dim 16 to 128, many heads and a batch, the
+   trainer's default LM, the main path's shapes), and timed at the main
+   shapes and the trainer's D-16 shape beside PyTorch's SDPA pinned to
+   each backend that
    takes the inputs (flash, cuDNN, efficient) as a yardstick, with the
    wrapper's ``host_us``;
 6. flash_attn_bwd: the flash-attention backward against the plain
@@ -62,6 +75,12 @@ back:
    (4 steps saving every 2, then to 6): the attempt records, the marker
    and the ``TRAINER DONE`` lines; then the time of one save and one
    resume of that state in this process;
+   trainer_default_lm: ``trainer.main()`` under the env that the
+   reference controller writes into a TrainJob pod, ``MODEL=lm`` and no
+   ``LM_*`` (a 32-wide LM of 2 heads, head dim 16, 2 layers), B4 T16, 4
+   steps through the flash kernels, every counter set to 0 just before
+   and read just after; its loss must fall and follow, step by step, the
+   same trainer with plain attention (``LM_ATTN=local``);
 15. demo: ``python -m kubernetes_tpu_torch.workloads.distributed_demo``
    on the card, 6 steps, and its exact final value;
 16. trainer_dp2: with two cards or more, two rank processes over NCCL,
@@ -78,8 +97,10 @@ Every subprocess is waited on with a timeout and killed at it.
 """
 from __future__ import annotations
 
+import asyncio
 import contextlib
 import dataclasses
+import importlib.util
 import json
 import math
 import os
@@ -90,6 +111,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import torch
 import torch.nn.functional as F
@@ -99,7 +121,10 @@ from torch.autograd import DeviceType
 from torch.nn.attention import SDPBackend, sdpa_kernel
 from torch.profiler import ProfilerActivity, profile
 
+from kubernetes_tpu_torch import native
+from kubernetes_tpu_torch.deviceplugin import gpu_plugin
 from kubernetes_tpu_torch.kernels import build
+from kubernetes_tpu_torch.node import runtimehook
 from kubernetes_tpu_torch.perf import chip_bench
 from kubernetes_tpu_torch.perf.launch_cost import host_us
 from kubernetes_tpu_torch.entry import entry
@@ -120,10 +145,15 @@ from kubernetes_tpu_torch.workloads.ring_attention import (
 #: axes); then the main path's shapes (the t2k and t8k cases at 16
 #: heads), which are also timed.
 MAIN_FLASH_SHAPES = [(4, 16, 2048, 128), (1, 16, 8192, 128)]
-FLASH_SHAPES = ([(2, 4, 65, 32), (1, 2, 1000, 64)]
-                + [(1, 2, t, d) for d in (32, 64, 128)
+#: The trainer's default LM (B4 T16, 2 heads of 16): what a TrainJob
+#: with no ``LM_*`` env sends the kernels; also timed.
+D16_FLASH_SHAPE = (4, 2, 16, 16)
+TIMED_FLASH_SHAPES = MAIN_FLASH_SHAPES + [D16_FLASH_SHAPE]
+FLASH_SHAPES = ([(2, 4, 65, 32), (1, 2, 1000, 64), (2, 4, 1000, 16)]
+                + [(1, 2, t, d) for d in (16, 32, 64, 128)
                    for t in (1, 127, 128, 129, 255, 257)]
-                + [(8, 32, 129, 64)] + MAIN_FLASH_SHAPES)
+                + [(8, 32, 129, 64), (8, 32, 129, 16), D16_FLASH_SHAPE]
+                + MAIN_FLASH_SHAPES)
 #: SDPA backends timed as the attention kernels' yardstick, each pinned
 #: with ``sdpa_kernel``; ``library_ms`` is the fastest that runs.
 SDPA_BACKENDS = {"flash": SDPBackend.FLASH_ATTENTION,
@@ -270,6 +300,129 @@ def bound_ms(flops: float, nbytes: float, name: str,
     t_ops = flops / (peak_ops or chip_bench.peak_flops_for(name)[0])
     t_bytes = nbytes / chip_bench.peak_bytes_for(name)[0]
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _same_uuid(a: str, b: str) -> bool:
+    """NVML writes ``GPU-<uuid>``; compare without the prefix."""
+    return a.lower().removeprefix("gpu-") == b.lower().removeprefix("gpu-")
+
+
+def check_node() -> dict:
+    """The node layer on this host: every card enumerated by NVML and
+    advertised by the device plugin, and the vector-add payload run on
+    each under the env that the plugin gives a container of that GPU.
+    Returns the payloads' K1 launches."""
+    t0 = time.perf_counter()
+    native.build("gpu_hook")
+    probe_cmd = gpu_plugin.nvml_probe_command()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    probe = gpu_plugin.run_probe(probe_cmd, 60)
+    probe_s = time.perf_counter() - t0
+    if not (probe and probe.get("gpu") and probe.get("source") == "nvml_probe"):
+        raise AssertionError(f"node: the NVML probe answered {probe}")
+    t0 = time.perf_counter()
+    torch_probe = gpu_plugin.run_probe(gpu_plugin.torch_probe_command(), 120)
+    torch_probe_s = time.perf_counter() - t0
+    devices = probe["devices"]
+    n = len(devices)
+    mine = [str(torch.cuda.get_device_properties(i).uuid)
+            for i in range(torch.cuda.device_count())]
+    if not (torch_probe and torch_probe.get("gpu")
+            and len(torch_probe["devices"]) == n == len(mine)
+            and all(_same_uuid(d["uuid"], t["uuid"])
+                    for d, t in zip(devices, torch_probe["devices"]))
+            and sorted(d["uuid"].lower().removeprefix("gpu-")
+                       for d in devices) == sorted(mine)):
+        raise AssertionError(f"node: NVML's cards {devices} are not torch's "
+                             f"{torch_probe} / {mine}")
+    cards = [{k: d.get(k) for k in ("index", "kind", "uuid", "minor_number",
+                                    "memory")} for d in devices]
+
+    t0 = time.perf_counter()
+    plugin = gpu_plugin.GpuDevicePlugin(probe=probe, slice_id="smoke")
+    chips = [c.id for c in plugin._topology.chips]
+    if chips != [f"gpu-{i}" for i in range(n)] \
+            or plugin._topology.mesh_shape != [n, 1, 1]:
+        raise AssertionError(f"node: the plugin advertises {chips}, mesh "
+                             f"{plugin._topology.mesh_shape}")
+    envs = {c: plugin.container_env([c]) for c in chips}
+    served = {"skipped": "grpc does not import"}
+    if importlib.util.find_spec("grpc") is not None:
+        from kubernetes_tpu_torch.deviceplugin.service import (
+            DevicePluginClient)
+        with tempfile.TemporaryDirectory(prefix="g") as tmp:
+            plugin.serve(os.path.join(tmp, "gpu.sock"))
+            plugin_start_s = time.perf_counter() - t0
+            client = DevicePluginClient(plugin.socket_path)
+            try:
+                update = next(iter(client.list_and_watch()))
+                admit = client.admit_pod("default", "smoke", "u", chips)
+                inits = {c: dict(client.init_container(
+                    "default", "smoke", "u", "main", [c]).envs)
+                    for c in chips}
+            finally:
+                client.close()
+                plugin.stop()
+        if [c.id for c in update.chips] != chips or not admit.allowed \
+                or inits != envs:
+            raise AssertionError(f"node: over gRPC {update}, {admit}, "
+                                 f"{inits}")
+        served = {"list_and_watch_chips": len(update.chips),
+                  "admit_allowed": admit.allowed, "init_container": "ok"}
+    else:
+        plugin_start_s = time.perf_counter() - t0
+    say("node_plugin", chips=len(chips), chip_type=plugin._topology.chip_type,
+        served=served)
+
+    # The hook as a node agent runs it, strict: each GPU's node is
+    # /dev/nvidia<NVML's minor number>, a character device of NVIDIA's
+    # major 195 with that minor, and not the node its index
+    # would name.
+    hook = runtimehook.GpuRuntimeHook(allow_missing_devices=False)
+    pod = types.SimpleNamespace(metadata=types.SimpleNamespace(annotations={}))
+    container = types.SimpleNamespace(image="cuda-vector-add",
+                                      tpu_requests=["gpu"])
+    runs, launches = [], 0
+    for i, chip in enumerate(chips):
+        minor = devices[i]["minor_number"]
+        node = f"/dev/nvidia{minor}"
+        env, devs = asyncio.run(hook.run(pod, container, [chip]))
+        want = runtimehook.discover([chip], {chip: minor}, "/dev",
+                                    allow_missing=False)
+        rdev = os.stat(node).st_rdev
+        if devs != want or not {node, "/dev/nvidiactl"} <= set(devs) \
+                or (i != minor and f"/dev/nvidia{i}" in devs) \
+                or (os.major(rdev), os.minor(rdev)) != (195, minor) \
+                or env != {"GPU_RUNTIME_HOOK": "native"}:
+            raise AssertionError(f"node: hook for {chip} (minor {minor}): "
+                                 f"{devs}, {env}, rdev {os.major(rdev)}:"
+                                 f"{os.minor(rdev)}")
+        t0 = time.perf_counter()
+        proc = run_module("kubernetes_tpu_torch.workloads.vector_add",
+                          envs[chip])
+        wall = time.perf_counter() - t0
+        try:
+            report = json.loads(proc.stdout.strip().splitlines()[-1])
+        except (IndexError, json.JSONDecodeError):
+            report = {}
+        if proc.returncode != 0 or not report.get("ok") \
+                or report.get("platform") != "cuda" \
+                or report.get("index") != 0 or report.get("launches", 0) < 1 \
+                or not _same_uuid(report.get("uuid", ""),
+                                  devices[i]["uuid"]):
+            raise AssertionError(f"node: payload on {chip}: exit "
+                                 f"{proc.returncode}, {report}: "
+                                 f"{_tail(proc)}")
+        launches += report["launches"]
+        runs.append({"chip": chip, "minor_number": minor, "devices": devs,
+                     "wall_s": wall,
+                     "sees_its_uuid_as_cuda0": True,
+                     "launches": report["launches"]})
+    say("node", ok=True, cards=cards, count=n, build_s=build_s,
+        nvml_probe_s=probe_s, torch_probe_s=torch_probe_s,
+        plugin_start_s=plugin_start_s, payloads=runs)
+    return {"vector_add": launches, "flash_attn_fwd": 0, "flash_attn_bwd": 0}
 
 
 def check_vector_add(gen, name: str) -> list[dict]:
@@ -434,7 +587,7 @@ def check_flash(gen, name: str) -> list[dict]:
         if bad or not lse_err <= LSE_ATOL or not bool(torch.isfinite(o).all()):
             raise AssertionError(f"flash_attn_fwd disagrees: {row}")
         del o_ref, lse_ref, err
-        if (b, h, t, d) in MAIN_FLASH_SHAPES:
+        if (b, h, t, d) in TIMED_FLASH_SHAPES:
             flops = 4.0 * b * h * d * t * (t + 1) / 2
             nbytes = 4 * b * h * t * d * 2 + b * h * t * 4
             row.update(timed(lambda: fa.flash_attention_fwd(q, k, v),
@@ -448,7 +601,7 @@ def check_flash(gen, name: str) -> list[dict]:
         results[(b, h, t, d)] = row
     say("flash_attn", ok=True, o_atol=O_ATOL, o_rtol=O_RTOL,
         lse_atol=LSE_ATOL, results=list(results.values()))
-    return [results[shape] for shape in MAIN_FLASH_SHAPES]
+    return [results[shape] for shape in TIMED_FLASH_SHAPES]
 
 
 def drift(got: torch.Tensor, plain: torch.Tensor,
@@ -504,7 +657,7 @@ def check_flash_bwd(gen, name: str) -> list[dict]:
             if not (row[gname]["ok"] and bool(torch.isfinite(g).all())):
                 raise AssertionError(f"flash_attn_bwd {gname} drifts: {row}")
         del plain, exact, x32
-        if (b, h, t, d) in MAIN_FLASH_SHAPES:
+        if (b, h, t, d) in TIMED_FLASH_SHAPES:
             flops = 10.0 * b * h * d * t * (t + 1) / 2
             nbytes = 8 * b * h * t * d * 2 + b * h * t * 4
             row.update(timed(
@@ -520,7 +673,7 @@ def check_flash_bwd(gen, name: str) -> list[dict]:
         torch.cuda.empty_cache()
         results[(b, h, t, d)] = row
     say("flash_attn_bwd", ok=True, results=list(results.values()))
-    return [results[shape] for shape in MAIN_FLASH_SHAPES]
+    return [results[shape] for shape in TIMED_FLASH_SHAPES]
 
 
 def check_entry() -> None:
@@ -967,6 +1120,59 @@ def check_trainer_resume() -> None:
         save_s=save_s, resume_s=resume_s)
 
 
+#: The LM env names the reference controller leaves unset, so that the
+#: trainer takes its defaults.
+LM_ENV_NAMES = ("LM_VOCAB", "LM_D_MODEL", "LM_LAYERS", "LM_HEADS",
+                "LM_D_FF", "LM_ATTN", "BATCH", "SEQ")
+#: Steps of the trainer_default_lm phase.
+DEFAULT_LM_STEPS = 4
+
+
+def check_trainer_default_lm() -> dict:
+    """A TrainJob's env as the reference controller writes it: MODEL=lm
+    and no ``LM_*``, so head dim 16, through the flash kernels,
+    counted; its loss must fall and stay within 1e-3 relative of the
+    same trainer's with plain attention at every step, as in
+    :func:`check_trainer_group` (bf16 rounds at other places in the
+    two). Returns its launches."""
+    runs, cfgs = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for attn in ("flash", "local"):
+            env = gang_of_one(MODEL="lm", TOTAL_STEPS=str(DEFAULT_LM_STEPS),
+                              CHECKPOINT_EVERY="0",
+                              CKPT_DIR=os.path.join(tmp, attn),
+                              KTPU_SANDBOX=tmp,
+                              **dict.fromkeys(LM_ENV_NAMES))
+            if attn == "local":
+                env["LM_ATTN"] = "local"
+            with environ(env):
+                cfgs[attn] = trainer.lm_config(torch.device("cuda"))
+                with step_losses() as losses:
+                    zero_counters()
+                    rc = trainer.main()
+                    torch.cuda.synchronize()
+                    launches = counters()
+            runs[attn] = {"rc": rc, "losses": losses, "launches": launches,
+                          "attn_impl": cfgs[attn].attn_impl}
+    flash, local, cfg = runs["flash"], runs["local"], cfgs["flash"]
+    want = {"vector_add": 0,
+            "flash_attn_fwd": 2 * cfg.n_layers * DEFAULT_LM_STEPS,
+            "flash_attn_bwd": cfg.n_layers * DEFAULT_LM_STEPS}
+    losses = flash["losses"]
+    if flash["rc"] != 0 or flash["launches"] != want or cfg.head_dim != 16 \
+            or len(losses) != DEFAULT_LM_STEPS or not losses[-1] < losses[0] \
+            or not losses_agree(losses, local["losses"], 1e-3):
+        raise AssertionError(f"trainer_default_lm: {runs}, want {want}, "
+                             f"head dim {cfg.head_dim}")
+    say("trainer_default_lm", ok=True, head_dim=cfg.head_dim,
+        n_layers=cfg.n_layers, n_heads=cfg.n_heads, d_model=cfg.d_model,
+        steps=DEFAULT_LM_STEPS, launches=flash["launches"],
+        launches_per_step={k: v // DEFAULT_LM_STEPS
+                           for k, v in flash["launches"].items()},
+        losses=losses, plain_attention_losses=local["losses"])
+    return flash["launches"]
+
+
 def check_demo() -> None:
     """The counting demo on the card as a one-rank gang: the exact final
     value of 6 steps, sum(1 + s)."""
@@ -1068,6 +1274,8 @@ def main() -> int:
     say("build", ok=True, seconds=time.perf_counter() - t0, spills=spills,
         ptxas=ptxas)
 
+    node_launches = check_node()
+
     gen = torch.Generator(device="cuda").manual_seed(0)
     va_rows = check_vector_add(gen, name)
     check_host_path()
@@ -1140,12 +1348,14 @@ def main() -> int:
     # The TrainJob worker payload, counted inside check_trainer; then the
     # trainer's group, resume and demo paths and, with two cards, dp.
     trainer_launches = check_trainer(peak, known)
+    default_lm_launches = check_trainer_default_lm()
     world_1_losses = check_trainer_group()
     check_trainer_resume()
     check_demo()
     check_trainer_dp2(world_1_losses)
-    by_path = {k: {"forward": launches[k], "train": train_launches[k],
-                   "trainer": trainer_launches[k]}
+    by_path = {k: {"node": node_launches[k], "forward": launches[k],
+                   "train": train_launches[k], "trainer": trainer_launches[k],
+                   "trainer_default_lm": default_lm_launches[k]}
                for k in launches}
 
     # Last of all: the one profiled phase (K1's device_us).
@@ -1161,7 +1371,7 @@ def main() -> int:
          "replaces": "kubernetes_tpu/workloads/vector_add.py:17-26",
          "at": f"n={row['n']} {row['dtype']}", **{k: row[k] for k in va_keys}}
         for row in va_rows]
-    for shape, fa_row, bwd_row in zip(MAIN_FLASH_SHAPES, fa_rows, bwd_rows):
+    for shape, fa_row, bwd_row in zip(TIMED_FLASH_SHAPES, fa_rows, bwd_rows):
         at = "B{} H{} T{} D{} bf16".format(*shape)
         kernels += [
             {"name": "flash_attn_fwd", "route": "cuda",

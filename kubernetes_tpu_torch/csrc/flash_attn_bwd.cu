@@ -579,6 +579,9 @@ extern "C" int flash_attn_bwd_bf16(const void* q, const void* k, const void* v,
   if (guard.error()) return guard.error();
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 16:
+      return launch<16>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, T,
+                        scale, s);
     case 32:
       return launch<32>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, T,
                         scale, s);

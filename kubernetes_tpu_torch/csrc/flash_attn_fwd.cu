@@ -40,8 +40,8 @@
 // walks back to key 0; the longest q-tiles of every head are issued
 // first so the short ones fill the tail. Rows past T arrive as zeros from TMA and are never
 // stored; keys past T lie only in the diagonal tile, after every valid
-// row, so the causal mask hides them. D is a template parameter: 32, 64
-// or 128.
+// row, so the causal mask hides them. D is a template parameter: 16, 32,
+// 64 or 128.
 #include <math.h>
 
 #include "common.cuh"
@@ -290,6 +290,7 @@ extern "C" int flash_attn_fwd_bf16(const void* q, const void* k, const void* v,
   if (guard.error()) return guard.error();
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 16: return launch<16>(q, k, v, o, lse, B, H, T, scale_log2, s);
     case 32: return launch<32>(q, k, v, o, lse, B, H, T, scale_log2, s);
     case 64: return launch<64>(q, k, v, o, lse, B, H, T, scale_log2, s);
     case 128: return launch<128>(q, k, v, o, lse, B, H, T, scale_log2, s);

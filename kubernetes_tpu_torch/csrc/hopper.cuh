@@ -11,14 +11,17 @@
 // arrive as zeros. TMA writes each tile as D / kBoxCols column boxes,
 // one after the other, each [rows][kRowBytes] with the hardware swizzle
 // of its row length: 128 B (64 columns) at D 64 and 128, 64 B (32
-// columns) at D 32. The wgmma descriptors below name the same swizzle,
-// so the tensor cores read the tiles as TMA left them.
+// columns) at D 32, 32 B (16 columns) at D 16. The wgmma descriptors
+// below name the same swizzle, so the tensor cores read the tiles as TMA
+// left them.
 //
 // Products. A K-major operand (the contraction runs along a row: Q, K,
 // dO or V as the left factor, or K, Q, dO, V as B in X Y^T) takes
 // `Tile<D>::kmajor`; an MN-major B (the contraction runs down the rows:
 // V in P V, dO in P^T dO, Q in dS^T Q, K in dS K) takes
-// `Tile<D>::mnmajor` and the transposed-B bit. The accumulator of
+// `Tile<D>::mnmajor` and the transposed-B bit. At D 16 the products
+// that contract over D are one k16 step, and those whose N is D are
+// m64n16k16. The accumulator of
 // m64nN (N/2 f32 per thread) holds, for warp w of the warpgroup, lane
 // (g = lane/4, c = lane%4), entry 4i+e at row 16w + g + 8(e/2) and
 // column 8i + 2c + (e%2). That is also the layout of the A fragments of
@@ -104,12 +107,20 @@ constexpr int kTmaRows = 64;
 // and the wgmma descriptors that read it.
 template <int D>
 struct Tile {
-  static_assert(D == 32 || D == 64 || D == 128, "head dim 32, 64 or 128");
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128,
+                "head dim 16, 32, 64 or 128");
   static constexpr int kRowBytes = D * 2 < 128 ? D * 2 : 128;  // per box
   static constexpr int kBoxCols = kRowBytes / 2;
   static constexpr int kBoxes = D / kBoxCols;
-  // Descriptor layout type: 1 = 128-byte swizzle, 2 = 64-byte.
-  static constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : 2;
+  // Descriptor layout type: 1 = 128-byte swizzle, 2 = 64-byte, 3 =
+  // 32-byte.
+  static constexpr uint64_t kLayout =
+      kRowBytes == 128 ? 1 : kRowBytes == 64 ? 2 : 3;
+  // The TMA swizzle that writes what kLayout reads.
+  static constexpr CUtensorMapSwizzle kSwizzle =
+      kRowBytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+      : kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                        : CU_TENSOR_MAP_SWIZZLE_32B;
   static constexpr __host__ __device__ int bytes(int rows) {
     return rows * D * 2;
   }
@@ -149,7 +160,10 @@ struct Tile {
   }
 
   // MN-major B operand: rows 16kk..16kk+15 of a `rows`-row tile, all D
-  // columns; the next box of columns is `rows * kRowBytes` further on.
+  // columns. Under every swizzle the leading byte offset steps to the
+  // next box of columns, `rows * kRowBytes` further on (unread at D 16,
+  // whose N of 16 is one 32-byte swizzle row), and the stride byte
+  // offset to the next 8 rows of the contraction.
   static __device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int rows,
                                                      int kk) {
     return desc(tile + 16 * kk * kRowBytes, rows * kRowBytes, 8 * kRowBytes);
@@ -190,6 +204,18 @@ __device__ __forceinline__ void wgmma_ss(float* d, uint64_t a, uint64_t b,
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
                                          uint64_t b, int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float* d, const uint32_t* a,
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
 
 template <>
 __device__ __forceinline__ void wgmma_ss<32>(float* d, uint64_t a, uint64_t b,
@@ -383,8 +409,7 @@ int make_tile_map(CUtensorMap* map, const void* ptr, int heads, int T) {
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      Tile<D>::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                : CU_TENSOR_MAP_SWIZZLE_64B,
+      Tile<D>::kSwizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }

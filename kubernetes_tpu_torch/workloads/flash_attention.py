@@ -30,7 +30,10 @@ launches = 0
 #: call on CUDA tensors), counted like :data:`launches`.
 bwd_launches = 0
 
-HEAD_DIMS = (32, 64, 128)
+#: Head dims the kernels take, each a template instance of both: 16 (the
+#: trainer's default LM, 2 heads of a 32-wide model) to 128 (the 600M
+#: LM's).
+HEAD_DIMS = (16, 32, 64, 128)
 
 _FWD = build.Kernel(
     "flash_attn_fwd", "flash_attn_fwd_bf16",
@@ -138,7 +141,7 @@ def flash_attention_bwd(q, k, v, o, lse, do):
     """``(dq, dk, dv)`` of causal attention given the forward's ``o``
     and ``lse`` and the output gradient ``do``, all [B, H, T, D] but
     ``lse`` [B, H, T] f32. CUDA tensors launch the kernel (bf16,
-    contiguous, head dim 32, 64 or 128); CPU tensors take
+    contiguous, a head dim of :data:`HEAD_DIMS`); CPU tensors take
     :func:`flash_attention_bwd_plain`."""
     dev = _check_shapes(q=q, k=k, v=v, o=o, do=do)
     if tuple(lse.shape) != tuple(q.shape[:3]) or lse.device != dev:

@@ -89,6 +89,24 @@ def _world(group) -> int:
     return dist.get_world_size(group) if group is not None else 1
 
 
+def lm_config(device: torch.device):
+    """The LM of the ``LM_*`` env, the reference trainer's defaults
+    where a name is unset (a 32-wide model of 2 heads: head dim 16).
+    The flash-attention kernels on the card: each rank runs them on its
+    own rows, which is the computation dp sharding does. Plain attention
+    on the CPU; "ring" raises until it is ported."""
+    from . import lm
+    attn = os.environ.get("LM_ATTN") or (
+        "flash" if device.type == "cuda" else "local")
+    return lm.LMConfig(
+        vocab=_env_int("LM_VOCAB", 64),
+        d_model=_env_int("LM_D_MODEL", 32),
+        n_layers=_env_int("LM_LAYERS", 2),
+        n_heads=_env_int("LM_HEADS", 2),
+        d_ff=_env_int("LM_D_FF", 64),
+        attn_impl=attn)
+
+
 def run_lm(rank: int, ckpt_dir: str, device: torch.device) -> int:
     from . import lm
 
@@ -97,18 +115,7 @@ def run_lm(rank: int, ckpt_dir: str, device: torch.device) -> int:
     seq = _env_int("SEQ", 16)
     every = _env_int("CHECKPOINT_EVERY", 10)
     delay = float(os.environ.get("STEP_DELAY") or 0.0)
-    # The flash-attention kernels on the card: each rank runs them on its
-    # own rows, which is the computation dp sharding does. Plain
-    # attention on the CPU; "ring" raises until it is ported.
-    attn = os.environ.get("LM_ATTN") or (
-        "flash" if device.type == "cuda" else "local")
-    cfg = lm.LMConfig(
-        vocab=_env_int("LM_VOCAB", 64),
-        d_model=_env_int("LM_D_MODEL", 32),
-        n_layers=_env_int("LM_LAYERS", 2),
-        n_heads=_env_int("LM_HEADS", 2),
-        d_ff=_env_int("LM_D_FF", 64),
-        attn_impl=attn)
+    cfg = lm_config(device)
     # Pure data parallelism across the gang, one device per rank: the
     # cheapest collectives, and the sharding every worker count supports.
     group = _group()

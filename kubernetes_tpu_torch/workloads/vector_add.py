@@ -74,15 +74,23 @@ def _plain_or_raise(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def smoke_test(n: int = 1 << 16, device=None) -> dict:
-    """Returns the payload's report; raises if the device lied."""
+    """Returns the payload's report; raises if the device lied. On the
+    card it names the card and its UUID, and counts the kernel's
+    launches in this process."""
     dev = resolve_device(device)
     x = torch.arange(n, dtype=torch.float32, device=dev)
     y = torch.full((n,), 2.0, dtype=torch.float32, device=dev)
     out = vector_add(x, y)
     if not torch.equal(out, x + 2.0):
         raise AssertionError("vector_add mismatch")
-    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else str(dev)
-    return {"ok": True, "n": n, "platform": dev.type, "device": name}
+    report = {"ok": True, "n": n, "platform": dev.type, "device": str(dev)}
+    if dev.type == "cuda":
+        # The card this process sees as ``dev``, by NVML's name for it:
+        # under the device plugin's CUDA_VISIBLE_DEVICES, the one given.
+        props = torch.cuda.get_device_properties(dev)
+        report.update(device=props.name, uuid=f"GPU-{props.uuid}",
+                      index=dev.index, launches=launches)
+    return report
 
 
 if __name__ == "__main__":

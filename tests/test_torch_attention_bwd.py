@@ -35,7 +35,7 @@ EDGE_T = [127, 128, 129, 255]
 
 
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
-@pytest.mark.parametrize("t", [1, 17, 65] + EDGE_T)
+@pytest.mark.parametrize("t", [1, 16, 17, 65] + EDGE_T + [257])
 def test_plain_bwd_matches_jax_vjp(t, d):
     q, k, v, do = _inputs(2, 3, t, d, seed=t * 10 + d)
     _, vjp = jax.vjp(jax_ra.reference_attention,

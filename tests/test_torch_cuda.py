@@ -21,8 +21,9 @@ deviation of the plain backward on the same bf16 inputs (the rule of
 
 The shapes: ragged tails; T at the edges of the kernels' 64- and
 128-row tiles and of the 64-row TMA boxes (1, 127, 128, 129, 255, 257)
-at every head dim; many heads and a batch (the grid's y and z axes);
-and the main path's t2k and t8k shapes.
+at every head dim (16, 32, 64, 128); many heads and a batch (the grid's
+y and z axes); the trainer's default LM (B4 H2 T16 D16); and the main
+path's t2k and t8k shapes.
 
 One test, which skips with fewer than two cards, launches the kernels
 on tensors of device 1 while device 0 is current: each launches on its
@@ -46,9 +47,11 @@ from kubernetes_tpu_torch.workloads.ring_attention import (
 pytestmark = pytest.mark.cuda
 
 SHAPES = [(1, 1, 1, 32), (1, 2, 63, 32), (2, 1, 64, 64), (1, 3, 129, 128),
-          (2, 2, 200, 64), (1, 1, 1000, 128)]
-EDGE_SHAPES = [(1, 2, t, d) for d in (32, 64, 128)
-               for t in (1, 127, 128, 129, 255, 257)] + [(8, 32, 129, 64)]
+          (2, 2, 200, 64), (1, 1, 1000, 128), (4, 2, 16, 16),
+          (2, 4, 1000, 16)]
+EDGE_SHAPES = [(1, 2, t, d) for d in (16, 32, 64, 128)
+               for t in (1, 127, 128, 129, 255, 257)] + [(8, 32, 129, 64),
+                                                         (8, 32, 129, 16)]
 MAIN_SHAPES = [(4, 16, 2048, 128), (1, 16, 8192, 128)]
 #: Vector-add lengths: around one 16-byte vector and its ragged tail,
 #: the payload's 2^16 and its neighbours, and the timed 2^26.

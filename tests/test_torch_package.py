@@ -50,7 +50,10 @@ def test_port_imports_no_jax_at_run_time():
                 "workloads.rendezvous", "workloads.sharding",
                 "workloads.trainer", "workloads.distributed_demo",
                 "preemption", "perf.chip_bench", "perf.profile_forward",
-                "kernels.build"):
+                "kernels.build", "native", "deviceplugin.gpu_plugin",
+                "deviceplugin.stub", "deviceplugin.service",
+                "deviceplugin.api_pb2", "node.runtimehook", "node.telemetry",
+                "metrics.registry"):
         assert f"kubernetes_tpu_torch.{mod}" in report["modules"]
 
 
@@ -73,6 +76,12 @@ def test_every_kernel_source_is_built():
     from kubernetes_tpu_torch.kernels import build
     assert sorted(build.SOURCES) == sorted(
         p.stem for p in build.CSRC.glob("*.cu"))
+
+
+def test_every_native_source_is_built():
+    from kubernetes_tpu_torch import native
+    assert sorted(native.BINARIES) == sorted(
+        p.stem for p in native.SRC_DIR.glob("*.cpp"))
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
