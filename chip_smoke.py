@@ -41,7 +41,20 @@ back:
 6. flash_attn_bwd: the flash-attention backward against the plain
    backward at the same shapes, gated against an f32 backward, and timed
    beside the backward of SDPA under each backend, with ``host_us``;
-7. entry: the tiny entry-point forward on the card against the CPU;
+   ring_kernels: the kernels' non-causal instances with f32 outputs (the
+   ring's blocks before their queries), forward and backward, against
+   their plain versions at every head dim and T at the tile and TMA
+   edges (1 to 1000), under the same tolerances and drift gate, each
+   launch counted as non-causal; timed at the 600M LM's t8k blocks at sp = 2 and 4 (B1
+   H16 T4096 and T2048, D128) beside SDPA with ``is_causal=False``;
+   ring_loopback: the 600M LM's attention at t8k (B1 H16 T8192 D128)
+   split into sp = 2 and 4 blocks, forward and backward through the
+   ring's block code and f32 merge on one card, counted (sp(sp+1)/2
+   launches each way, sp(sp-1)/2 non-causal); o, lse, dq, dk, dv under
+   the drift gate against f32 attention of the whole sequence; the
+   whole ring's time and each rank's share;
+7. entry: the tiny entry-point forward (the reference's default
+   attention, the ring, at sp = 1) on the card against the CPU;
 8. main path (serving): the payload ``smoke_test`` and the 600M-config
    LM forward (d_model 2048, 8 layers, 16 heads of 128, d_ff 8192, vocab
    32768, bf16 params, random weights from a seed) at the t2k and t8k
@@ -50,9 +63,10 @@ back:
    f32 forward, and its time, tokens/s and MFU;
 9. train (training path): the 600M train step (forward, backward through
    both attention kernels under remat, AdamW against an f32 master) at
-   t2k and t8k, every counter set to 0 just before one step and read
-   just after; its time, tokens/s, MFU and peak memory, and the loss
-   over 10 steps, which must fall;
+   t2k and t8k, then the train bench's ring cases (t512, t1k, and t2k
+   with f32 params) at sp = 1, every counter set to 0 just before one
+   step and read just after; its time, tokens/s, MFU and peak memory,
+   and the loss over 10 steps, which must fall;
 10. train_grads: at full width but 2 layers (t2k), every gradient of the
    kernel path against an f32 plain-attention step, no further from it
    than the plain bf16 step's gradients are;
@@ -87,6 +101,16 @@ back:
    one card each, at full width, 2 layers, 6 steps: each step's loss the
    same on both ranks and within 5e-2 of the world-1 run's, and their
    step times; with one card, a line that says it was not run;
+   lm_sp: with two cards or more, the 600M LM (bf16 params, f32 master,
+   the ring) sequence-parallel over NCCL, one rank process per card:
+   sp = 2 at full depth, B1 T8192, 3 steps; with four cards also sp = 4
+   and dp = 2 x sp = 2 at 2 layers. Every rank counted (rank i launches
+   i + 1 blocks a ring call, i of them non-causal); the losses the same
+   on every rank and within 1e-3 relative of one card's steps at step 1,
+   5e-3 after; step ms, tokens/s, MFU and peak memory per card; each
+   rank's attention time and one K/V rotation's, and how much of the
+   rotations the kernels hide. With one card, a line that says it was
+   not run: ring_loopback has held the ring's arithmetic on that card;
 17. vector_add_device_us: ``device_us`` of K1 and of ``torch.add`` at
    the timed cases, from ``torch.profiler`` (CUPTI) kernel events; last,
    so that nothing is timed after the profiler ran;
@@ -134,6 +158,8 @@ from kubernetes_tpu_torch.workloads import flash_attention as fa
 from kubernetes_tpu_torch.workloads import lm
 from kubernetes_tpu_torch.workloads import metrics_reporter
 from kubernetes_tpu_torch.workloads import rendezvous
+from kubernetes_tpu_torch.workloads import ring_attention as ra
+from kubernetes_tpu_torch.workloads import sharding
 from kubernetes_tpu_torch.workloads import trainer
 from kubernetes_tpu_torch.workloads import vector_add as va
 from kubernetes_tpu_torch.workloads.ring_attention import (
@@ -160,6 +186,20 @@ SDPA_BACKENDS = {"flash": SDPBackend.FLASH_ATTENTION,
                  "cudnn": SDPBackend.CUDNN_ATTENTION,
                  "efficient": SDPBackend.EFFICIENT_ATTENTION}
 MAIN_CASES = ("lm-600m-t2k-flash", "lm-600m-t8k-flash")
+#: The train bench's ring cases, which the train phase runs at sp = 1.
+RING_CASES = ("lm-600m-t512", "lm-600m-t1k", "lm-600m-t2k")
+#: The non-causal instances (the ring's blocks before their queries): T
+#: at the tile and TMA edges at every head dim, then the 600M LM's t8k
+#: blocks at sp = 2 and sp = 4, which are also timed.
+RING_TIMED_SHAPES = [(1, 16, 4096, 128), (1, 16, 2048, 128)]
+RING_SHAPES = ([(1, 2, t, d) for d in (16, 32, 64, 128)
+                for t in (1, 100, 127, 128, 129, 1000)]
+               + RING_TIMED_SHAPES)
+#: The loopback ring: the 600M LM's attention at t8k, split sp ways.
+LOOPBACK_SHAPE = (1, 16, 8192, 128)
+LOOPBACK_SPS = (2, 4)
+#: Train steps of each lm_sp run.
+LM_SP_STEPS = 3
 #: o against the plain version: both round o to bf16 and the kernel also
 #: rounds P to bf16 for the tensor cores, so allow two bf16 steps of |o|
 #: (2^-6) plus an absolute 1e-2 for outputs near 0.
@@ -258,14 +298,15 @@ def add_bound(row: dict, flops: float, nbytes: float, name: str,
     return row
 
 
-def sdpa_forwards(q, k, v) -> dict:
+def sdpa_forwards(q, k, v, causal: bool = True) -> dict:
     """{backend: SDPA forward pinned to it} for each backend that takes
     these inputs."""
     fns = {}
     for name, backend in SDPA_BACKENDS.items():
         def fn(backend=backend):
             with sdpa_kernel(backend):
-                return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+                return F.scaled_dot_product_attention(q, k, v,
+                                                      is_causal=causal)
         try:
             fn()
         except RuntimeError:
@@ -274,7 +315,7 @@ def sdpa_forwards(q, k, v) -> dict:
     return fns
 
 
-def sdpa_backwards(q, k, v, do) -> dict:
+def sdpa_backwards(q, k, v, do, causal: bool = True) -> dict:
     """{backend: SDPA backward of a forward pinned to it} for each
     backend that takes these inputs."""
     fns = {}
@@ -283,7 +324,7 @@ def sdpa_backwards(q, k, v, do) -> dict:
         try:
             with sdpa_kernel(backend):
                 out = F.scaled_dot_product_attention(qs, ks, vs,
-                                                     is_causal=True)
+                                                     is_causal=causal)
             torch.autograd.grad(out, (qs, ks, vs), do, retain_graph=True)
         except RuntimeError:
             continue
@@ -422,7 +463,7 @@ def check_node() -> dict:
     say("node", ok=True, cards=cards, count=n, build_s=build_s,
         nvml_probe_s=probe_s, torch_probe_s=torch_probe_s,
         plugin_start_s=plugin_start_s, payloads=runs)
-    return {"vector_add": launches, "flash_attn_fwd": 0, "flash_attn_bwd": 0}
+    return causal_only(vector_add=launches)
 
 
 def check_vector_add(gen, name: str) -> list[dict]:
@@ -676,9 +717,197 @@ def check_flash_bwd(gen, name: str) -> list[dict]:
     return [results[shape] for shape in TIMED_FLASH_SHAPES]
 
 
+def check_ring_kernels(gen, name: str) -> tuple[list, list]:
+    """The non-causal instances that the ring runs (f32 outputs), forward
+    and backward, against their plain versions at RING_SHAPES: ``o`` and
+    ``lse`` to the forward's tolerances, each gradient to the backward's
+    drift gate against the f32 backward. Timed at RING_TIMED_SHAPES
+    beside SDPA with ``is_causal=False``. Returns the timed forward and
+    backward rows."""
+    f32 = torch.float32
+    fwd_rows, bwd_rows = {}, {}
+    for b, h, t, d in RING_SHAPES:
+        x32 = [torch.randn((b, h, t, d), generator=gen, device="cuda")
+               for _ in range(4)]
+        q, k, v, do = (x.to(torch.bfloat16) for x in x32)
+        before = counters()
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=False, out_dtype=f32)
+        got = fa.flash_attention_bwd(q, k, v, o.to(q.dtype), lse, do,
+                                     causal=False, out_dtype=f32)
+        torch.cuda.synchronize()
+        after = counters()
+        counted = {key: after[key] - before[key] for key in after}
+        if counted != {**dict.fromkeys(counted, 0),
+                       "flash_attn_fwd_non_causal": 1,
+                       "flash_attn_bwd_non_causal": 1}:
+            raise AssertionError(f"non-causal launches counted {counted}")
+        o_ref, lse_ref = reference_attention_with_lse(q, k, v, causal=False,
+                                                      out_dtype=f32)
+        err = (o - o_ref).abs()
+        lse_err = float((lse - lse_ref).abs().max())
+        bad = int((err > O_ATOL + O_RTOL * o_ref.abs()).sum())
+        row = {"shape": [b, h, t, d], "out_dtype": "float32",
+               "max_abs_err": float(err.max()), "lse_max_abs_err": lse_err,
+               "o_outside_tol": bad}
+        if bad or not lse_err <= LSE_ATOL or not bool(torch.isfinite(o).all()):
+            raise AssertionError(f"non-causal flash_attn_fwd disagrees: {row}")
+        del o_ref, lse_ref, err
+        o = o.to(q.dtype)  # the backward takes the merged o in bf16
+        plain = fa.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                             causal=False, out_dtype=f32)
+        o32, lse32 = reference_attention_with_lse(*x32[:3], causal=False)
+        exact = fa.flash_attention_bwd_plain(*x32[:3], o32, lse32, x32[3],
+                                             causal=False)
+        del o32, lse32, x32
+        brow = {"shape": [b, h, t, d], "out_dtype": "float32",
+                "max_abs_err": max(float((g - p).abs().max())
+                                   for g, p in zip(got, plain))}
+        for gname, g, p, e in zip(("dq", "dk", "dv"), got, plain, exact):
+            brow[gname] = drift(g, p, e)
+            if gname in ("dq", "dk") and t == 1:
+                # As in check_flash_bwd: no score gradient at T = 1.
+                brow[gname]["ok"] = brow[gname]["max_abs_vs_f32"] <= O_ATOL
+            if not (brow[gname]["ok"] and bool(torch.isfinite(g).all())):
+                raise AssertionError(
+                    f"non-causal flash_attn_bwd {gname} drifts: {brow}")
+        del plain, exact, got
+        if (b, h, t, d) in RING_TIMED_SHAPES:
+            def kernel():
+                return fa.flash_attention_fwd(q, k, v, causal=False,
+                                              out_dtype=f32)
+
+            def kernel_bwd():
+                return fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                              causal=False, out_dtype=f32)
+            n = b * h * t * d
+            row.update(timed(
+                kernel,
+                lambda: reference_attention_with_lse(q, k, v, causal=False,
+                                                     out_dtype=f32),
+                sdpa_forwards(q, k, v, causal=False), 20))
+            flops = 4.0 * b * h * d * t * t
+            # q, k, v bf16 in; o f32 and lse out.
+            add_bound(row, flops, 3 * n * 2 + n * 4 + b * h * t * 4, name)
+            row["host_us"] = host_us(kernel, ATTN_HOST_CALLS)
+            row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
+            brow.update(timed(
+                kernel_bwd,
+                lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                     causal=False,
+                                                     out_dtype=f32),
+                sdpa_backwards(q, k, v, do, causal=False), 20))
+            flops = 10.0 * b * h * d * t * t
+            # q, k, v, o, do bf16 and lse in; dq, dk, dv f32 out.
+            add_bound(brow, flops, 5 * n * 2 + 3 * n * 4 + b * h * t * 4,
+                      name)
+            brow["host_us"] = host_us(kernel_bwd, ATTN_HOST_CALLS)
+            brow["tflops"] = flops / (brow["ms"] * 1e-3) / 1e12
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+        fwd_rows[(b, h, t, d)], bwd_rows[(b, h, t, d)] = row, brow
+    say("ring_kernels", ok=True, o_atol=O_ATOL, o_rtol=O_RTOL,
+        lse_atol=LSE_ATOL, forward=list(fwd_rows.values()),
+        backward=list(bwd_rows.values()))
+    return ([fwd_rows[shape] for shape in RING_TIMED_SHAPES],
+            [bwd_rows[shape] for shape in RING_TIMED_SHAPES])
+
+
+def rank_backward(q, held, o, lse, do, i: int, n: int):
+    """Rank ``i``'s share of a ring's backward without the rotations:
+    its blocks' launches (``held``: the (k, v) it holds after s
+    rotations) and the f32 sums of their gradients."""
+    acc = [None, None, None]
+    for s, (k, v) in enumerate(held):
+        part = ra.block_backward(q, k, v, o, lse, do, i, (i - s) % n)
+        acc = [ra.accumulate(a, g) for a, g in zip(acc, part or (None,) * 3)]
+    return acc
+
+
+def check_ring_loopback(gen) -> dict:
+    """The 600M LM's attention at t8k (LOOPBACK_SHAPE, bf16) split into
+    sp = 2 and 4 blocks, forward and backward through the ring's block
+    code and merge on one card (``ring_attention.loopback_*``), counted:
+    sp(sp+1)/2 launches each way, sp(sp-1)/2 of them non-causal. o, lse,
+    dq, dk and dv against f32 attention of the whole sequence, no
+    further from it than the plain bf16 path (2x its largest, 1.5x its
+    mean deviation). Times the whole loopback and each rank's share.
+    Returns the launches."""
+    b, h, t, d = LOOPBACK_SHAPE
+    x32 = [torch.randn(LOOPBACK_SHAPE, generator=gen, device="cuda")
+           for _ in range(4)]
+    q, k, v, do = (x.to(torch.bfloat16) for x in x32)
+    o32, lse32 = reference_attention_with_lse(*x32[:3])
+    exact = {"o": o32, "lse": lse32, **dict(zip(
+        ("dq", "dk", "dv"),
+        fa.flash_attention_bwd_plain(*x32[:3], o32, lse32, x32[3])))}
+    del x32, o32, lse32
+    o_p, lse_p = reference_attention_with_lse(q, k, v)
+    plain = {"o": o_p, "lse": lse_p, **dict(zip(
+        ("dq", "dk", "dv"),
+        fa.flash_attention_bwd_plain(q, k, v, o_p, lse_p, do)))}
+    del o_p, lse_p
+    torch.cuda.empty_cache()
+    total = dict.fromkeys(counters(), 0)
+    runs = []
+    for sp in LOOPBACK_SPS:
+        qs, ks, vs, dos = ([blk.contiguous() for blk in x.chunk(sp, dim=2)]
+                           for x in (q, k, v, do))
+        torch.cuda.synchronize()
+        zero_counters()
+        out = ra.loopback_forward(qs, ks, vs)
+        os_, lses = [o for o, _ in out], [lse for _, lse in out]
+        grads = ra.loopback_backward(qs, ks, vs, os_, lses, dos)
+        torch.cuda.synchronize()
+        launches = counters()
+        n = sp * (sp + 1) // 2
+        want = {**dict.fromkeys(launches, 0), "flash_attn_fwd": sp,
+                "flash_attn_bwd": sp, "flash_attn_fwd_non_causal": n - sp,
+                "flash_attn_bwd_non_causal": n - sp}
+        if launches != want:
+            raise AssertionError(f"ring_loopback sp={sp}: launches "
+                                 f"{launches}, want {want}")
+        for key, count in launches.items():
+            total[key] += count
+        got = {"o": torch.cat(os_, dim=2), "lse": torch.cat(lses, dim=2),
+               **{g: torch.cat([r[i] for r in grads], dim=2)
+                  for i, g in enumerate(("dq", "dk", "dv"))}}
+        del out, grads
+        rows = {}
+        for key, val in got.items():
+            rows[key] = drift(val, plain[key], exact[key].float())
+            if not (rows[key]["ok"] and bool(torch.isfinite(val).all())):
+                raise AssertionError(f"ring_loopback sp={sp} {key} drifts: "
+                                     f"{rows[key]}")
+        del got
+        fwd_ms = time_ms(lambda: ra.loopback_forward(qs, ks, vs), 5)
+        bwd_ms = time_ms(lambda: ra.loopback_backward(qs, ks, vs, os_, lses,
+                                                      dos), 5)
+        shares = []
+        for i in range(sp):
+            held = [(ks[(i - s) % sp], vs[(i - s) % sp]) for s in range(sp)]
+            shares.append({
+                "rank": i,
+                "forward_ms": time_ms(
+                    lambda: ra.rank_forward(qs[i], held, i, sp), 5),
+                "backward_ms": time_ms(
+                    lambda: rank_backward(qs[i], held, os_[i], lses[i],
+                                          dos[i], i, sp), 5)})
+        runs.append({"sp": sp, "block": [b, h, t // sp, d],
+                     "launches": launches, "forward_ms": fwd_ms,
+                     "backward_ms": bwd_ms, "per_rank": shares, **rows})
+        del qs, ks, vs, dos, os_, lses
+        torch.cuda.empty_cache()
+    say("ring_loopback", ok=True, shape=list(LOOPBACK_SHAPE), runs=runs)
+    del plain, exact
+    torch.cuda.empty_cache()
+    return total
+
+
 def check_entry() -> None:
-    """The tiny entry-point forward on the card against the CPU's plain
-    path, at the reference tests' bf16 bound (5e-2)."""
+    """The tiny entry-point forward on the card (the reference's default
+    attention, the ring: one causal launch a layer on one device)
+    against the CPU's plain path, at the reference tests' bf16 bound
+    (5e-2)."""
     fn, (params, _) = entry()
     tokens = torch.randint(0, 256, (2, 64), device="cuda",
                            generator=torch.Generator("cuda").manual_seed(3))
@@ -687,7 +916,7 @@ def check_entry() -> None:
                       if isinstance(v, dict) else v.cpu())
                   for k, v in params.items()}
     cfg = lm.LMConfig(vocab=256, d_model=128, n_layers=2, n_heads=4,
-                      d_ff=512, attn_impl="flash")
+                      d_ff=512)
     want = lm.make_forward(cfg, "cpu")(cpu_params, tokens.cpu())
     err = float((got - want).abs().max())
     if not (got.shape == (2, 64, 256) and err < 5e-2):
@@ -696,27 +925,43 @@ def check_entry() -> None:
 
 
 def counters() -> dict:
-    return {"vector_add": va.launches, "flash_attn_fwd": fa.launches,
-            "flash_attn_bwd": fa.bwd_launches}
+    """Launches by kernel instance: the attention kernels' causal and
+    non-causal instances apart."""
+    return {"vector_add": va.launches,
+            "flash_attn_fwd": fa.launches - fa.non_causal_launches,
+            "flash_attn_bwd": fa.bwd_launches - fa.non_causal_bwd_launches,
+            "flash_attn_fwd_non_causal": fa.non_causal_launches,
+            "flash_attn_bwd_non_causal": fa.non_causal_bwd_launches}
 
 
 def zero_counters() -> None:
     va.launches = fa.launches = fa.bwd_launches = 0
+    fa.non_causal_launches = fa.non_causal_bwd_launches = 0
+
+
+def causal_only(**launches) -> dict:
+    """A full counters() dict: ``launches``, every other instance 0."""
+    return {**dict.fromkeys(counters(), 0), **launches}
 
 
 def check_train(base: lm.LMConfig, cases, peak: float, known: bool) -> dict:
-    """The training path: one counted step per case, then the loss over
-    TRAIN_STEPS steps on one batch and the time of the steps after the
-    first TRAIN_WARM. Returns the launches of the counted steps."""
+    """The training path: one counted step per case (at the case's
+    attention and param dtype: the ring cases at sp = 1, one causal
+    launch a layer), then the loss over TRAIN_STEPS steps on one batch
+    and the time of the steps after the first TRAIN_WARM. Returns the
+    launches of the counted steps."""
     total = dict.fromkeys(counters(), 0)
-    want = {"vector_add": 0, "flash_attn_fwd": 2 * base.n_layers,
-            "flash_attn_bwd": base.n_layers}
+    want = causal_only(flash_attn_fwd=2 * base.n_layers,
+                       flash_attn_bwd=base.n_layers)
     for case in cases:
+        cfg = dataclasses.replace(
+            base, attn_impl=case.attn_impl,
+            param_dtype=getattr(torch, case.param_dtype))
         params, opt_state = lm.init_train_state(
-            torch.Generator("cuda").manual_seed(0), base)
-        step = lm.make_train_step(base)
+            torch.Generator("cuda").manual_seed(0), cfg)
+        step = lm.make_train_step(cfg)
         batch = lm.synthetic_batch(torch.Generator("cuda").manual_seed(1),
-                                   base, case.batch, case.seq)
+                                   cfg, case.batch, case.seq)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         zero_counters()
@@ -745,6 +990,7 @@ def check_train(base: lm.LMConfig, cases, peak: float, known: bool) -> dict:
         ntok = case.batch * case.seq
         flops = chip_bench.train_flops_per_token(case) * ntok
         say("train", case=case.name, batch=case.batch, seq=case.seq,
+            attn_impl=case.attn_impl, param_dtype=case.param_dtype,
             launches_per_step=launches, step_ms=ms,
             tokens_per_s=ntok / (ms * 1e-3),
             mfu=flops / (ms * 1e-3) / peak, peak_known=known,
@@ -919,8 +1165,8 @@ def check_trainer(peak: float, known: bool) -> dict:
                              TRAINER_STEPS)
     torch.cuda.empty_cache()
     events_ms = f32_step_ms(cfg, batch, seq)
-    want = {"vector_add": 0, "flash_attn_fwd": 2 * cfg.n_layers * TRAINER_STEPS,
-            "flash_attn_bwd": cfg.n_layers * TRAINER_STEPS}
+    want = causal_only(flash_attn_fwd=2 * cfg.n_layers * TRAINER_STEPS,
+                       flash_attn_bwd=cfg.n_layers * TRAINER_STEPS)
     if rc != 0 or launches != want:
         raise AssertionError(f"trainer: rc {rc}, launches {launches}, "
                              f"want {want}")
@@ -1155,9 +1401,8 @@ def check_trainer_default_lm() -> dict:
             runs[attn] = {"rc": rc, "losses": losses, "launches": launches,
                           "attn_impl": cfgs[attn].attn_impl}
     flash, local, cfg = runs["flash"], runs["local"], cfgs["flash"]
-    want = {"vector_add": 0,
-            "flash_attn_fwd": 2 * cfg.n_layers * DEFAULT_LM_STEPS,
-            "flash_attn_bwd": cfg.n_layers * DEFAULT_LM_STEPS}
+    want = causal_only(flash_attn_fwd=2 * cfg.n_layers * DEFAULT_LM_STEPS,
+                       flash_attn_bwd=cfg.n_layers * DEFAULT_LM_STEPS)
     losses = flash["losses"]
     if flash["rc"] != 0 or flash["launches"] != want or cfg.head_dim != 16 \
             or len(losses) != DEFAULT_LM_STEPS or not losses[-1] < losses[0] \
@@ -1197,8 +1442,8 @@ from torch import distributed as dist
 import chip_smoke
 from kubernetes_tpu_torch.workloads import rendezvous
 torch.cuda.set_device(0)
-rendezvous.init_process_group("127.0.0.1", int(os.environ["DP2_PORT"]),
-                              int(os.environ["DP2_RANK"]), 2, "nccl",
+rendezvous.init_process_group("127.0.0.1", int(os.environ["RANK_PORT"]),
+                              int(os.environ["RANK_INDEX"]), 2, "nccl",
                               timeout=300.0, bind_ip="127.0.0.1")
 out = chip_smoke.timed_train(chip_smoke.trainer_cfg(2), dist.group.WORLD,
                              os.environ["DP2_CKPT"], chip_smoke.GROUP_STEPS)
@@ -1215,28 +1460,8 @@ def check_trainer_dp2(world_1_losses: list) -> None:
     if torch.cuda.device_count() < 2:
         say("trainer_dp2", skipped="one card")
         return
-    port = free_port()
     with tempfile.TemporaryDirectory() as tmp:
-        procs = [subprocess.Popen(
-            [sys.executable, "-c", DP2_RANK],
-            cwd=os.path.dirname(os.path.abspath(__file__)),
-            env={**os.environ, "CUDA_VISIBLE_DEVICES": str(r),
-                 "DP2_RANK": str(r), "DP2_PORT": str(port), "DP2_CKPT": tmp},
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-            for r in range(2)]
-        outs = []
-        try:
-            for proc in procs:
-                out, err = proc.communicate(timeout=SUBPROCESS_TIMEOUT)
-                if proc.returncode != 0:
-                    raise AssertionError(f"trainer_dp2: exit "
-                                         f"{proc.returncode}: {err[-3000:]}")
-                outs.append(json.loads(out.strip().splitlines()[-1]))
-        finally:
-            for proc in procs:
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.communicate()
+        outs = run_ranks(DP2_RANK, 2, {"DP2_CKPT": tmp}, "trainer_dp2")
     losses = [o["losses"] for o in outs]
     if losses[0] != losses[1] or not losses_agree(losses[0], world_1_losses,
                                                   5e-2):
@@ -1245,6 +1470,220 @@ def check_trainer_dp2(world_1_losses: list) -> None:
     say("trainer_dp2", ok=True, losses=losses[0],
         world_1_losses=world_1_losses,
         step_ms=[o["step_ms"] for o in outs])
+
+
+def lm_sp_cfg(n_layers: int) -> lm.LMConfig:
+    """The 600M LM at ``chip_bench``'s widths, bf16 params with an f32
+    master, the reference's default attention (the ring)."""
+    return lm.LMConfig(vocab=32768, d_model=2048, n_layers=n_layers,
+                       n_heads=16, d_ff=8192, param_dtype=torch.bfloat16)
+
+
+def timed_steps(cfg: lm.LMConfig, batch: int, seq: int, mesh=None,
+                device="cuda") -> dict:
+    """LM_SP_STEPS train steps from the params of seed 0 on the global
+    batch of seed 1, every counter set to 0 just before and read just
+    after: each step's loss (read at once, so the host clock between
+    reads is the step time), the host time until the step returns (its
+    enqueue: where it is close to the step time, the host sets the pace)
+    and the peak memory."""
+    params, opt_state = lm.init_train_state(
+        torch.Generator(device).manual_seed(0), cfg)
+    tokens = lm.synthetic_batch(torch.Generator(device).manual_seed(1), cfg,
+                                batch, seq, device)
+    step = lm.make_train_step(cfg, device=device, mesh=mesh)
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    losses, ends, host_ms = [], [time.perf_counter()], []
+    zero_counters()
+    for _ in range(LM_SP_STEPS):
+        params, opt_state, loss = step(params, opt_state, tokens)
+        host_ms.append((time.perf_counter() - ends[-1]) * 1e3)
+        losses.append(float(loss))
+        ends.append(time.perf_counter())
+    launches = counters()
+    return {"losses": losses, "launches": launches,
+            "step_ms": [(b - a) * 1e3 for a, b in zip(ends, ends[1:])],
+            "host_ms": host_ms,
+            "peak_memory_gb": (torch.cuda.max_memory_allocated() / 1e9
+                               if device == "cuda" else None)}
+
+
+def ring_overlap(mesh, block: tuple, device="cuda") -> dict:
+    """On this rank of ``mesh``'s sp ring, at one layer's [B, H, Tl, D]
+    bf16 block: the time of one K/V rotation alone, of the rank's blocks
+    forward and backward without a rotation (its attention time), and of
+    the ring forward and backward; ``hidden_share`` is how much of the
+    ring's sp - 1 rotations the kernels hide (1 when the ring costs no
+    more than its blocks); ``ring_forward_host_ms`` the host's time per
+    ring forward, back to back."""
+    ring = ra.ring_of(mesh)
+    gen = torch.Generator(device).manual_seed(2 + ring.index)
+    q, k, v, do = (torch.randn(block, generator=gen, device=device)
+                   .to(torch.bfloat16) for _ in range(4))
+    o, lse = ra.ring_forward(q, k, v, ring)
+    i, n = ring.index, ring.size
+    held = [(k, v)] * n  # this rank's own block in place of each
+    row = {
+        "rotation_ms": time_ms(
+            lambda: ra.received(ra.rotate(ring, (k, v), (0, 1))), 10),
+        "blocks_forward_ms": time_ms(
+            lambda: ra.rank_forward(q, held, i, n), 10),
+        "ring_forward_ms": time_ms(lambda: ra.ring_forward(q, k, v, ring),
+                                   10),
+        "blocks_backward_ms": time_ms(
+            lambda: rank_backward(q, held, o, lse, do, i, n), 10),
+        "ring_backward_ms": time_ms(
+            lambda: ra.ring_backward(q, k, v, o, lse, do, ring), 10),
+        "ring_forward_host_ms": host_us(
+            lambda: ra.ring_forward(q, k, v, ring), ATTN_HOST_CALLS) / 1e3}
+    exposed = row["ring_forward_ms"] - row["blocks_forward_ms"]
+    row["hidden_share"] = 1 - exposed / ((n - 1) * row["rotation_ms"])
+    return row
+
+
+def lm_sp_rank(run: dict, device="cuda") -> dict:
+    """One rank of an lm_sp run (``run``: dp, sp, n_layers, batch, seq)
+    in a process group of ``dp * sp`` ranks: LM_SP_STEPS train steps over
+    a dp x sp mesh, then :func:`ring_overlap` at one layer's block."""
+    cfg = lm_sp_cfg(run["n_layers"])
+    mesh = sharding.make_mesh(device_type=device, dp=run["dp"],
+                              sp=run["sp"])
+    out = timed_steps(cfg, run["batch"], run["seq"], mesh, device)
+    block = (run["batch"] // run["dp"], cfg.n_heads,
+             run["seq"] // run["sp"], cfg.head_dim)
+    return {"rank": dist.get_rank(), "coordinate": dict(zip(
+        mesh.mesh_dim_names, mesh.get_coordinate())), **out,
+        **ring_overlap(mesh, block, device)}
+
+
+#: One rank of an lm_sp run: NCCL on the card that CUDA_VISIBLE_DEVICES
+#: gives it, ``lm_sp_rank`` of this script; its result as the last line.
+LM_SP_RANK = r"""
+import json, os, torch
+from torch import distributed as dist
+import chip_smoke
+from kubernetes_tpu_torch.workloads import rendezvous
+torch.cuda.set_device(0)
+run = json.loads(os.environ["SP_RUN"])
+rendezvous.init_process_group("127.0.0.1", int(os.environ["RANK_PORT"]),
+                              int(os.environ["RANK_INDEX"]),
+                              run["dp"] * run["sp"], "nccl", timeout=300.0,
+                              bind_ip="127.0.0.1")
+out = chip_smoke.lm_sp_rank(run)
+dist.destroy_process_group()
+print(json.dumps(out))
+"""
+
+
+def run_ranks(script: str, world: int, env: dict, what: str) -> list:
+    """``script`` as ``world`` rank processes, one card each, waited on
+    with a timeout and killed at it; each one's last line as JSON."""
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", script],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        env={**os.environ, **env, "CUDA_VISIBLE_DEVICES": str(r),
+             "RANK_INDEX": str(r), "RANK_PORT": str(port)},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
+    outs = []
+    try:
+        for proc in procs:
+            out, err = proc.communicate(timeout=SUBPROCESS_TIMEOUT)
+            if proc.returncode != 0:
+                raise AssertionError(f"{what}: exit {proc.returncode}: "
+                                     f"{err[-3000:]}")
+            outs.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return outs
+
+
+def lm_sp_runs(cards: int) -> list:
+    """The lm_sp runs a host of ``cards`` takes: sp = 2 at full depth,
+    B1 T8192; with four cards, also sp = 4 and dp = 2 x sp = 2 at 2
+    layers (dp = 2 on a global batch of 2)."""
+    runs = [dict(name="sp2", dp=1, sp=2, n_layers=8, batch=1, seq=8192)]
+    if cards >= 4:
+        runs += [dict(name="sp4", dp=1, sp=4, n_layers=2, batch=1, seq=8192),
+                 dict(name="dp2sp2", dp=2, sp=2, n_layers=2, batch=2,
+                      seq=8192)]
+    return runs
+
+
+def check_lm_sp(peak: float, known: bool) -> dict:
+    """With two cards or more, the 600M LM sequence-parallel over NCCL
+    (:func:`lm_sp_runs`, rank processes of :data:`LM_SP_RANK`), counted
+    on every rank: 2 x layers ring forwards and layers ring backwards a
+    step, rank i launching i + 1 blocks each (i of them non-causal). Its
+    losses against one card's steps of the same config (the
+    ``lm-600m-t8k-flash`` shape: flash attention, seeds 0 and 1): 1e-3
+    relative at step 1, 5e-3 after. Step ms, tokens/s and MFU per card,
+    peak memory per card, and each rank's attention and K/V rotation
+    times. With one card, a line that says it was not run. Returns the
+    launches over all ranks."""
+    total = dict.fromkeys(counters(), 0)
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        say("lm_sp", skipped="one card")
+        return total
+    for run in lm_sp_runs(cards):
+        cfg = lm_sp_cfg(run["n_layers"])
+        one = timed_steps(dataclasses.replace(cfg, attn_impl="flash"),
+                          run["batch"], run["seq"])
+        torch.cuda.empty_cache()
+        world = run["dp"] * run["sp"]
+        ranks = run_ranks(LM_SP_RANK, world, {"SP_RUN": json.dumps(run)},
+                          f"lm_sp {run['name']}")
+        for out in ranks:
+            i, layers = out["coordinate"]["sp"], cfg.n_layers * LM_SP_STEPS
+            want = causal_only(
+                flash_attn_fwd=2 * layers, flash_attn_bwd=layers,
+                flash_attn_fwd_non_causal=2 * layers * i,
+                flash_attn_bwd_non_causal=layers * i)
+            if out["launches"] != want:
+                raise AssertionError(f"lm_sp {run['name']} rank "
+                                     f"{out['rank']}: launches "
+                                     f"{out['launches']}, want {want}")
+            for key, count in out["launches"].items():
+                total[key] += count
+        losses = [out["losses"] for out in ranks]
+        want = one["losses"]
+        ok = all(got == losses[0] for got in losses) and all(
+            math.isfinite(g) and abs(g - w) <= (1e-3 if n == 0 else 5e-3)
+            * abs(w) for n, (g, w) in enumerate(zip(losses[0], want)))
+        if not ok or len(losses[0]) != LM_SP_STEPS:
+            raise AssertionError(f"lm_sp {run['name']}: losses {losses}, "
+                                 f"one card {want}")
+        ms = max(sum(out["step_ms"][1:]) / (LM_SP_STEPS - 1)
+                 for out in ranks)
+        one_ms = sum(one["step_ms"][1:]) / (LM_SP_STEPS - 1)
+        ntok = run["batch"] * run["seq"]
+        case = chip_bench.BenchCase(run["name"], cfg.d_model, cfg.n_layers,
+                                    cfg.n_heads, cfg.d_ff, cfg.vocab,
+                                    run["batch"], run["seq"])
+        flops = chip_bench.train_flops_per_token(case) * ntok
+        say("lm_sp", ok=True, **run, cards=world, losses=losses[0],
+            one_card_losses=want, step_ms=ms, one_card_step_ms=one_ms,
+            step_timed="steps 2-3, host clock to each loss's read, slowest "
+            "rank", tokens_per_s_per_card=ntok / (ms * 1e-3) / world,
+            one_card_tokens_per_s=ntok / (one_ms * 1e-3),
+            mfu_per_card=flops / (ms * 1e-3) / world / peak,
+            one_card_mfu=flops / (one_ms * 1e-3) / peak, peak_known=known,
+            one_card_peak_memory_gb=one["peak_memory_gb"],
+            ranks=[{k: out[k] for k in (
+                "rank", "coordinate", "step_ms", "host_ms", "peak_memory_gb",
+                "launches", "rotation_ms", "blocks_forward_ms",
+                "ring_forward_ms", "ring_forward_host_ms",
+                "blocks_backward_ms", "ring_backward_ms", "hidden_share")}
+                for out in ranks], one_card_host_ms=one["host_ms"])
+        torch.cuda.empty_cache()
+    return total
 
 
 def main() -> int:
@@ -1281,6 +1720,9 @@ def main() -> int:
     check_host_path()
     fa_rows = check_flash(gen, name)
     bwd_rows = check_flash_bwd(gen, name)
+    ring_fwd_rows, ring_bwd_rows = check_ring_kernels(gen, name)
+    # The ring's block arithmetic at t8k on one card, counted inside.
+    loopback_launches = check_ring_loopback(gen)
     check_entry()
 
     # The main path, counted: every counter to 0 just before, read after.
@@ -1340,8 +1782,10 @@ def main() -> int:
     del params, logits
     torch.cuda.empty_cache()
 
-    # The training path, counted per step inside check_train.
-    train_launches = check_train(base, cases, peak, known)
+    # The training path, counted per step inside check_train; the train
+    # bench's ring cases run at sp = 1.
+    train_launches = check_train(
+        base, cases + [chip_bench.case(c) for c in RING_CASES], peak, known)
     check_train_grads(base)
     check_train_loop()
 
@@ -1353,9 +1797,13 @@ def main() -> int:
     check_trainer_resume()
     check_demo()
     check_trainer_dp2(world_1_losses)
+    # Sequence parallelism over NCCL, counted on every rank inside.
+    lm_sp_launches = check_lm_sp(peak, known)
     by_path = {k: {"node": node_launches[k], "forward": launches[k],
                    "train": train_launches[k], "trainer": trainer_launches[k],
-                   "trainer_default_lm": default_lm_launches[k]}
+                   "trainer_default_lm": default_lm_launches[k],
+                   "ring_loopback": loopback_launches[k],
+                   "lm_sp": lm_sp_launches[k]}
                for k in launches}
 
     # Last of all: the one profiled phase (K1's device_us).
@@ -1379,6 +1827,20 @@ def main() -> int:
              "replaces": "kubernetes_tpu/workloads/lm.py:163-239",
              "at": at, **{k: fa_row[k] for k in keys}},
             {"name": "flash_attn_bwd", "route": "cuda",
+             "source": "kubernetes_tpu_torch/csrc/flash_attn_bwd.cu",
+             "replaces": "kubernetes_tpu/workloads/lm.py:193-197, 232-236",
+             "at": at, **{k: bwd_row[k] for k in keys}}]
+    # The non-causal instances of the same kernels: the ring's blocks
+    # before their queries.
+    for shape, fa_row, bwd_row in zip(RING_TIMED_SHAPES, ring_fwd_rows,
+                                      ring_bwd_rows):
+        at = "B{} H{} T{} D{} bf16 in, f32 out, non-causal".format(*shape)
+        kernels += [
+            {"name": "flash_attn_fwd_non_causal", "route": "cuda",
+             "source": "kubernetes_tpu_torch/csrc/flash_attn_fwd.cu",
+             "replaces": "kubernetes_tpu/workloads/lm.py:163-239",
+             "at": at, **{k: fa_row[k] for k in keys}},
+            {"name": "flash_attn_bwd_non_causal", "route": "cuda",
              "source": "kubernetes_tpu_torch/csrc/flash_attn_bwd.cu",
              "replaces": "kubernetes_tpu/workloads/lm.py:193-197, 232-236",
              "at": at, **{k: bwd_row[k] for k in keys}}]

@@ -1,4 +1,4 @@
-// Causal flash-attention backward: dq, dk, dv given q, k, v, the
+// Flash-attention backward, causal or not: dq, dk, dv given q, k, v, the
 // forward's output o and its natural-log row sums lse, and the output
 // gradient do. With S = q k^T, scale = 1/sqrt(D):
 //
@@ -12,9 +12,14 @@
 //     kubernetes_tpu/workloads/lm.py:232-236);
 //   - flash's dq and dkv kernels (blocks at lm.py:193-197).
 // One backward takes every T, as one forward does (flash_attn_fwd.cu).
+// The ring (workloads/ring_attention.py) launches it per block of keys
+// with the whole sequence's o and lse, so that P is the global softmax
+// restricted to the block and delta the global one: the causal instance
+// on the diagonal block, the non-causal one for a block before it.
 //
-// Layout: q, k, v, o, do, dq, dk, dv contiguous [B, H, T, D] bf16; lse and
-// the delta scratch [B, H, T] f32. Scores, exponentials, dP, delta and the
+// Layout: q, k, v, o, do, dq, dk, dv contiguous [B, H, T, D] bf16 (dq,
+// dk, dv f32 for the ring, which sums its blocks' gradients in f32 and
+// rounds once); lse and the delta scratch [B, H, T] f32. Scores, exponentials, dP, delta and the
 // accumulators are f32. P and dS, the operands the kernel makes itself,
 // enter the tensor cores as two bf16 parts, hi + lo (acc_to_a_split in
 // hopper.cuh). Rounded once to bf16, as FlashAttention-2 takes them,
@@ -23,7 +28,8 @@
 // H100); the split keeps the kernel's deviation equal to that backward's.
 //
 // Bound: operations. The useful work is five causal matmuls (S, dP, dV,
-// dK, dQ), 2.5x the forward's: 10 * B * H * D * T(T+1)/2 FLOPs, 171.9
+// dK, dQ), 2.5x the forward's: 10 * B * H * D * T(T+1)/2 FLOPs (twice
+// that less the diagonal non-causal, 10 * B * H * D * T^2), 171.9
 // GFLOP at B4 H16 T2048 D128, >= 0.174 ms at 989 TFLOP/s, while its
 // ~270 MB of bf16 tensors take 0.08 ms at 3.35 TB/s. This design
 // executes ten products of that size: S and dP in both the dK/dV and the
@@ -43,7 +49,7 @@
 //      and copies their lse (log2-scaled) and delta beside them with
 //      ordinary loads (their row stride T * 4 is not a TMA stride). Two
 //      consumer warpgroups own 64 keys each and, for every q-tile from
-//      the diagonal to the end, compute S^T = K Q^T and dP^T = V dO^T
+//      the diagonal (non-causal: the first) to the end, compute S^T = K Q^T and dP^T = V dO^T
 //      (both operands in shared memory), P^T and dS^T in f32 registers,
 //      then dV += P^T dO and dK += dS^T Q with A from registers (the
 //      accumulator layout of S^T is the A layout) and Q, dO as
@@ -53,11 +59,13 @@
 //      and their bf16 parts fit beside the accumulators without spills.
 //   3. dQ kernel: one block per (128-query tile, head, batch). Q and dO
 //      stay in shared memory; K and V tiles of 64 keys go through the
-//      ring up to the diagonal. Per tile: S = Q K^T, dP = dO V^T, dS in
+//      ring up to the diagonal (non-causal: to the end). Per tile: S = Q K^T, dP = dO V^T, dS in
 //      registers, dQ += dS K with K as a transposed B.
 // Rows past T arrive as zeros from TMA. Their lse reads as +inf, so P is
-// 0 there and they add nothing to dK and dV; keys past T lie after every
-// valid query, so the causal mask hides them from dQ.
+// 0 there and they add nothing to dK and dV. Keys past T arrive as zeros
+// too; their own dK and dV rows are never stored. Causal, they lie after
+// every valid query, so the causal mask hides them from dQ; non-causal,
+// a mask of their own does (with K = V = 0 they would add 0 anyway).
 #include <math.h>
 
 #include "common.cuh"
@@ -126,7 +134,7 @@ struct DkvSmem {
   static constexpr int kAlloc = kBar + 8 * (1 + 2 * kStages) + 1024;
 };
 
-template <int D>
+template <int D, bool kCausal, typename Out>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
@@ -134,7 +142,7 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tdo,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta,
-                      uint16_t* __restrict__ dk, uint16_t* __restrict__ dv,
+                      Out* __restrict__ dk, Out* __restrict__ dv,
                       int T, float scale, float scale_log2) {
   using L = DkvSmem<D>;
   extern __shared__ unsigned char smem_raw[];
@@ -152,8 +160,8 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
   const int tile = static_cast<int>(blockIdx.x) / heads;
   const int head = blockIdx.x % heads;
   const int n0 = tile * kKeyBlock;
-  // Causal: the q-tiles from the one holding key n0 to the end.
-  const int m_first = n0 / kQTile;
+  // Causal: the q-tiles from the one holding key n0 to the end; else all.
+  const int m_first = kCausal ? n0 / kQTile : 0;
   const int n_iters = (T + kQTile - 1) / kQTile - m_first;
 
   if (threadIdx.x == 0) {
@@ -237,8 +245,8 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll 1
     for (int c0 = 0; c0 < kQTile; c0 += kCols) {
       const int q0 = m * kQTile + c0;  // the pass's first query
-      // Passes wholly before this warpgroup's keys add nothing.
-      if (q0 + kCols - 1 < kw0) continue;
+      // Causal: passes wholly before this warpgroup's keys add nothing.
+      if (kCausal && q0 + kCols - 1 < kw0) continue;
 
       // S^T = K Q^T and dP^T = V dO^T: 64 keys x kCols queries each.
       float st[kCols / 2];
@@ -262,7 +270,7 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
       // P^T = exp2(S^T * scale * log2(e) - lse * log2(e)), 0 where the
       // key is after the query; dS^T = P^T * (dP^T - delta) in place of
       // dP^T. Queries are the columns here.
-      const bool diagonal = q0 <= kw0 + 63;
+      const bool diagonal = kCausal && q0 <= kw0 + 63;
 #pragma unroll
       for (int i = 0; i < kCols / 2; i += 2) {
         const int col = c0 + 8 * (i / 4) + 2 * c;  // within the q-tile
@@ -315,18 +323,16 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
     mbar_arrive(empty + 8 * s);  // this stage's Q, dO, lse, delta are read
   }
 
-  uint16_t* dkh = dk + static_cast<int64_t>(head) * T * D;
-  uint16_t* dvh = dv + static_cast<int64_t>(head) * T * D;
+  Out* dkh = dk + static_cast<int64_t>(head) * T * D;
+  Out* dvh = dv + static_cast<int64_t>(head) * T * D;
 #pragma unroll
   for (int i = 0; i < D / 2; i += 2) {
     const int key = key0 + 8 * ((i % 4) / 2);
     const int col = 8 * (i / 4) + 2 * c;
     if (key < T) {
       const int64_t off = static_cast<int64_t>(key) * D + col;
-      *reinterpret_cast<uint32_t*>(dkh + off) =
-          pack_bf16(dk_acc[i] * scale, dk_acc[i + 1] * scale);
-      *reinterpret_cast<uint32_t*>(dvh + off) =
-          pack_bf16(dv_acc[i], dv_acc[i + 1]);
+      store_pair(dkh + off, dk_acc[i] * scale, dk_acc[i + 1] * scale);
+      store_pair(dvh + off, dv_acc[i], dv_acc[i + 1]);
     }
   }
 }
@@ -345,7 +351,7 @@ struct DqSmem {
   static constexpr int kAlloc = kBar + 8 * (1 + 2 * kStages) + 1024;
 };
 
-template <int D>
+template <int D, bool kCausal, typename Out>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
@@ -353,7 +359,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tdo,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
-                    uint16_t* __restrict__ dq, int T, float scale,
+                    Out* __restrict__ dq, int T, float scale,
                     float scale_log2) {
   using L = DqSmem<D>;
   extern __shared__ unsigned char smem_raw[];
@@ -362,8 +368,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
   const uint32_t full = qdo_full + 8;
   const uint32_t empty = full + 8 * kStages;
 
-  // Query tile i loops over key tiles 0..2i+1; the tile-major index
-  // walks every head's longest q-tile first.
+  // Causal, query tile i loops over key tiles 0..2i+1, else over all;
+  // the tile-major index walks every head's longest q-tile first.
   const int q_blocks = (T + kQBlock - 1) / kQBlock;
   const int heads = gridDim.x / q_blocks;
   const int tile = q_blocks - 1 - static_cast<int>(blockIdx.x) / heads;
@@ -371,7 +377,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
   const int m0 = tile * kQBlock;
   const int key_tiles = (T + kKeyTile - 1) / kKeyTile;
   const int diag = m0 / kKeyTile;  // key tile of the block's first row
-  const int n_iters = min(diag + kQBlock / kKeyTile, key_tiles);
+  const int n_iters =
+      kCausal ? min(diag + kQBlock / kKeyTile, key_tiles) : key_tiles;
 
   if (threadIdx.x == 0) {
     mbar_init(qdo_full, 1);
@@ -410,7 +417,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
   const int g = lane / 4;
   const int c = lane % 4;
   const int r0 = m0 + wg * 64 + warp * 16 + g;  // this thread's rows r0, r0+8
-  const int last = diag + wg;  // this warpgroup's diagonal key tile
+  // This warpgroup's last key tile: causal, its diagonal one.
+  const int last = kCausal ? diag + wg : key_tiles - 1;
 
   // lse in the log2 domain; +inf past T makes P 0 there.
   float lse2[2], dl[2];
@@ -453,15 +461,16 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
       fence_regs<kKeyTile / 2>(sc);
       fence_regs<kKeyTile / 2>(dp);
 
-      // P masked where the key is after the row, then dS in place of dP.
-      const bool diagonal = it == last;
+      // P masked where the key is after the row (causal) or past T, then
+      // dS in place of dP.
+      const bool edge = it == last;
 #pragma unroll
       for (int i = 0; i < kKeyTile / 2; ++i) {
         const int r = (i % 4) / 2;
         const int row = r0 + 8 * r;
         const int key = it * kKeyTile + 8 * (i / 4) + 2 * c + (i % 2);
         float p = exp2f(sc[i] * scale_log2 - lse2[r]);
-        if (diagonal && key > row) p = 0.f;
+        if (edge && (kCausal ? key > row : key >= T)) p = 0.f;
         dp[i] = p * (dp[i] - dl[r]);
       }
       // dQ += dS K (scaled once, at the store).
@@ -484,19 +493,19 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
     mbar_arrive(empty + 8 * s);  // this stage's K and V are read
   }
 
-  uint16_t* dqh = dq + static_cast<int64_t>(head) * T * D;
+  Out* dqh = dq + static_cast<int64_t>(head) * T * D;
 #pragma unroll
   for (int i = 0; i < D / 2; i += 2) {
     const int row = r0 + 8 * ((i % 4) / 2);
     const int col = 8 * (i / 4) + 2 * c;
     if (row < T) {
-      *reinterpret_cast<uint32_t*>(dqh + static_cast<int64_t>(row) * D + col) =
-          pack_bf16(dq_acc[i] * scale, dq_acc[i + 1] * scale);
+      store_pair(dqh + static_cast<int64_t>(row) * D + col, dq_acc[i] * scale,
+                 dq_acc[i + 1] * scale);
     }
   }
 }
 
-template <int D>
+template <int D, bool kCausal, typename Out>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const void* lse, void* delta, void* dq, void* dk,
            void* dv, int B, int H, int T, float scale, cudaStream_t stream) {
@@ -513,10 +522,11 @@ int launch(const void* q, const void* k, const void* v, const void* o,
     err = smem_set.get(&done, [](int, int* set) {
       *set = 1;
       cudaError_t e = cudaFuncSetAttribute(
-          flash_bwd_dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          flash_bwd_dkdv_kernel<D, kCausal, Out>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize,
           DkvSmem<D>::kAlloc);
       if (e == cudaSuccess) {
-        e = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
+        e = cudaFuncSetAttribute(flash_bwd_dq_kernel<D, kCausal, Out>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  DqSmem<D>::kAlloc);
       }
@@ -546,52 +556,77 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
 
-  flash_bwd_dkdv_kernel<D><<<static_cast<unsigned>(blocks), kThreads,
-                             DkvSmem<D>::kAlloc, stream>>>(
-      tq, tk, tv, tdo, lse32, delta32, static_cast<uint16_t*>(dk),
-      static_cast<uint16_t*>(dv), T, scale, scale_log2);
+  flash_bwd_dkdv_kernel<D, kCausal, Out><<<static_cast<unsigned>(blocks),
+                                           kThreads, DkvSmem<D>::kAlloc,
+                                           stream>>>(
+      tq, tk, tv, tdo, lse32, delta32, static_cast<Out*>(dk),
+      static_cast<Out*>(dv), T, scale, scale_log2);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
 
-  flash_bwd_dq_kernel<D><<<static_cast<unsigned>(blocks), kThreads,
-                           DqSmem<D>::kAlloc, stream>>>(
-      tq, tk, tv, tdo, lse32, delta32, static_cast<uint16_t*>(dq), T, scale,
+  flash_bwd_dq_kernel<D, kCausal, Out><<<static_cast<unsigned>(blocks),
+                                         kThreads, DqSmem<D>::kAlloc, stream>>>(
+      tq, tk, tv, tdo, lse32, delta32, static_cast<Out*>(dq), T, scale,
       scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool kCausal, typename Out>
+int launch_d(const void* q, const void* k, const void* v, const void* o,
+             const void* dout, const void* lse, void* delta, void* dq,
+             void* dk, void* dv, int B, int H, int T, int D, float scale,
+             cudaStream_t s) {
+  switch (D) {
+    case 16:
+      return launch<16, kCausal, Out>(q, k, v, o, dout, lse, delta, dq, dk,
+                                      dv, B, H, T, scale, s);
+    case 32:
+      return launch<32, kCausal, Out>(q, k, v, o, dout, lse, delta, dq, dk,
+                                      dv, B, H, T, scale, s);
+    case 64:
+      return launch<64, kCausal, Out>(q, k, v, o, dout, lse, delta, dq, dk,
+                                      dv, B, H, T, scale, s);
+    case 128:
+      return launch<128, kCausal, Out>(q, k, v, o, dout, lse, delta, dq, dk,
+                                       dv, B, H, T, scale, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename Out>
+int launch_c(const void* q, const void* k, const void* v, const void* o,
+             const void* dout, const void* lse, void* delta, void* dq,
+             void* dk, void* dv, int B, int H, int T, int D, int causal,
+             float scale, cudaStream_t s) {
+  return causal ? launch_d<true, Out>(q, k, v, o, dout, lse, delta, dq, dk,
+                                      dv, B, H, T, D, scale, s)
+                : launch_d<false, Out>(q, k, v, o, dout, lse, delta, dq, dk,
+                                       dv, B, H, T, D, scale, s);
+}
+
 }  // namespace
 
-// q, k, v, o, dout, dq, dk, dv: contiguous [B, H, T, D] bf16; lse:
-// [B, H, T] f32 (natural log, as flash_attn_fwd_bf16 writes it); delta:
-// [B, H, T] f32 scratch; all on `device`. scale = 1/sqrt(D). Three
-// launches on `stream`, one of that device's streams.
+// q, k, v, o, dout: contiguous [B, H, T, D] bf16; dq, dk, dv: the same,
+// bf16, or f32 when f32_out is 1; lse: [B, H, T] f32 (natural log, as
+// flash_attn_fwd_bf16 writes it); delta: [B, H, T] f32 scratch; all on
+// `device`. causal: 1 masks key j > query i, 0 masks nothing (but keys
+// past T). scale = 1/sqrt(D). Three launches on `stream`, one of that
+// device's streams.
 extern "C" int flash_attn_bwd_bf16(const void* q, const void* k, const void* v,
                                    const void* o, const void* dout,
                                    const void* lse, void* delta, void* dq,
                                    void* dk, void* dv, int B, int H, int T,
-                                   int D, float scale, int device,
-                                   void* stream) {
+                                   int D, int causal, int f32_out,
+                                   float scale, int device, void* stream) {
   if (B <= 0 || H <= 0 || T <= 0 || H > 65535 || B > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   DeviceGuard guard(device);
   if (guard.error()) return guard.error();
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16:
-      return launch<16>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, T,
-                        scale, s);
-    case 32:
-      return launch<32>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, T,
-                        scale, s);
-    case 64:
-      return launch<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, T,
-                        scale, s);
-    case 128:
-      return launch<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, T,
-                         scale, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return f32_out ? launch_c<float>(q, k, v, o, dout, lse, delta, dq, dk, dv,
+                                   B, H, T, D, causal, scale, s)
+                 : launch_c<uint16_t>(q, k, v, o, dout, lse, delta, dq, dk,
+                                      dv, B, H, T, D, causal, scale, s);
 }

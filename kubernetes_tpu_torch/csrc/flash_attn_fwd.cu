@@ -1,6 +1,9 @@
-// Causal flash-attention forward: o = softmax(q k^T / sqrt(D)) v, and the
+// Flash-attention forward: o = softmax(q k^T / sqrt(D)) v, and the
 // natural-log row sums lse = log(sum(exp(q k^T / sqrt(D)))) that the
-// backward pass recomputes P from.
+// backward pass recomputes P from. Causal (key j <= query i) or not: the
+// ring (workloads/ring_attention.py) takes the causal instance for a
+// block of keys at the queries' own positions and the non-causal one for
+// a block wholly before them.
 //
 // Replaces both TPU kernels of the reference's attention:
 //   - `_splash_attention` (kubernetes_tpu/workloads/lm.py:202-239), the
@@ -13,14 +16,18 @@
 // Layout: q, k, v, o are contiguous [B, H, T, D] bf16 (the reference's
 // layout); lse is [B, H, T] f32. Scores, the running max and sum, and
 // the output accumulator are f32; P is rounded once to bf16 for the P V
-// product, as the tensor cores take it.
+// product, as the tensor cores take it. o is bf16, or f32 for the ring,
+// which merges its blocks' o in f32 and rounds once (rounding each block
+// too put the ring's largest deviation from f32 attention at 1.9x the
+// plain path's, at T 8192 split 2 and 4 ways on an H100).
 //
 // Bound: operations. The causal work is 4 * B * H * D * T(T+1)/2 FLOPs
-// against (3 + 1) * B * H * T * D * 2 bytes of q, k, v and o: at
-// B4 H16 T2048 D128 that is 68.7 GFLOP, >= 69 us at 989 TFLOP/s, while
-// its 67 MB take 20 us at 3.35 TB/s. So the kernel is built around the
-// tensor cores' full rate, which on Hopper only `wgmma` reaches, fed by
-// TMA so that no thread spends instructions on copies.
+// (4 * B * H * D * T^2 non-causal) against (3 + 1) * B * H * T * D * 2
+// bytes of q, k, v and o: at B4 H16 T2048 D128 that is 68.7 GFLOP,
+// >= 69 us at 989 TFLOP/s, while its 67 MB take 20 us at 3.35 TB/s. So
+// the kernel is built around the tensor cores' full rate, which on Hopper
+// only `wgmma` reaches, fed by TMA so that no thread spends instructions
+// on copies.
 //
 // Design (FlashAttention-3's structure, without its intra-warpgroup
 // pingpong; building blocks in hopper.cuh). One block of three
@@ -36,12 +43,16 @@
 //     wgmma, V as a transposed B), so P never touches shared memory;
 //   - `setmaxnreg` moves registers from the producer (24) to the
 //     consumers (240), which hold O and S (64 + 64 f32 at D128).
-// The loop starts at the diagonal key tile, the only one masked, and
-// walks back to key 0; the longest q-tiles of every head are issued
-// first so the short ones fill the tail. Rows past T arrive as zeros from TMA and are never
-// stored; keys past T lie only in the diagonal tile, after every valid
-// row, so the causal mask hides them. D is a template parameter: 16, 32,
-// 64 or 128.
+// The loop starts at the last key tile it takes, the only one masked,
+// and walks back to key 0: causal, that is the diagonal tile, and the
+// longest q-tiles of every head are issued first so the short ones fill
+// the tail; non-causal, every q-tile takes every key tile, from the last,
+// partial one. Rows past T arrive as zeros from TMA and are never
+// stored. Keys past T arrive as zeros too, and lie only in that last
+// tile: causal, after every valid row, so the causal mask hides them;
+// non-causal, a mask of its own hides them, since a zero score would add
+// exp(0 - m) to every row's sum. D (16, 32, 64 or 128) and causality are
+// template parameters.
 #include <math.h>
 
 #include "common.cuh"
@@ -56,7 +67,7 @@ constexpr int kKeys = 128;  // keys per K/V tile of the ring
 constexpr int kStages = 2;
 constexpr int kConsumers = 256;
 constexpr int kThreads = kConsumers + 128;  // + the producer warpgroup
-static_assert(kRows == kKeys, "the causal tile count assumes square tiles");
+static_assert(kRows == kKeys, "the key tile counts assume square tiles");
 
 // Shared memory, from a 1024-byte aligned base (the 128-byte swizzle's
 // period): Q, then the K stages, the V stages, then the barriers.
@@ -72,12 +83,12 @@ struct Smem {
   static constexpr int kAlloc = kBytes + 1024;  // slack for the alignment
 };
 
-template <int D>
+template <int D, bool kCausal, typename Out>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv,
-                 uint16_t* __restrict__ o, float* __restrict__ lse, int T,
+                 Out* __restrict__ o, float* __restrict__ lse, int T,
                  float scale_log2) {
   using L = Smem<D>;
   extern __shared__ unsigned char smem_raw[];
@@ -94,7 +105,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
   const int tile = q_tiles - 1 - static_cast<int>(blockIdx.x) / heads;
   const int head = blockIdx.x % heads;
   const int m0 = tile * kRows;
-  const int n_tiles = tile + 1;  // key tiles tile, tile-1, ..., 0
+  // Key tiles n_tiles-1, ..., 0: causal, from the diagonal tile.
+  const int n_tiles = kCausal ? tile + 1 : q_tiles;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -115,7 +127,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
       Tile<D>::load(base + L::kQ, &tq, q_full, m0, kRows, head);
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % kStages;
-        const int n0 = (tile - it) * kKeys;
+        const int n0 = (n_tiles - 1 - it) * kKeys;
         mbar_wait(empty + 8 * s, ((it / kStages) & 1) ^ 1);
         mbar_arrive_expect_tx(k_full + 8 * s, L::kTile);
         Tile<D>::load(base + L::kK + s * L::kTile, &tk, k_full + 8 * s, n0,
@@ -149,7 +161,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
   for (int it = 0; it < n_tiles; ++it) {
     const int s = it % kStages;
     const uint32_t parity = (it / kStages) & 1;
-    const int n0 = (tile - it) * kKeys;
+    const int n0 = (n_tiles - 1 - it) * kKeys;
     const uint32_t ks = base + L::kK + s * L::kTile;
     const uint32_t vs = base + L::kV + s * L::kTile;
 
@@ -166,15 +178,16 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_wait<0>();
     fence_regs<kKeys / 2>(sc);
 
-    // Scale into the log2 domain; on the diagonal tile mask keys after
-    // the row.
+    // Scale into the log2 domain; on the first tile taken mask keys
+    // after the row (causal) or past T (non-causal).
     float mx[2] = {m_run[0], m_run[1]};
-    const bool diagonal = it == 0;
+    const bool edge = it == 0;
 #pragma unroll
     for (int i = 0; i < kKeys / 2; ++i) {
       const int row = r0 + 8 * ((i % 4) / 2);
       const int key = n0 + 8 * (i / 4) + 2 * c + (i % 2);
-      const float x = (diagonal && key > row) ? -INFINITY : sc[i] * scale_log2;
+      const bool masked = kCausal ? key > row : key >= T;
+      const float x = (edge && masked) ? -INFINITY : sc[i] * scale_log2;
       sc[i] = x;
       mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], x);
     }
@@ -185,8 +198,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
     for (int r = 0; r < 2; ++r) {
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      // Every row sees key 0, so its max is finite after the first tile;
-      // the guard keeps exp2 of (-inf - -inf) from making a NaN.
+      // Every row sees a valid key in the first tile taken (key 0 on the
+      // diagonal; key n0 < T in the last, partial tile), so its max is
+      // finite after it; the guard keeps exp2 of (-inf - -inf) from
+      // making a NaN.
       base_max[r] = mx[r] == -INFINITY ? 0.f : mx[r];
       corr[r] = exp2f(m_run[r] - base_max[r]);
       m_run[r] = mx[r];
@@ -226,15 +241,15 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
     inv[r] = 1.f / l_run[r];
   }
-  uint16_t* oh = o + static_cast<int64_t>(head) * T * D;
+  Out* oh = o + static_cast<int64_t>(head) * T * D;
 #pragma unroll
   for (int i = 0; i < D / 2; i += 2) {
     const int r = (i % 4) / 2;
     const int row = r0 + 8 * r;
     const int col = 8 * (i / 4) + 2 * c;
     if (row < T) {
-      *reinterpret_cast<uint32_t*>(oh + static_cast<int64_t>(row) * D + col) =
-          pack_bf16(acc[i] * inv[r], acc[i + 1] * inv[r]);
+      store_pair(oh + static_cast<int64_t>(row) * D + col, acc[i] * inv[r],
+                 acc[i + 1] * inv[r]);
     }
   }
   if (c == 0) {
@@ -245,7 +260,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-template <int D>
+template <int D, bool kCausal, typename Out>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            int B, int H, int T, float scale_log2, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
@@ -259,7 +274,7 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   if (err == 0) {
     err = smem_set.get(&done, [](int, int* set) {
       *set = 1;
-      return cudaFuncSetAttribute(flash_fwd_kernel<D>,
+      return cudaFuncSetAttribute(flash_fwd_kernel<D, kCausal, Out>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   Smem<D>::kAlloc);
     });
@@ -267,21 +282,49 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   if (err != 0) return err;
   const int64_t blocks = static_cast<int64_t>((T + kRows - 1) / kRows) * B * H;
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  flash_fwd_kernel<D><<<static_cast<unsigned>(blocks), kThreads,
-                        Smem<D>::kAlloc, stream>>>(
-      tq, tk, tv, static_cast<uint16_t*>(o), static_cast<float*>(lse), T,
+  flash_fwd_kernel<D, kCausal, Out><<<static_cast<unsigned>(blocks),
+                                      kThreads, Smem<D>::kAlloc, stream>>>(
+      tq, tk, tv, static_cast<Out*>(o), static_cast<float*>(lse), T,
       scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool kCausal, typename Out>
+int launch_d(const void* q, const void* k, const void* v, void* o, void* lse,
+             int B, int H, int T, int D, float scale_log2, cudaStream_t s) {
+  switch (D) {
+    case 16:
+      return launch<16, kCausal, Out>(q, k, v, o, lse, B, H, T, scale_log2, s);
+    case 32:
+      return launch<32, kCausal, Out>(q, k, v, o, lse, B, H, T, scale_log2, s);
+    case 64:
+      return launch<64, kCausal, Out>(q, k, v, o, lse, B, H, T, scale_log2, s);
+    case 128:
+      return launch<128, kCausal, Out>(q, k, v, o, lse, B, H, T, scale_log2,
+                                       s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename Out>
+int launch_c(const void* q, const void* k, const void* v, void* o, void* lse,
+             int B, int H, int T, int D, int causal, float scale_log2,
+             cudaStream_t s) {
+  return causal
+             ? launch_d<true, Out>(q, k, v, o, lse, B, H, T, D, scale_log2, s)
+             : launch_d<false, Out>(q, k, v, o, lse, B, H, T, D, scale_log2, s);
+}
+
 }  // namespace
 
-// q, k, v, o: contiguous [B, H, T, D] bf16; lse: [B, H, T] f32; all on
-// `device`, and `stream` one of its streams. scale_log2 = sm_scale *
-// log2(e).
+// q, k, v: contiguous [B, H, T, D] bf16; o: the same, bf16, or f32 when
+// f32_out is 1; lse: [B, H, T] f32; all on `device`, and `stream` one of
+// its streams. causal: 1 masks key j > query i, 0 masks nothing (but
+// keys past T). scale_log2 = sm_scale * log2(e).
 extern "C" int flash_attn_fwd_bf16(const void* q, const void* k, const void* v,
                                    void* o, void* lse, int B, int H, int T,
-                                   int D, float scale_log2, int device,
+                                   int D, int causal, int f32_out,
+                                   float scale_log2, int device,
                                    void* stream) {
   if (B <= 0 || H <= 0 || T <= 0 || H > 65535 || B > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -289,11 +332,8 @@ extern "C" int flash_attn_fwd_bf16(const void* q, const void* k, const void* v,
   DeviceGuard guard(device);
   if (guard.error()) return guard.error();
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return launch<16>(q, k, v, o, lse, B, H, T, scale_log2, s);
-    case 32: return launch<32>(q, k, v, o, lse, B, H, T, scale_log2, s);
-    case 64: return launch<64>(q, k, v, o, lse, B, H, T, scale_log2, s);
-    case 128: return launch<128>(q, k, v, o, lse, B, H, T, scale_log2, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return f32_out ? launch_c<float>(q, k, v, o, lse, B, H, T, D, causal,
+                                   scale_log2, s)
+                 : launch_c<uint16_t>(q, k, v, o, lse, B, H, T, D, causal,
+                                      scale_log2, s);
 }

@@ -339,6 +339,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// Two adjacent output values stored at p: rounded once to bf16 (a
+// uint16_t output holds bf16 bits) or kept in f32 (a float output, which
+// the ring sums before it rounds).
+__device__ __forceinline__ void store_pair(uint16_t* p, float lo, float hi) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(lo, hi);
+}
+__device__ __forceinline__ void store_pair(float* p, float lo, float hi) {
+  *reinterpret_cast<float2*>(p) = make_float2(lo, hi);
+}
+
 // Entries 8kk..8kk+7 of an accumulator (`c` points at entry 8kk) as
 // the A fragment of k-slice kk, rounded once to bf16.
 __device__ __forceinline__ void acc_to_a(uint32_t* a, const float* c) {

@@ -62,7 +62,8 @@ class BenchCase:
     vocab: int
     batch: int
     seq: int
-    #: "ring" (blockwise on one device) or "flash" (the attention kernel).
+    #: "ring" (one causal kernel launch a layer on one device) or "flash"
+    #: (the attention kernel).
     attn_impl: str = "ring"
     #: Param storage dtype.
     param_dtype: str = "bfloat16"
@@ -113,8 +114,8 @@ def train_flops_per_token(case: BenchCase) -> float:
 def run_case(case: BenchCase, steps: int = 10, warmup: int = 2) -> dict:
     """Train-step throughput of one case on the GPU: init, ``warmup``
     steps, then the best of three trials of ``steps`` steps, each timed
-    with CUDA events. Raises without a CUDA device; a case the port
-    cannot run (``attn_impl="ring"``) raises ``NotImplementedError``."""
+    with CUDA events. Raises without a CUDA device. The ring cases run on
+    one card, where the ring is one causal launch a layer."""
     import torch
 
     from ..device import resolve_device

@@ -1,5 +1,5 @@
-"""Causal flash attention: the kernels of ``csrc/flash_attn_fwd.cu`` and
-``csrc/flash_attn_bwd.cu``.
+"""Flash attention: the kernels of ``csrc/flash_attn_fwd.cu`` and
+``csrc/flash_attn_bwd.cu``, causal or not.
 
 One forward kernel in place of the reference's two TPU attention
 kernels, ``_splash_attention`` and ``_flash_attention``
@@ -11,7 +11,11 @@ On CUDA tensors :func:`flash_attention_fwd` and :func:`flash_attention_bwd`
 launch the kernels; on CPU tensors they compute the plain versions,
 :func:`~.ring_attention.reference_attention_with_lse` and
 :func:`flash_attention_bwd_plain`. :class:`FlashAttention` joins the two
-into one differentiable op.
+into one differentiable causal op. ``causal=False`` takes the kernels'
+non-causal instances, which mask nothing, and ``out_dtype=torch.float32``
+their instances that write the output (or the gradients) in f32: the ring
+(:mod:`.ring_attention`) runs both, non-causal on a block of keys wholly
+before its queries, and sums its blocks in f32 before it rounds.
 """
 from __future__ import annotations
 
@@ -29,6 +33,10 @@ launches = 0
 #: Backward kernel launches so far (one per :func:`flash_attention_bwd`
 #: call on CUDA tensors), counted like :data:`launches`.
 bwd_launches = 0
+#: Of those, the launches of the non-causal instances, forward and
+#: backward: the ring's blocks before their queries.
+non_causal_launches = 0
+non_causal_bwd_launches = 0
 
 #: Head dims the kernels take, each a template instance of both: 16 (the
 #: trainer's default LM, 2 heads of a 32-wide model) to 128 (the 600M
@@ -37,11 +45,11 @@ HEAD_DIMS = (16, 32, 64, 128)
 
 _FWD = build.Kernel(
     "flash_attn_fwd", "flash_attn_fwd_bf16",
-    (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 4
+    (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 6
     + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
 _BWD = build.Kernel(
     "flash_attn_bwd", "flash_attn_bwd_bf16",
-    (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 4
+    (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 6
     + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
 
 
@@ -67,6 +75,17 @@ def _check_kernel_inputs(what: str, **tensors) -> None:
         raise ValueError(f"batch and heads must be <= 65535, got {b}, {h}")
 
 
+def _out_dtype(q: torch.Tensor, out_dtype) -> torch.dtype:
+    """The output dtype asked for: ``q.dtype`` by default, else f32 (the
+    kernels' other output) or ``q.dtype`` itself."""
+    if out_dtype is None or out_dtype == q.dtype:
+        return q.dtype
+    if out_dtype != torch.float32:
+        raise ValueError(f"out_dtype must be {q.dtype} or float32, "
+                         f"not {out_dtype}")
+    return out_dtype
+
+
 def _check_shapes(**tensors) -> torch.device:
     """The one [B, H, T, D] shape and the one device (cuda or cpu) of
     ``tensors``; raises otherwise. Reads each tensor's shape and device
@@ -85,76 +104,90 @@ def _check_shapes(**tensors) -> torch.device:
     return dev
 
 
-def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-    """Causal attention over [B, H, T, D] with ``sm_scale = 1/sqrt(D)``.
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, out_dtype=None):
+    """Attention over [B, H, T, D] with ``sm_scale = 1/sqrt(D)``; causal
+    (query ``i`` sees keys ``j <= i``) or, with ``causal=False``, every
+    query sees every key.
 
-    Returns ``(o, lse)``: ``o`` [B, H, T, D] in ``q.dtype`` and the
-    natural-log row sums of the scaled scores, ``lse`` [B, H, T] f32."""
+    Returns ``(o, lse)``: ``o`` [B, H, T, D] in ``out_dtype`` (default
+    ``q.dtype``; or f32, unrounded) and the natural-log row sums of the
+    scaled scores, ``lse`` [B, H, T] f32."""
+    out_dtype = _out_dtype(q, out_dtype)
     if _check_shapes(q=q, k=k, v=v).type == "cpu":
-        return reference_attention_with_lse(q, k, v)
+        return reference_attention_with_lse(q, k, v, causal, out_dtype)
     _check_kernel_inputs("flash attention", q=q, k=k, v=v)
     b, h, t, d = q.shape
-    o = torch.empty_like(q)
+    o = torch.empty_like(q, dtype=out_dtype)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     if q.numel() == 0:
         return o, lse
     scale_log2 = (1.0 / math.sqrt(d)) * math.log2(math.e)
     device = q.get_device()
     rc = _FWD.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                     lse.data_ptr(), b, h, t, d, scale_log2, device,
+                     lse.data_ptr(), b, h, t, d, int(causal),
+                     int(out_dtype == torch.float32), scale_log2, device,
                      build.current_stream(device))
     if rc:
         raise _FWD.error(rc)
-    global launches
+    global launches, non_causal_launches
     launches += 1
+    non_causal_launches += not causal
     return o, lse
 
 
 def flash_attention(q, k, v) -> torch.Tensor:
-    """The attention output alone, in ``q.dtype``."""
+    """The causal attention output alone, in ``q.dtype``."""
     return flash_attention_fwd(q, k, v)[0]
 
 
-def flash_attention_bwd_plain(q, k, v, o, lse, do):
-    """Gradients of causal attention, written out as the kernel computes
-    them: ``P = exp(S * scale - lse)`` recomputed from the saved LSE,
-    ``delta = rowsum(dO * O)``, ``dS = P * (dP - delta)``; then
+def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool = True,
+                              out_dtype=None):
+    """Gradients of attention, causal or not, written out as the kernel
+    computes them: ``P = exp(S * scale - lse)`` recomputed from the saved
+    LSE, ``delta = rowsum(dO * O)``, ``dS = P * (dP - delta)``; then
     ``dq = scale * dS K``, ``dk = scale * dS^T Q``, ``dv = P^T dO``.
-    All in f32, cast to ``q.dtype``. [B, H, T, T] intermediates: for
-    checks, not for long sequences."""
+    All in f32, cast to ``out_dtype`` (default ``q.dtype``). [B, H, T, T]
+    intermediates: for checks, not for long sequences."""
+    out_dtype = out_dtype or q.dtype
     scale = q.shape[-1] ** -0.5
     qf, kf, vf, of, dof = (x.float() for x in (q, k, v, o, do))
     s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
-    p = torch.where(causal_mask(q.shape[2], q.device),
-                    torch.exp(s - lse.float()[..., None]), 0.0)
+    p = torch.exp(s - lse.float()[..., None])
     del s
+    if causal:
+        p = torch.where(causal_mask(q.shape[2], q.device), p, 0.0)
     delta = (dof * of).sum(-1, keepdim=True)
     ds = p * (torch.einsum("bhqd,bhkd->bhqk", dof, vf) - delta)
     dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
     del p
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
-    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+    return dq.to(out_dtype), dk.to(out_dtype), dv.to(out_dtype)
 
 
-def flash_attention_bwd(q, k, v, o, lse, do):
-    """``(dq, dk, dv)`` of causal attention given the forward's ``o``
-    and ``lse`` and the output gradient ``do``, all [B, H, T, D] but
-    ``lse`` [B, H, T] f32. CUDA tensors launch the kernel (bf16,
-    contiguous, a head dim of :data:`HEAD_DIMS`); CPU tensors take
+def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
+                        out_dtype=None):
+    """``(dq, dk, dv)`` of attention, causal or not, given the forward's
+    ``o`` and ``lse`` and the output gradient ``do``, all [B, H, T, D]
+    but ``lse`` [B, H, T] f32; the gradients in ``out_dtype`` (default
+    ``q.dtype``; or f32, unrounded). CUDA tensors launch the kernel
+    (bf16, contiguous, a head dim of :data:`HEAD_DIMS`); CPU tensors take
     :func:`flash_attention_bwd_plain`."""
+    out_dtype = _out_dtype(q, out_dtype)
     dev = _check_shapes(q=q, k=k, v=v, o=o, do=do)
     if tuple(lse.shape) != tuple(q.shape[:3]) or lse.device != dev:
         raise ValueError(f"lse must be [B, H, T] = {tuple(q.shape[:3])} on "
                          f"{dev}, got {tuple(lse.shape)} on {lse.device}")
     if dev.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, o, lse, do)
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal,
+                                         out_dtype)
     _check_kernel_inputs("flash attention backward", q=q, k=k, v=v, o=o,
                          do=do)
     if lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError("lse must be contiguous float32")
     b, h, t, d = q.shape
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    dq, dk, dv = (torch.empty_like(q, dtype=out_dtype) for _ in range(3))
     if q.numel() == 0:
         return dq, dk, dv
     delta = torch.empty((b, h, t), dtype=torch.float32, device=dev)
@@ -162,11 +195,13 @@ def flash_attention_bwd(q, k, v, o, lse, do):
     rc = _BWD.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                      do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                      dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, t, d,
+                     int(causal), int(out_dtype == torch.float32),
                      1.0 / math.sqrt(d), device, build.current_stream(device))
     if rc:
         raise _BWD.error(rc)
-    global bwd_launches
+    global bwd_launches, non_causal_bwd_launches
     bwd_launches += 1
+    non_causal_bwd_launches += not causal
     return dq, dk, dv
 
 

@@ -7,12 +7,24 @@ embeddings, bf16 compute with f32 softmax and loss. Parameters are a
 plain dictionary of tensors, so a JAX parameter tree carries over
 through numpy (:func:`params_from_jax`).
 
-``attn_impl="flash"`` runs the hand-written flash-attention kernels on
-CUDA tensors, forward and (under grad, through
-:class:`~.flash_attention.FlashAttention`) backward; their plain
-versions on CPU tensors. ``"local"`` runs the plain
-:func:`~.ring_attention.reference_attention` under autograd. The ring is
-ported in a later change.
+``attn_impl="ring"`` (the default, as in the reference) runs
+:func:`~.ring_attention.ring_attention` over the mesh's ``sp`` axis
+(its :class:`~.ring_attention.Ring` looked up once a forward):
+without a mesh, or at ``sp = 1``, one causal launch of the hand-written
+flash-attention kernels per layer; at ``sp > 1`` a ring of their causal
+and non-causal launches whose K/V blocks rotate over ``torch.distributed``
+P2P. ``"flash"`` runs the kernels directly on one device, forward and
+(under grad, through :class:`~.flash_attention.FlashAttention`)
+backward. Both take the kernels' plain versions on CPU tensors.
+``"local"`` runs the plain :func:`~.ring_attention.reference_attention`
+under autograd.
+
+Sequence parallelism: given a ``mesh`` (``sharding.make_mesh``, the
+reference's argument) every public function takes the global token batch
+and each rank computes its block, rows by its ``dp`` coordinate and
+positions by its ``sp`` coordinate (RoPE at global positions); the loss
+and gradients are averaged over all the mesh's ranks. fsdp and tp shard
+nothing yet and are refused (ROADMAP queue 1 item 4).
 
 Training: :func:`make_train_step` (forward, loss, backward, AdamW
 against an f32 master for bf16 params), :func:`init_train_state` and
@@ -27,6 +39,7 @@ params and the step equals one step over the global batch.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import numpy as np
@@ -38,7 +51,8 @@ from torch.utils.checkpoint import (checkpoint,
 from ..device import resolve_device
 from .flash_attention import FlashAttention, flash_attention
 from .rendezvous import barrier
-from .ring_attention import reference_attention
+from .ring_attention import reference_attention, ring_apply, ring_of
+from .sharding import DATA_SPEC, mesh_sizes, shard
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,8 +74,9 @@ class LMConfig:
     #: Cross-entropy in row-chunks of this many tokens so the
     #: [B*T, vocab] f32 logits are never materialized; 0 disables.
     loss_chunk: int = 0
-    #: "ring" (sequence-parallel ring; ported later), "flash" (the
-    #: attention kernel; single device) or "local" (plain attention).
+    #: "ring" (sequence-parallel ring over the mesh's sp axis; one
+    #: causal kernel launch on one device), "flash" (the attention
+    #: kernel; single device) or "local" (plain attention; sp and tp 1).
     attn_impl: str = "ring"
 
     def __post_init__(self):
@@ -143,14 +158,17 @@ def _rms_norm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return (x32 * torch.rsqrt(var + 1e-6)).to(x.dtype) * scale
 
 
-def _rope(x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
-    """x: [B, H, T, D]. Rotates the INTERLEAVED pairs (x[..., 0::2],
+def _rope(x: torch.Tensor, cfg: LMConfig, offset: int = 0) -> torch.Tensor:
+    """x: [B, H, T, D] at global positions ``offset .. offset + T - 1``
+    (``offset`` = the rank's sp index times T under sequence
+    parallelism). Rotates the INTERLEAVED pairs (x[..., 0::2],
     x[..., 1::2]) by f32 angles and re-interleaves them."""
     d, t = x.shape[-1], x.shape[2]
     freqs = cfg.rope_base ** (
         -torch.arange(0, d, 2, dtype=torch.float32, device=x.device) / d)
-    ang = torch.arange(t, dtype=torch.float32, device=x.device)[:, None] \
-        * freqs[None, :]
+    pos = torch.arange(offset, offset + t, dtype=torch.float32,
+                       device=x.device)
+    ang = pos[:, None] * freqs[None, :]
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = x[..., 0::2], x[..., 1::2]
     y1 = x1 * cos - x2 * sin
@@ -158,7 +176,7 @@ def _rope(x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
     return torch.stack([y1, y2], dim=-1).reshape(x.shape).to(x.dtype)
 
 
-def _attention(q, k, v, cfg: LMConfig) -> torch.Tensor:
+def _attention(q, k, v, cfg: LMConfig, ring) -> torch.Tensor:
     if cfg.attn_impl == "flash":
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         if torch.is_grad_enabled():
@@ -166,9 +184,30 @@ def _attention(q, k, v, cfg: LMConfig) -> torch.Tensor:
         return flash_attention(q, k, v)
     if cfg.attn_impl == "local":
         return reference_attention(q, k, v)
-    raise NotImplementedError(
-        "attn_impl='ring' (sequence-parallel ring attention) is not ported "
-        "yet; use 'flash' or 'local' on one device")
+    return ring_apply(q, k, v, ring)
+
+
+def _check_mesh(cfg: LMConfig, mesh) -> dict:
+    """The mesh's axis sizes, after the reference's refusals: "flash" on
+    more than one device, "local" with the attention sharded. fsdp and
+    tp, which the port does not shard yet, raise too."""
+    sizes = mesh_sizes(mesh)
+    if cfg.attn_impl == "flash" and math.prod(sizes.values()) != 1:
+        raise ValueError(
+            "attn_impl='flash' is the single-device fast path (the kernel "
+            "sees one device's whole sequence); use 'ring' on multi-device "
+            "meshes")
+    if cfg.attn_impl == "local" and (sizes["sp"] != 1 or sizes["tp"] != 1):
+        raise ValueError(
+            "attn_impl='local' is batch-parallel only (plain attention over "
+            "one rank's sequence); use 'ring' when sp/tp shard the "
+            "attention itself")
+    if sizes["fsdp"] != 1 or sizes["tp"] != 1:
+        raise NotImplementedError(
+            f"fsdp={sizes['fsdp']}, tp={sizes['tp']}: the port shards "
+            "neither params (FSDP2) nor heads (tensor parallelism) yet, "
+            "ROADMAP queue 1 item 4; use dp and sp")
+    return sizes
 
 
 #: One layer's weights, in the order :func:`_layer` takes them.
@@ -185,10 +224,14 @@ _LAYER_KEYS = ("ln1", "wq", "wk", "wv", "wo", "ln2", "w1", "w3", "w2")
 _DOTS_SAVED = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
 
 
-def _layer(x: torch.Tensor, cfg: LMConfig, *weights) -> torch.Tensor:
-    """One pre-norm transformer layer; ``weights`` in ``_LAYER_KEYS``
-    order, in any dtype (cast to the compute dtype here, inside the
-    rematerialized region, as the reference casts inside its scan)."""
+def _layer(x: torch.Tensor, cfg: LMConfig, ring, offset: int,
+           *weights) -> torch.Tensor:
+    """One pre-norm transformer layer over this rank's block of the
+    sequence, which starts at global position ``offset`` (``ring``: its
+    place on the sp ring, or None); ``weights`` in
+    ``_LAYER_KEYS`` order, in any dtype (cast to the compute dtype here,
+    inside the rematerialized region, as the reference casts inside its
+    scan)."""
     cdt = cfg.compute_dtype
     lp = {name: w.to(cdt) for name, w in zip(_LAYER_KEYS, weights)}
     b, t, _ = x.shape
@@ -197,8 +240,8 @@ def _layer(x: torch.Tensor, cfg: LMConfig, *weights) -> torch.Tensor:
     q = (y @ lp["wq"]).reshape(b, t, h, dh).transpose(1, 2)
     k = (y @ lp["wk"]).reshape(b, t, h, dh).transpose(1, 2)
     v = (y @ lp["wv"]).reshape(b, t, h, dh).transpose(1, 2)
-    q, k = _rope(q, cfg), _rope(k, cfg)
-    o = _attention(q, k, v, cfg).to(q.dtype)
+    q, k = _rope(q, cfg, offset), _rope(k, cfg, offset)
+    o = _attention(q, k, v, cfg, ring).to(q.dtype)
     o = o.transpose(1, 2).reshape(b, t, h * dh)
     x = x + o @ lp["wo"]
 
@@ -207,16 +250,25 @@ def _layer(x: torch.Tensor, cfg: LMConfig, *weights) -> torch.Tensor:
     return x + gate @ lp["w2"]
 
 
-def hidden_states(params: dict, tokens: torch.Tensor,
-                  cfg: LMConfig) -> torch.Tensor:
+def hidden_states(params: dict, tokens: torch.Tensor, cfg: LMConfig,
+                  mesh=None) -> torch.Tensor:
     """tokens [B, T] int -> final hidden states [B, T, d_model]
-    (post-ln_f, pre-unembed).
+    (post-ln_f, pre-unembed). Under a ``mesh`` ``tokens`` is the global
+    batch and the result this rank's block of it, [B / (dp * fsdp),
+    T / sp, d_model] (``sharding.ACT_SPEC``).
 
     With ``cfg.remat`` and grad enabled each layer is one
     ``torch.utils.checkpoint`` region, so its activations are recomputed
-    in the backward pass: with attn_impl="flash" a train step then makes
-    2 x n_layers forward attention launches (n_layers without remat)
-    and n_layers backward ones."""
+    in the backward pass: with attn_impl="flash" (or "ring" at sp = 1) a
+    train step then makes 2 x n_layers forward attention launches
+    (n_layers without remat) and n_layers backward ones; at sp > 1, 2 x
+    n_layers ring forwards and n_layers ring backwards."""
+    sizes = _check_mesh(cfg, mesh)
+    tokens = shard(mesh, tokens, DATA_SPEC)
+    ring, offset = None, 0
+    if sizes["sp"] > 1:
+        ring = ring_of(mesh)
+        offset = ring.index * tokens.shape[1]
     cdt = cfg.compute_dtype
     x = params["embed"].to(cdt)[tokens.long()]
     # unbind, not w[i]: its backward stacks the layers' grads once,
@@ -226,12 +278,13 @@ def hidden_states(params: dict, tokens: torch.Tensor,
     remat = cfg.remat and torch.is_grad_enabled()
     for weights in per_layer:
         if not remat:
-            x = _layer(x, cfg, *weights)
+            x = _layer(x, cfg, ring, offset, *weights)
         elif cfg.remat_policy == "dots":
-            x = checkpoint(_layer, x, cfg, *weights, use_reentrant=False,
-                           context_fn=_dots_context)
+            x = checkpoint(_layer, x, cfg, ring, offset, *weights,
+                           use_reentrant=False, context_fn=_dots_context)
         else:
-            x = checkpoint(_layer, x, cfg, *weights, use_reentrant=False)
+            x = checkpoint(_layer, x, cfg, ring, offset, *weights,
+                           use_reentrant=False)
     return _rms_norm(x, params["ln_f"].to(cdt))
 
 
@@ -239,9 +292,11 @@ def _dots_context():
     return create_selective_checkpoint_contexts(_DOTS_SAVED)
 
 
-def forward(params: dict, tokens: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
-    """tokens [B, T] int -> logits [B, T, vocab] f32."""
-    x = hidden_states(params, tokens, cfg)
+def forward(params: dict, tokens: torch.Tensor, cfg: LMConfig,
+            mesh=None) -> torch.Tensor:
+    """tokens [B, T] int -> logits [B, T, vocab] f32; under a ``mesh``
+    this rank's block of them, [B / (dp * fsdp), T / sp, vocab]."""
+    x = hidden_states(params, tokens, cfg, mesh)
     return (x @ params["embed"].to(cfg.compute_dtype).T).float()
 
 
@@ -276,24 +331,30 @@ def _chunked_xent(x: torch.Tensor, targets: torch.Tensor, embed: torch.Tensor,
     return total / (b * t)
 
 
-def loss_fn(params: dict, batch: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
-    """batch [B, T+1] int -> mean next-token cross-entropy (f32)."""
+def loss_fn(params: dict, batch: torch.Tensor, cfg: LMConfig,
+            mesh=None) -> torch.Tensor:
+    """batch [B, T+1] int -> mean next-token cross-entropy (f32). Under
+    a ``mesh`` ``batch`` is the global one and the loss the mean over
+    this rank's block of tokens: inputs and targets are shifted first,
+    then sharded, so no rank needs its neighbour's tokens."""
     inputs, targets = batch[:, :-1], batch[:, 1:]
-    b, t = inputs.shape
+    targets = shard(mesh, targets, DATA_SPEC)
+    b, t = targets.shape
     if cfg.loss_chunk and b * t > cfg.loss_chunk:
-        x = hidden_states(params, inputs, cfg)
+        x = hidden_states(params, inputs, cfg, mesh)
         return _chunked_xent(x, targets,
                              params["embed"].to(cfg.compute_dtype),
                              cfg.loss_chunk)
-    logits = forward(params, inputs, cfg)
+    logits = forward(params, inputs, cfg, mesh)
     return _xent_sum(logits.reshape(b * t, -1), targets.reshape(b * t)) \
         / (b * t)
 
 
-def make_forward(cfg: LMConfig, device=None):
+def make_forward(cfg: LMConfig, device=None, mesh=None):
     """``fn(params, tokens) -> logits`` on ``device`` (default ``cuda``;
-    raises without one unless ``device="cpu"`` is asked for). Inference
-    only: no autograd graph is kept."""
+    raises without one unless ``device="cpu"`` is asked for); under a
+    ``mesh``, this rank's block of the logits of the global ``tokens``.
+    Inference only: no autograd graph is kept."""
     dev = resolve_device(device)
 
     def fn(params: dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -301,7 +362,7 @@ def make_forward(cfg: LMConfig, device=None):
             raise ValueError(f"tokens are on {tokens.device}, the forward "
                              f"was made for {dev}")
         with torch.inference_mode():
-            return forward(params, tokens, cfg)
+            return forward(params, tokens, cfg, mesh)
 
     return fn
 
@@ -408,15 +469,40 @@ def _average_(tensors: list, group) -> None:
             x.copy_(part.view_as(x))
 
 
+def _mesh_group(mesh):
+    """The process group of all of ``mesh``'s ranks, over which the loss
+    and gradients are averaged: the default group, which the mesh must
+    span; None for no mesh or a mesh of one."""
+    if mesh is None or mesh.size() == 1:
+        return None
+    from torch import distributed as dist
+    if mesh.size() != dist.get_world_size():
+        raise ValueError(f"the mesh's {mesh.size()} ranks must span the "
+                         f"process group's {dist.get_world_size()}")
+    return dist.group.WORLD
+
+
+def _one_of(group, mesh):
+    """The group to average over: ``group`` (data parallelism over its
+    ranks, each given its rows) or the ranks of ``mesh`` (each given the
+    global batch); not both."""
+    if group is not None and mesh is not None:
+        raise ValueError("pass a process group (dp over its ranks) or a "
+                         "mesh, not both")
+    return group if mesh is None else _mesh_group(mesh)
+
+
 def loss_and_grads(params: dict, batch: torch.Tensor, cfg: LMConfig,
-                   group=None):
+                   group=None, mesh=None):
     """``(loss, grads)``: the loss detached, grads a dict shaped like
     ``params`` in the params' dtype (``jax.value_and_grad(loss_fn)``).
-    Under a process ``group`` both are averaged over its ranks, each of
-    which holds an equal share of the batch: the loss and gradients of
-    the whole batch."""
+    Under a process ``group`` (``batch`` this rank's rows) or a ``mesh``
+    (``batch`` the global one, each rank its block of it) both are
+    averaged over the ranks, each of which holds an equal share of the
+    tokens: the loss and gradients of the whole batch."""
+    group = _one_of(group, mesh)
     wrt = _tree_map(lambda p: p.detach().requires_grad_(), params)
-    loss = loss_fn(wrt, batch, cfg)
+    loss = loss_fn(wrt, batch, cfg, mesh)
     grads = torch.autograd.grad(loss, _leaves(wrt))
     loss = loss.detach()
     if group is not None:
@@ -426,7 +512,7 @@ def loss_and_grads(params: dict, batch: torch.Tensor, cfg: LMConfig,
 
 
 def make_train_step(cfg: LMConfig, lr: float = 3e-3, device=None,
-                    group=None):
+                    group=None, mesh=None):
     """``step(params, opt_state, batch) -> (params, opt_state, loss)`` on
     ``device`` (default ``cuda``; raises without one unless
     ``device="cpu"``): forward, loss, backward and AdamW (against the
@@ -434,15 +520,17 @@ def make_train_step(cfg: LMConfig, lr: float = 3e-3, device=None,
     are updated in place and returned, where the reference donates its
     buffers; ``loss`` is a 0-dim f32 tensor on the device. Under a
     process ``group`` (data parallelism: ``batch`` is this rank's rows)
-    the loss and gradients are averaged over its ranks before AdamW."""
+    or a ``mesh`` (dp and sp: ``batch`` is the global batch) the loss and
+    gradients are averaged over the ranks before AdamW."""
     dev = resolve_device(device)
     opt = make_optimizer(lr)
+    _one_of(group, mesh)
 
     def step(params: dict, opt_state, batch: torch.Tensor):
         if batch.device != dev:
             raise ValueError(f"batch is on {batch.device}, the step was "
                              f"made for {dev}")
-        loss, grads = loss_and_grads(params, batch, cfg, group)
+        loss, grads = loss_and_grads(params, batch, cfg, group, mesh)
         with torch.no_grad():
             if _is_mixed(cfg):
                 inner, master = opt_state
@@ -492,7 +580,7 @@ def train(cfg: LMConfig, steps: int, batch: int, seq: int,
           lr: float = 3e-3, ckpt_dir: str = "",
           checkpoint_every: int = 50, rng_seed: int = 0,
           publish_marker: bool = False, step_callback=None,
-          device=None, group=None) -> dict:
+          device=None, group=None, mesh=None) -> dict:
     """Elastic training loop: resumes from the job's checkpoint when one
     exists (``checkpoint.py``: eviction and reschedule is a resume, not a
     restart), saving every ``checkpoint_every`` steps. Returns
@@ -508,11 +596,14 @@ def train(cfg: LMConfig, steps: int, batch: int, seq: int,
     Under a process ``group`` the loop is data-parallel over its ranks:
     ``batch`` is the global batch, a multiple of the group's size; every
     rank draws the same global batch of each step and trains on its own
-    rows. The ranks agree on the start step (a barrier before reading
-    the checkpoint) and on the preemption verdict (the largest of their
-    flags, every step), so all of them save at the same step. Rank 0 is
-    the one writer of checkpoints and markers; a barrier after each
-    save keeps every rank from going on before it is durable."""
+    rows. Under a ``mesh`` (dp and sp over all the process group's
+    ranks) every rank draws the same global batch and the step shards
+    it: rows by dp, positions by sp. Either way the ranks agree on the
+    start step (a barrier before reading the checkpoint) and on the
+    preemption verdict (the largest of their flags, every step), so all
+    of them save at the same step. Rank 0 is the one writer of
+    checkpoints and markers; a barrier after each save keeps every rank
+    from going on before it is durable."""
     import time
 
     from ..perf.chip_bench import BenchCase, train_flops_per_token
@@ -521,15 +612,18 @@ def train(cfg: LMConfig, steps: int, batch: int, seq: int,
 
     dev = resolve_device(device)
     ckpt_dir = ckpt_dir or ckpt.checkpoint_dir()
+    # The ranks that agree on the start, the verdict and the saves.
+    gang = _one_of(group, mesh)
     rank, rows = 0, batch
-    if group is not None:
+    if gang is not None:
         from torch import distributed as dist
-        rank, world = dist.get_rank(group), dist.get_world_size(group)
-        if batch % world:
-            raise ValueError(f"batch {batch} is not a multiple of the "
-                             f"group's {world} ranks")
-        rows = batch // world
-        barrier(group, dev)
+        rank, world = dist.get_rank(gang), dist.get_world_size(gang)
+        if group is not None:
+            if batch % world:
+                raise ValueError(f"batch {batch} is not a multiple of the "
+                                 f"group's {world} ranks")
+            rows = batch // world
+        barrier(gang, dev)
 
     def init():
         params, opt_state = init_train_state(
@@ -546,20 +640,20 @@ def train(cfg: LMConfig, steps: int, batch: int, seq: int,
         """The gang's verdict: the signal reaches each pod at its own
         time, and every rank must save at the same step boundary."""
         local = ckpt.preempt_requested()
-        if group is None:
+        if gang is None:
             return local
         flag = torch.tensor([int(local)], dtype=torch.int32, device=dev)
-        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=gang)
         return bool(flag.item())
 
     def save(step: int) -> None:
         if rank == 0:
             ckpt.save(step, {"params": params, "opt_state": opt_state},
                       ckpt_dir)
-        if group is not None:
-            barrier(group, dev)
+        if gang is not None:
+            barrier(gang, dev)
 
-    step_fn = make_train_step(cfg, lr, dev, group)
+    step_fn = make_train_step(cfg, lr, dev, group, mesh)
     params, opt_state = state["params"], state["opt_state"]
     loss = None
     reporter = TrainingMetricsReporter(

@@ -94,7 +94,9 @@ def lm_config(device: torch.device):
     where a name is unset (a 32-wide model of 2 heads: head dim 16).
     The flash-attention kernels on the card: each rank runs them on its
     own rows, which is the computation dp sharding does. Plain attention
-    on the CPU; "ring" raises until it is ported."""
+    on the CPU. ``LM_ATTN=ring`` runs the ring over a mesh that is dp
+    alone, as the reference trainer's is: on each rank, one causal
+    launch a layer."""
     from . import lm
     attn = os.environ.get("LM_ATTN") or (
         "flash" if device.type == "cuda" else "local")

@@ -25,6 +25,17 @@ at every head dim (16, 32, 64, 128); many heads and a batch (the grid's
 y and z axes); the trainer's default LM (B4 H2 T16 D16); and the main
 path's t2k and t8k shapes.
 
+The non-causal instances, which the ring (``workloads/ring_attention.py``)
+runs for a block of keys before its queries, are held to the same
+tolerances and the same drift rule at every head dim and T at the tile
+and TMA edges (1, 100, 127, 128, 129, 1000): keys past T are masked by
+the kernels, not by a causal mask, there. The loopback ring (every
+rank's share of a ring of 2 and 4 in one process, through the kernels)
+is held to the drift rule against f32 attention of the whole sequence,
+with its launch counts. The f32-output instances, which the ring runs so
+that it rounds each sum once, give the bf16 instances' outputs bit for
+bit once rounded.
+
 One test, which skips with fewer than two cards, launches the kernels
 on tensors of device 1 while device 0 is current: each launches on its
 tensors' device.
@@ -40,6 +51,7 @@ import torch
 
 from kubernetes_tpu_torch.workloads import flash_attention as fa
 from kubernetes_tpu_torch.workloads import lm
+from kubernetes_tpu_torch.workloads import ring_attention as ra
 from kubernetes_tpu_torch.workloads import vector_add as va
 from kubernetes_tpu_torch.workloads.ring_attention import (
     reference_attention, reference_attention_with_lse)
@@ -53,6 +65,13 @@ EDGE_SHAPES = [(1, 2, t, d) for d in (16, 32, 64, 128)
                for t in (1, 127, 128, 129, 255, 257)] + [(8, 32, 129, 64),
                                                          (8, 32, 129, 16)]
 MAIN_SHAPES = [(4, 16, 2048, 128), (1, 16, 8192, 128)]
+#: The non-causal instances: T at the tile and TMA edges at every head
+#: dim, many heads and a batch, and the 600M LM's t8k blocks at sp 2
+#: and 4.
+NON_CAUSAL_SHAPES = ([(1, 2, t, d) for d in (16, 32, 64, 128)
+                      for t in (1, 100, 127, 128, 129, 1000)]
+                     + [(8, 32, 129, 64), (1, 16, 2048, 128),
+                        (1, 16, 4096, 128)])
 #: Vector-add lengths: around one 16-byte vector and its ragged tail,
 #: the payload's 2^16 and its neighbours, and the timed 2^26.
 VECTOR_ADD_NS = [1, 3, 4, 5, 1000, 65535, 65536, 65537, (1 << 20) + 3,
@@ -342,3 +361,125 @@ def test_lm_train_step_on_the_card_matches_local(gen):
         scale = float(g_l.float().abs().max())
         assert float((g_f.float() - g_l.float()).abs().max()) \
             <= 0.05 * scale + 1e-6
+
+
+@pytest.mark.parametrize("shape", NON_CAUSAL_SHAPES)
+def test_flash_kernel_non_causal_matches_plain(gen, shape):
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    before = fa.launches
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=False)
+    assert fa.launches == before + 1
+    o_ref, lse_ref = reference_attention_with_lse(q, k, v, causal=False)
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=1e-2,
+                               rtol=2 ** -6)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("shape", NON_CAUSAL_SHAPES)
+def test_flash_bwd_kernel_non_causal_drift_from_f32(gen, shape):
+    """Against the plain non-causal backward on the same inputs (1e-2 +
+    2^-6 |g|), and each gradient's deviation from the f32 gradient within
+    2x the largest and 1.5x the mean deviation of the plain one's."""
+    x32 = [torch.randn(shape, generator=gen, device="cuda") for _ in range(4)]
+    q, k, v, do = (x.to(torch.bfloat16) for x in x32)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=False)
+    before = fa.bwd_launches
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=False)
+    assert fa.bwd_launches == before + 1
+    plain = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=False)
+    o32, lse32 = reference_attention_with_lse(*x32[:3], causal=False)
+    exact = fa.flash_attention_bwd_plain(*x32[:3], o32, lse32, x32[3],
+                                         causal=False)
+    for name, g, p, e in zip(("dq", "dk", "dv"), got, plain, exact):
+        assert bool(torch.isfinite(g).all()), name
+        torch.testing.assert_close(g.float(), p.float(), atol=1e-2,
+                                   rtol=2 ** -6, msg=name)
+        dev, dev_plain = (g.float() - e).abs(), (p.float() - e).abs()
+        if name in ("dq", "dk") and shape[2] == 1:
+            assert float(dev.max()) <= 1e-2, name  # as in the causal test
+            continue
+        assert float(dev.max()) <= 2 * float(dev_plain.max()), name
+        assert float(dev.mean()) <= 1.5 * float(dev_plain.mean()), name
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", [(1, 2, t, d) for d in (16, 32, 64, 128)
+                                   for t in (1, 100, 129, 1000)]
+                         + [(8, 32, 129, 64)])
+def test_flash_kernels_f32_output_is_the_unrounded_output(gen, shape, causal):
+    """The f32-output instances (the ring's): the same arithmetic as the
+    bf16 ones, not rounded at the end, so rounding their output gives the
+    bf16 instance's bit for bit, forward and backward."""
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v, causal)
+    o32, lse32 = fa.flash_attention_fwd(q, k, v, causal, torch.float32)
+    assert o32.dtype == torch.float32 and torch.equal(lse32, lse)
+    assert torch.equal(o32.to(torch.bfloat16), o)
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    grads32 = fa.flash_attention_bwd(q, k, v, o, lse, do, causal,
+                                     torch.float32)
+    for name, g, g32 in zip(("dq", "dk", "dv"), grads, grads32):
+        assert g32.dtype == torch.float32, name
+        assert torch.equal(g32.to(torch.bfloat16), g), name
+
+
+@pytest.mark.parametrize("sp", [2, 4])
+def test_ring_loopback_on_the_card_matches_f32(gen, sp):
+    """Every rank's share of a ring of ``sp`` at B1 H4 T1024 D64, in one
+    process through the kernels: sp(sp+1)/2 launches each way; o, dq, dk
+    and dv no further from f32 attention of the whole sequence than the
+    plain bf16 path (2x its largest, 1.5x its mean deviation); lse within
+    1e-3 of the plain path's."""
+    shape = (1, 4, 1024, 64)
+    x32 = [torch.randn(shape, generator=gen, device="cuda") for _ in range(4)]
+    q, k, v, do = (x.to(torch.bfloat16) for x in x32)
+    blocks = [list(x.chunk(sp, dim=2)) for x in (q, k, v, do)]
+    blocks = [[b.contiguous() for b in bl] for bl in blocks]
+    fwd, bwd = fa.launches, fa.bwd_launches
+    out = ra.loopback_forward(*blocks[:3])
+    grads = ra.loopback_backward(*blocks[:3], [o for o, _ in out],
+                                 [lse for _, lse in out], blocks[3])
+    torch.cuda.synchronize()
+    assert (fa.launches - fwd, fa.bwd_launches - bwd) == (
+        sp * (sp + 1) // 2, sp * (sp + 1) // 2)
+    got = {"o": torch.cat([o for o, _ in out], dim=2),
+           **{n: torch.cat([g[i] for g in grads], dim=2)
+              for i, n in enumerate(("dq", "dk", "dv"))}}
+    lse = torch.cat([lse for _, lse in out], dim=2)
+    o_p, lse_p = reference_attention_with_lse(q, k, v)
+    plain = {"o": o_p, **dict(zip(("dq", "dk", "dv"),
+                                  fa.flash_attention_bwd_plain(
+                                      q, k, v, o_p, lse_p, do)))}
+    o32, lse32 = reference_attention_with_lse(*x32[:3])
+    exact = {"o": o32, **dict(zip(("dq", "dk", "dv"),
+                                  fa.flash_attention_bwd_plain(
+                                      *x32[:3], o32, lse32, x32[3])))}
+    torch.testing.assert_close(lse, lse_p, atol=1e-3, rtol=0)
+    for name in ("o", "dq", "dk", "dv"):
+        g = got[name]
+        assert g.dtype == torch.bfloat16 and bool(torch.isfinite(g).all())
+        dev = (g.float() - exact[name].float()).abs()
+        dev_plain = (plain[name].float() - exact[name].float()).abs()
+        assert float(dev.max()) <= 2 * float(dev_plain.max()), name
+        assert float(dev.mean()) <= 1.5 * float(dev_plain.mean()), name
+
+
+def test_one_member_ring_on_the_card_is_the_flash_path(gen):
+    """Without a mesh, ``ring_attention`` through autograd is one causal
+    launch each way, equal to ``FlashAttention`` bit for bit."""
+    shape = (2, 3, 200, 64)
+    x = [torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+         for _ in range(4)]
+    leaves = [t.clone().requires_grad_() for t in x[:3]]
+    fwd, bwd = fa.launches, fa.bwd_launches
+    o = ra.ring_attention(*leaves, None)
+    o.backward(x[3])
+    assert (fa.launches - fwd, fa.bwd_launches - bwd) == (1, 1)
+    ref = [t.clone().requires_grad_() for t in x[:3]]
+    o_ref = fa.FlashAttention.apply(*ref)
+    o_ref.backward(x[3])
+    assert torch.equal(o, o_ref)
+    for a, b in zip(leaves, ref):
+        assert torch.equal(a.grad, b.grad)

@@ -159,11 +159,17 @@ def test_config_defaults_match_jax():
 
 
 def test_ring_attention_is_not_ported_yet():
+    """The reference's default attention, once refused, now runs: on one
+    device the ring is one causal block, the flash path's forward bit
+    for bit (its sequence-parallel runs: tests/test_torch_lm_sp.py)."""
     cfg = tlm.LMConfig(**SMALL)
+    assert cfg.attn_impl == "ring"
     params = tlm.init_params(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(NotImplementedError, match="ring"):
-        tlm.make_forward(cfg, "cpu")(params, torch.zeros((1, 4),
-                                                         dtype=torch.int32))
+    tokens = torch.from_numpy(_tokens((2, 33)))
+    got = tlm.make_forward(cfg, "cpu")(params, tokens)
+    want = tlm.make_forward(dataclasses.replace(cfg, attn_impl="flash"),
+                            "cpu")(params, tokens)
+    assert torch.equal(got, want)
 
 
 def test_synthetic_batch_follows_the_stream():
