@@ -45,8 +45,13 @@ back:
    ring's blocks before their queries), forward and backward, against
    their plain versions at every head dim and T at the tile and TMA
    edges (1 to 1000), under the same tolerances and drift gate, each
-   launch counted as non-causal; timed at the 600M LM's t8k blocks at sp = 2 and 4 (B1
-   H16 T4096 and T2048, D128) beside SDPA with ``is_causal=False``;
+   launch counted as non-causal; timed at the 600M LM's t8k blocks at
+   sp = 2 and 4 (B1 H16 T4096 and T2048, D128) beside SDPA with
+   ``is_causal=False``;
+   causal_f32: the causal instances with f32 outputs (the ring's
+   diagonal blocks), forward and backward, at B1 H16 T4096 D128 under
+   the same tolerances and drift gate, counted as causal, timed beside
+   causal SDPA;
    ring_loopback: the 600M LM's attention at t8k (B1 H16 T8192 D128)
    split into sp = 2 and 4 blocks, forward and backward through the
    ring's block code and f32 merge on one card, counted (sp(sp+1)/2
@@ -111,6 +116,26 @@ back:
    rank's attention time and one K/V rotation's, and how much of the
    rotations the kernels hide. With one card, a line that says it was
    not run: ring_loopback has held the ring's arithmetic on that card;
+   moe (the MoE, ``workloads/moe.py``, on one card): the reference's
+   ``MoEConfig()`` at B4 T512 (head dim 32), its forward counted and
+   held layer by layer (``perf/gates.moe_layer_gate``: each layer given
+   the same input in the flash, plain bf16 and f32 paths; the drift gate
+   on the tokens whose routing agrees in all three, at most 1% of tokens
+   with another top-k set) against the plain paths on the CPU, its loss
+   within 1e-2 of the CPU's; then the 600M bench widths with 4 experts,
+   top-2 (f32 params, bf16 compute) at B4 T2048: the forward counted
+   (8 launches), timed and gated layer by layer on the card, its loss
+   within 1e-2 of the plain-attention forward's; 5 train steps on one
+   batch, the first counted (16 forward and 8 backward launches), the
+   loss falling; step ms, tokens/s, the einsums' FLOPs and TFLOP/s, peak
+   memory;
+   moe_ep: with two cards or more, that MoE expert-parallel over NCCL,
+   one rank process per card: ep = 2 at full depth; with four cards also
+   ep = 2 x sp = 2 and dp = 2 x ep = 2 at 2 layers. Every rank counted;
+   the losses the same on every rank and within 1e-3 of one card's at
+   step 1, 5e-3 after; step ms and peak memory per card and each rank's
+   exchange time per layer. With one card, a line that says it was not
+   run;
 17. vector_add_device_us: ``device_us`` of K1 and of ``torch.add`` at
    the timed cases, from ``torch.profiler`` (CUPTI) kernel events; last,
    so that nothing is timed after the profiler ran;
@@ -150,6 +175,7 @@ from kubernetes_tpu_torch.deviceplugin import gpu_plugin
 from kubernetes_tpu_torch.kernels import build
 from kubernetes_tpu_torch.node import runtimehook
 from kubernetes_tpu_torch.perf import chip_bench
+from kubernetes_tpu_torch.perf.gates import drift, moe_layer_gate
 from kubernetes_tpu_torch.perf.launch_cost import host_us
 from kubernetes_tpu_torch.entry import entry
 from kubernetes_tpu_torch.preemption import read_marker
@@ -157,6 +183,7 @@ from kubernetes_tpu_torch.workloads import checkpoint as ckpt
 from kubernetes_tpu_torch.workloads import flash_attention as fa
 from kubernetes_tpu_torch.workloads import lm
 from kubernetes_tpu_torch.workloads import metrics_reporter
+from kubernetes_tpu_torch.workloads import moe
 from kubernetes_tpu_torch.workloads import rendezvous
 from kubernetes_tpu_torch.workloads import ring_attention as ra
 from kubernetes_tpu_torch.workloads import sharding
@@ -195,6 +222,9 @@ RING_TIMED_SHAPES = [(1, 16, 4096, 128), (1, 16, 2048, 128)]
 RING_SHAPES = ([(1, 2, t, d) for d in (16, 32, 64, 128)
                 for t in (1, 100, 127, 128, 129, 1000)]
                + RING_TIMED_SHAPES)
+#: The causal instances with f32 outputs (the ring's diagonal blocks),
+#: timed at the t8k block at sp = 2.
+CAUSAL_F32_SHAPE = RING_TIMED_SHAPES[0]
 #: The loopback ring: the 600M LM's attention at t8k, split sp ways.
 LOOPBACK_SHAPE = (1, 16, 8192, 128)
 LOOPBACK_SPS = (2, 4)
@@ -239,6 +269,19 @@ TRAINER_STEPS = 3
 #: Steps of each trainer_group run (five timed after the first) and of
 #: the two-card run, which is held against it.
 GROUP_STEPS = 6
+#: The MoE phase: the reference's MoEConfig() at MOE_SMALL_BATCH (B, T),
+#: then ``chip_bench.MOE_WIDTHS`` (the 600M bench widths with
+#: MoEConfig's expert defaults) at MOE_BATCH, MOE_STEPS steps on one
+#: batch, the steps after the first MOE_WARM timed.
+MOE_SMALL_BATCH = (4, 512)
+MOE_BATCH = chip_bench.MOE_BATCH
+MOE_STEPS = 5
+MOE_WARM = 2
+#: The whole-forward loss of the kernel path against the plain bf16
+#: forward's, relative.
+MOE_LOSS_RTOL = 1e-2
+#: Train steps of each moe_ep run.
+MOE_EP_STEPS = 3
 #: Seconds any subprocess may take before it is killed and the run fails.
 SUBPROCESS_TIMEOUT = 600
 
@@ -645,23 +688,6 @@ def check_flash(gen, name: str) -> list[dict]:
     return [results[shape] for shape in TIMED_FLASH_SHAPES]
 
 
-def drift(got: torch.Tensor, plain: torch.Tensor,
-          exact: torch.Tensor) -> dict:
-    """How far ``got`` and the plain version ``plain`` are from the f32
-    ``exact``; ``ok`` when ``got`` is within twice the plain version's
-    largest and 1.5 times its mean deviation."""
-    dev_got = (got.float() - exact).abs()
-    dev_plain = (plain.float() - exact).abs()
-    row = {"max_abs_vs_f32": float(dev_got.max()),
-           "plain_max_abs_vs_f32": float(dev_plain.max()),
-           "mean_abs_vs_f32": float(dev_got.mean()),
-           "plain_mean_abs_vs_f32": float(dev_plain.mean())}
-    row["ok"] = (row["max_abs_vs_f32"] <= 2 * row["plain_max_abs_vs_f32"]
-                 and row["mean_abs_vs_f32"]
-                 <= 1.5 * row["plain_mean_abs_vs_f32"])
-    return row
-
-
 def check_flash_bwd(gen, name: str) -> list[dict]:
     """The backward kernel against the plain backward on the same bf16
     inputs (o and lse from the forward kernel). Gate: each gradient's
@@ -810,6 +836,82 @@ def check_ring_kernels(gen, name: str) -> tuple[list, list]:
         backward=list(bwd_rows.values()))
     return ([fwd_rows[shape] for shape in RING_TIMED_SHAPES],
             [bwd_rows[shape] for shape in RING_TIMED_SHAPES])
+
+
+def check_causal_f32(gen, name: str) -> tuple[dict, dict]:
+    """The causal instances with f32 outputs, which the ring runs on its
+    diagonal blocks, at the 600M LM's t8k block at sp = 2
+    (CAUSAL_F32_SHAPE): the forward against its plain version to the
+    forward's tolerances, the backward to the drift gate against the f32
+    backward, each launch counted as causal; each timed beside causal
+    SDPA. Returns the forward and backward rows."""
+    b, h, t, d = CAUSAL_F32_SHAPE
+    f32 = torch.float32
+    x32 = [torch.randn(CAUSAL_F32_SHAPE, generator=gen, device="cuda")
+           for _ in range(4)]
+    q, k, v, do = (x.to(torch.bfloat16) for x in x32)
+    before = counters()
+    o, lse = fa.flash_attention_fwd(q, k, v, out_dtype=f32)
+    got = fa.flash_attention_bwd(q, k, v, o.to(q.dtype), lse, do,
+                                 out_dtype=f32)
+    torch.cuda.synchronize()
+    after = counters()
+    counted = {key: after[key] - before[key] for key in after}
+    if counted != causal_only(flash_attn_fwd=1, flash_attn_bwd=1):
+        raise AssertionError(f"causal f32-out launches counted {counted}")
+    o_ref, lse_ref = reference_attention_with_lse(q, k, v, out_dtype=f32)
+    err = (o - o_ref).abs()
+    lse_err = float((lse - lse_ref).abs().max())
+    bad = int((err > O_ATOL + O_RTOL * o_ref.abs()).sum())
+    row = {"shape": list(CAUSAL_F32_SHAPE), "out_dtype": "float32",
+           "max_abs_err": float(err.max()), "lse_max_abs_err": lse_err,
+           "o_outside_tol": bad}
+    if bad or not lse_err <= LSE_ATOL or not bool(torch.isfinite(o).all()):
+        raise AssertionError(f"causal f32-out flash_attn_fwd disagrees: {row}")
+    del o_ref, lse_ref, err
+    o = o.to(q.dtype)
+    plain = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, out_dtype=f32)
+    o32, lse32 = reference_attention_with_lse(*x32[:3])
+    exact = fa.flash_attention_bwd_plain(*x32[:3], o32, lse32, x32[3])
+    del o32, lse32, x32
+    brow = {"shape": list(CAUSAL_F32_SHAPE), "out_dtype": "float32",
+            "max_abs_err": max(float((g - p).abs().max())
+                               for g, p in zip(got, plain))}
+    for gname, g, p, e in zip(("dq", "dk", "dv"), got, plain, exact):
+        brow[gname] = drift(g, p, e)
+        if not (brow[gname]["ok"] and bool(torch.isfinite(g).all())):
+            raise AssertionError(
+                f"causal f32-out flash_attn_bwd {gname} drifts: {brow}")
+    del plain, exact, got
+
+    def kernel():
+        return fa.flash_attention_fwd(q, k, v, out_dtype=f32)
+
+    def kernel_bwd():
+        return fa.flash_attention_bwd(q, k, v, o, lse, do, out_dtype=f32)
+    n = b * h * t * d
+    row.update(timed(
+        kernel, lambda: reference_attention_with_lse(q, k, v, out_dtype=f32),
+        sdpa_forwards(q, k, v), 20))
+    flops = 4.0 * b * h * d * t * (t + 1) / 2
+    # q, k, v bf16 in; o f32 and lse out.
+    add_bound(row, flops, 3 * n * 2 + n * 4 + b * h * t * 4, name)
+    row["host_us"] = host_us(kernel, ATTN_HOST_CALLS)
+    row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
+    brow.update(timed(
+        kernel_bwd,
+        lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                             out_dtype=f32),
+        sdpa_backwards(q, k, v, do), 20))
+    flops = 10.0 * b * h * d * t * (t + 1) / 2
+    # q, k, v, o, do bf16 and lse in; dq, dk, dv f32 out.
+    add_bound(brow, flops, 5 * n * 2 + 3 * n * 4 + b * h * t * 4, name)
+    brow["host_us"] = host_us(kernel_bwd, ATTN_HOST_CALLS)
+    brow["tflops"] = flops / (brow["ms"] * 1e-3) / 1e12
+    del q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+    say("causal_f32", ok=True, forward=row, backward=brow)
+    return row, brow
 
 
 def rank_backward(q, held, o, lse, do, i: int, n: int):
@@ -1686,6 +1788,325 @@ def check_lm_sp(peak: float, known: bool) -> dict:
     return total
 
 
+def moe_cfg(n_layers: int) -> moe.MoEConfig:
+    """The full-width MoE: the 600M bench widths with ``MoEConfig``'s own
+    expert defaults (4 experts, top-2, capacity factor 1.25), f32 params,
+    bf16 compute."""
+    return moe.MoEConfig(n_layers=n_layers, **chip_bench.MOE_WIDTHS)
+
+
+def moe_gate(params, tokens, cfg, what: str, **plain) -> list[dict]:
+    """:func:`moe_layer_gate` on the card, raising when a layer fails."""
+    rows = moe_layer_gate(params, tokens, cfg, **plain)
+    for row in rows:
+        if not row["ok"]:
+            raise AssertionError(f"moe {what}: layer gate fails: {row}")
+    return rows
+
+
+def moe_losses_agree(got: float, plain: float, what: str) -> None:
+    if not (math.isfinite(got) and abs(got - plain)
+            <= MOE_LOSS_RTOL * abs(plain)):
+        raise AssertionError(f"moe {what}: loss {got} against the plain "
+                             f"bf16 forward's {plain}")
+
+
+def check_moe(peak: float, known: bool) -> dict:
+    """The MoE on one card. (a) ``MoEConfig()`` at B4 T512: the forward
+    through the flash kernels (head dim 32), counted, under the layer
+    gate against the plain bf16 and f32 paths on the CPU, and its loss
+    against the CPU's plain forward. (b) :func:`moe_cfg` at full depth,
+    B4 T2048: the forward counted (n_layers launches), timed, gated layer
+    by layer against the plain bf16 and f32 paths on the card, its loss
+    against the plain bf16 forward's; then MOE_STEPS train steps on one
+    batch, the first counted (2 x n_layers forward and n_layers backward
+    launches under remat), the loss falling, steps 3-5 timed by CUDA
+    events, and the peak memory. Rates of both: MFU from the model's
+    FLOPs and the executed matmul rate (``chip_bench.moe_flops``).
+    Returns the launches of the counted runs."""
+    total = dict.fromkeys(counters(), 0)
+
+    def counted(fn, want: dict, what: str):
+        torch.cuda.synchronize()
+        zero_counters()
+        out = fn()
+        torch.cuda.synchronize()
+        launches = counters()
+        if launches != want:
+            raise AssertionError(f"moe {what}: launches {launches}, want "
+                                 f"{want}")
+        for key, n in launches.items():
+            total[key] += n
+        return out
+
+    small = moe.MoEConfig()
+    params = moe.init_params(torch.Generator("cuda").manual_seed(0), small)
+    batch = moe.synthetic_batch(torch.Generator("cuda").manual_seed(1), small,
+                                *MOE_SMALL_BATCH)
+    cpu = lm._tree_map(lambda p: p.cpu(), params)
+    logits, aux = counted(lambda: moe.make_forward(small)(params,
+                                                          batch[:, :-1]),
+                          causal_only(flash_attn_fwd=small.n_layers),
+                          "MoEConfig() forward")
+    gate = moe_gate(params, batch[:, :-1], small, "MoEConfig()",
+                    plain_params=cpu)
+    with torch.inference_mode():
+        loss = float(moe.loss_fn(params, batch, small))
+        plain_loss = float(moe.loss_fn(cpu, batch.cpu(), small))
+    moe_losses_agree(loss, plain_loss, "MoEConfig()")
+    say("moe", config="MoEConfig()", ok=True, batch=MOE_SMALL_BATCH[0],
+        seq=MOE_SMALL_BATCH[1], head_dim=small.head_dim,
+        shape=list(logits.shape), aux=float(aux), loss=loss,
+        plain_cpu_loss=plain_loss, layer_gate=gate)
+    del params, cpu, logits
+
+    cfg = moe_cfg(8)
+    b, t = MOE_BATCH
+    params = moe.init_params(torch.Generator("cuda").manual_seed(0), cfg)
+    batch = moe.synthetic_batch(torch.Generator("cuda").manual_seed(1), cfg,
+                                b, t)
+    tokens = batch[:, :-1]
+    forward = moe.make_forward(cfg)
+    logits, aux = counted(lambda: forward(params, tokens),
+                          causal_only(flash_attn_fwd=cfg.n_layers),
+                          "full-width forward")
+    if logits.shape != (b, t, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"moe logits {tuple(logits.shape)}, finite="
+                             f"{bool(torch.isfinite(logits).all())}")
+    del logits
+    torch.cuda.empty_cache()
+    flops = chip_bench.moe_flops(cfg, b, t)
+    fwd_ms = time_ms(lambda: forward(params, tokens), 3)
+    with torch.inference_mode():
+        plain_ms = time_ms(lambda: moe.forward(
+            params, tokens, cfg, attention=ra.reference_attention), 1, 1)
+    gate = moe_gate(params, tokens, cfg, "full width",
+                    plain_attention=ra.reference_attention)
+    with torch.inference_mode():
+        loss = float(moe.loss_fn(params, batch, cfg))
+        plain_loss = float(moe.loss_fn(params, batch, cfg,
+                                       attention=ra.reference_attention))
+    moe_losses_agree(loss, plain_loss, "full width")
+    torch.cuda.empty_cache()
+
+    opt_state = moe.make_optimizer().init(params)
+    step = moe.make_train_step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params, opt_state, first = counted(
+        lambda: step(params, opt_state, batch),
+        causal_only(flash_attn_fwd=2 * cfg.n_layers,
+                    flash_attn_bwd=cfg.n_layers), "train step")
+    losses = [first]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for i in range(1, MOE_STEPS):
+        if i == MOE_WARM:
+            start.record()
+        params, opt_state, loss_i = step(params, opt_state, batch)
+        losses.append(loss_i)
+    end.record()
+    end.synchronize()
+    step_ms = start.elapsed_time(end) / (MOE_STEPS - MOE_WARM)
+    losses = [float(x) for x in losses]
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"moe: loss does not fall: {losses}")
+    ntok = b * t
+    say("moe", config="600M widths, 4 experts, top-2", ok=True, batch=b,
+        seq=t, n_layers=cfg.n_layers, head_dim=cfg.head_dim,
+        params=sum(p.numel() for p in lm._leaves(params)),
+        capacity=flops["capacity"], aux=float(aux), loss=loss,
+        plain_attention_loss=plain_loss, layer_gate=gate,
+        launches_per_forward=cfg.n_layers,
+        launches_per_step={"flash_attn_fwd": 2 * cfg.n_layers,
+                           "flash_attn_bwd": cfg.n_layers},
+        forward_ms=fwd_ms, plain_attention_forward_ms=plain_ms,
+        forward_tokens_per_s=ntok / (fwd_ms * 1e-3),
+        forward_executed_flops=flops["executed"],
+        forward_model_flops=flops["model"],
+        executed_flops_per_layer=flops["executed_per_layer"],
+        model_flops_per_layer=flops["model_per_layer"],
+        unembed_flops=flops["unembed"],
+        forward_exec_tflops=flops["executed"] / (fwd_ms * 1e-3) / 1e12,
+        forward_exec_share_of_peak=flops["executed"] / (fwd_ms * 1e-3)
+        / peak,
+        forward_mfu=flops["model"] / (fwd_ms * 1e-3) / peak,
+        step_ms=step_ms, step_timed=f"steps {MOE_WARM + 1}-{MOE_STEPS}, "
+        "CUDA events", tokens_per_s=ntok / (step_ms * 1e-3),
+        step_executed_flops=3 * flops["executed"],
+        step_executed_flops_with_remat=4 * flops["executed"],
+        step_model_flops=3 * flops["model"],
+        step_exec_tflops=3 * flops["executed"] / (step_ms * 1e-3) / 1e12,
+        step_exec_share_of_peak=3 * flops["executed"] / (step_ms * 1e-3)
+        / peak,
+        mfu=3 * flops["model"] / (step_ms * 1e-3) / peak,
+        peak_known=known,
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        losses=losses)
+    del params, opt_state, step, batch
+    torch.cuda.empty_cache()
+    return total
+
+
+def moe_steps(cfg: moe.MoEConfig, batch: int, seq: int, mesh=None,
+              device="cuda") -> dict:
+    """MOE_EP_STEPS train steps from the params of seed 0 (each rank its
+    shards) on the global batch of seed 1, every counter set to 0 just
+    before and read just after: each step's loss, read at once (the host
+    clock between reads is the step time), and the peak memory."""
+    params, opt_state = moe.init_train_state(
+        torch.Generator(device).manual_seed(0), cfg, mesh=mesh)
+    tokens = moe.synthetic_batch(torch.Generator(device).manual_seed(1), cfg,
+                                 batch, seq, device)
+    step = moe.make_train_step(cfg, mesh, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    losses, ends = [], [time.perf_counter()]
+    zero_counters()
+    for _ in range(MOE_EP_STEPS):
+        params, opt_state, loss = step(params, opt_state, tokens)
+        losses.append(float(loss))
+        ends.append(time.perf_counter())
+    launches = counters()
+    return {"losses": losses, "launches": launches,
+            "step_ms": [(b - a) * 1e3 for a, b in zip(ends, ends[1:])],
+            "peak_memory_gb": (torch.cuda.max_memory_allocated() / 1e9
+                               if device == "cuda" else None)}
+
+
+def moe_ep_rank(run: dict, device="cuda") -> dict:
+    """One rank of a moe_ep run (``run``: dp, ep, sp, n_layers, batch,
+    seq) in a process group of ``dp * ep * sp`` ranks: MOE_EP_STEPS train
+    steps over the mesh, then the time of one layer's expert exchange
+    (to the experts and back, on bf16 [E, C, d] buffers) by CUDA
+    events."""
+    cfg = moe_cfg(run["n_layers"])
+    mesh = moe.make_moe_mesh(device_type=device, dp=run["dp"], ep=run["ep"],
+                             sp=run["sp"])
+    out = moe_steps(cfg, run["batch"], run["seq"], mesh, device)
+    em = moe.expert_mesh(mesh)
+    c = chip_bench.moe_flops(cfg, run["batch"], run["seq"])["capacity"]
+    buf = torch.randn((cfg.n_experts, c, cfg.d_model), device=device,
+                      generator=torch.Generator(device).manual_seed(2)).to(
+                          cfg.compute_dtype)
+    exchange_ms = time_ms(
+        lambda: moe.from_experts(moe.to_experts(buf, em), em), 10)
+    return {"rank": dist.get_rank(), "coordinate": dict(zip(
+        mesh.mesh_dim_names, mesh.get_coordinate())), **out,
+        "exchange_ms": exchange_ms,
+        "exchange_bytes": buf.numel() * buf.element_size()}
+
+
+#: One rank of a moe_ep run: NCCL on the card that CUDA_VISIBLE_DEVICES
+#: gives it, ``moe_ep_rank`` of this script; its result as the last line.
+MOE_EP_RANK = r"""
+import json, os, torch
+from torch import distributed as dist
+import chip_smoke
+from kubernetes_tpu_torch.workloads import rendezvous
+torch.cuda.set_device(0)
+run = json.loads(os.environ["MOE_RUN"])
+rendezvous.init_process_group("127.0.0.1", int(os.environ["RANK_PORT"]),
+                              int(os.environ["RANK_INDEX"]),
+                              run["dp"] * run["ep"] * run["sp"], "nccl",
+                              timeout=300.0, bind_ip="127.0.0.1")
+out = chip_smoke.moe_ep_rank(run)
+dist.destroy_process_group()
+print(json.dumps(out))
+"""
+
+
+def moe_ep_runs(cards: int) -> list:
+    """The moe_ep runs a host of ``cards`` takes: ep = 2 at full depth,
+    B4 T2048; with four cards also ep = 2 x sp = 2 and dp = 2 x ep = 2 at
+    2 layers."""
+    runs = [dict(name="ep2", dp=1, ep=2, sp=1, n_layers=8, batch=4,
+                 seq=2048)]
+    if cards >= 4:
+        runs += [dict(name="ep2sp2", dp=1, ep=2, sp=2, n_layers=2, batch=4,
+                      seq=2048),
+                 dict(name="dp2ep2", dp=2, ep=2, sp=1, n_layers=2, batch=4,
+                      seq=2048)]
+    return runs
+
+
+def check_moe_ep(peak: float, known: bool) -> dict:
+    """With two cards or more, the full-width MoE expert-parallel over
+    NCCL (:func:`moe_ep_runs`, rank processes of :data:`MOE_EP_RANK`),
+    counted on every rank: a step makes 2 x layers ring forwards and
+    layers ring backwards, the rank at sp index i launching i + 1 blocks
+    each (i of them non-causal). The losses the same on every rank and
+    within 1e-3 relative of one card's steps (seeds 0 and 1) at step 1,
+    5e-3 after. Step ms and tokens/s per card, peak memory per card and
+    each rank's exchange time per layer. Every run is reported before a
+    run whose losses miss fails the phase. With one card, a line that
+    says it was not run. Returns the launches over all ranks."""
+    total = dict.fromkeys(counters(), 0)
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        say("moe_ep", skipped="one card")
+        return total
+    failed = []
+    for run in moe_ep_runs(cards):
+        cfg = moe_cfg(run["n_layers"])
+        one = moe_steps(cfg, run["batch"], run["seq"])
+        torch.cuda.empty_cache()
+        world = run["dp"] * run["ep"] * run["sp"]
+        ranks = run_ranks(MOE_EP_RANK, world, {"MOE_RUN": json.dumps(run)},
+                          f"moe_ep {run['name']}")
+        for out in ranks:
+            i, layers = out["coordinate"]["sp"], cfg.n_layers * MOE_EP_STEPS
+            want = causal_only(
+                flash_attn_fwd=2 * layers, flash_attn_bwd=layers,
+                flash_attn_fwd_non_causal=2 * layers * i,
+                flash_attn_bwd_non_causal=layers * i)
+            if out["launches"] != want:
+                raise AssertionError(f"moe_ep {run['name']} rank "
+                                     f"{out['rank']}: launches "
+                                     f"{out['launches']}, want {want}")
+            for key, count in out["launches"].items():
+                total[key] += count
+        losses = [out["losses"] for out in ranks]
+        want = one["losses"]
+        ok = all(got == losses[0] for got in losses) and all(
+            math.isfinite(g) and abs(g - w) <= (1e-3 if n == 0 else 5e-3)
+            * abs(w) for n, (g, w) in enumerate(zip(losses[0], want)))
+        ok = ok and len(losses[0]) == MOE_EP_STEPS
+        if not ok:
+            failed.append(f"{run['name']}: losses {losses}, one card {want}")
+        ms = max(sum(out["step_ms"][1:]) / (MOE_EP_STEPS - 1)
+                 for out in ranks)
+        one_ms = sum(one["step_ms"][1:]) / (MOE_EP_STEPS - 1)
+        ntok = run["batch"] * run["seq"]
+        flops = chip_bench.moe_flops(cfg, run["batch"], run["seq"])
+        model, executed = 3 * flops["model"], 3 * flops["executed"]
+        say("moe_ep", ok=ok, **run, cards=world, losses=losses[0],
+            one_card_losses=want, relative_diffs=[
+                abs(g - w) / abs(w) for g, w in zip(losses[0], want)],
+            step_ms=ms, one_card_step_ms=one_ms,
+            step_timed=f"steps 2-{MOE_EP_STEPS}, host clock to each loss's "
+            "read, slowest rank",
+            tokens_per_s_per_card=ntok / (ms * 1e-3) / world,
+            one_card_tokens_per_s=ntok / (one_ms * 1e-3),
+            mfu_per_card=model / (ms * 1e-3) / world / peak,
+            one_card_mfu=model / (one_ms * 1e-3) / peak,
+            exec_share_of_peak_per_card=executed / (ms * 1e-3) / world
+            / peak,
+            one_card_exec_share_of_peak=executed / (one_ms * 1e-3) / peak,
+            peak_known=known,
+            one_card_peak_memory_gb=one["peak_memory_gb"],
+            ranks=[{k: out[k] for k in (
+                "rank", "coordinate", "step_ms", "peak_memory_gb",
+                "launches", "exchange_ms", "exchange_bytes")}
+                for out in ranks])
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"moe_ep losses: {failed}")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1721,6 +2142,7 @@ def main() -> int:
     fa_rows = check_flash(gen, name)
     bwd_rows = check_flash_bwd(gen, name)
     ring_fwd_rows, ring_bwd_rows = check_ring_kernels(gen, name)
+    causal_f32_rows = check_causal_f32(gen, name)
     # The ring's block arithmetic at t8k on one card, counted inside.
     loopback_launches = check_ring_loopback(gen)
     check_entry()
@@ -1799,11 +2221,16 @@ def main() -> int:
     check_trainer_dp2(world_1_losses)
     # Sequence parallelism over NCCL, counted on every rank inside.
     lm_sp_launches = check_lm_sp(peak, known)
+    # The MoE on one card and, with two cards or more, expert-parallel
+    # over NCCL; each counted inside.
+    moe_launches = check_moe(peak, known)
+    moe_ep_launches = check_moe_ep(peak, known)
     by_path = {k: {"node": node_launches[k], "forward": launches[k],
                    "train": train_launches[k], "trainer": trainer_launches[k],
                    "trainer_default_lm": default_lm_launches[k],
                    "ring_loopback": loopback_launches[k],
-                   "lm_sp": lm_sp_launches[k]}
+                   "lm_sp": lm_sp_launches[k], "moe": moe_launches[k],
+                   "moe_ep": moe_ep_launches[k]}
                for k in launches}
 
     # Last of all: the one profiled phase (K1's device_us).
@@ -1844,6 +2271,17 @@ def main() -> int:
              "source": "kubernetes_tpu_torch/csrc/flash_attn_bwd.cu",
              "replaces": "kubernetes_tpu/workloads/lm.py:193-197, 232-236",
              "at": at, **{k: bwd_row[k] for k in keys}}]
+    # The causal instances with f32 outputs: the ring's diagonal blocks.
+    at = "B{} H{} T{} D{} bf16 in, f32 out, causal".format(*CAUSAL_F32_SHAPE)
+    kernels += [
+        {"name": "flash_attn_fwd", "route": "cuda",
+         "source": "kubernetes_tpu_torch/csrc/flash_attn_fwd.cu",
+         "replaces": "kubernetes_tpu/workloads/lm.py:163-239",
+         "at": at, **{k: causal_f32_rows[0][k] for k in keys}},
+        {"name": "flash_attn_bwd", "route": "cuda",
+         "source": "kubernetes_tpu_torch/csrc/flash_attn_bwd.cu",
+         "replaces": "kubernetes_tpu/workloads/lm.py:193-197, 232-236",
+         "at": at, **{k: causal_f32_rows[1][k] for k in keys}}]
     for kern in kernels:
         kern["launches"] = sum(by_path[kern["name"]].values())
         kern["launches_by_path"] = by_path[kern["name"]]

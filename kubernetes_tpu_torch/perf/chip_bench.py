@@ -90,6 +90,41 @@ CASES = [
 ]
 
 
+#: The MoE at the 600M widths: the cases' widths with ``MoEConfig``'s
+#: own expert defaults (4 experts, top-2, capacity factor 1.25), f32
+#: params and bf16 compute, at MOE_BATCH (B, T): ``chip_smoke.py``'s
+#: ``moe`` and ``moe_ep`` phases, ``profile_forward --moe``. The
+#: reference has no MoE bench case.
+MOE_WIDTHS = dict(vocab=32768, d_model=2048, n_heads=16, d_ff=8192,
+                  n_experts=4, top_k=2)
+MOE_BATCH = (4, 2048)
+
+
+def moe_flops(cfg, batch: int, seq: int) -> dict:
+    """Matmul FLOPs of one forward of the MoE ``cfg`` (a
+    ``moe.MoEConfig``) at B x T, two counts. ``executed``, as the port
+    runs it: the dense projections, causal attention, the router, the
+    one-hot dispatch and combine einsums over every capacity slot, the
+    experts over every slot, filled or not, and the unembedding.
+    ``model``, the MFU convention's: the same without the one-hot
+    einsums, and the experts over each token's top_k picks."""
+    n, d, e = batch * seq, cfg.d_model, cfg.n_experts
+    c = max(1, int(cfg.capacity_factor * cfg.top_k * n / e))
+    expert = 3 * 2.0 * d * cfg.d_ff  # one token through one expert
+    model = {"projections": 2.0 * n * d * d * 4,
+             "attention": 4.0 * batch * d * seq * (seq + 1) / 2,
+             "router": 2.0 * n * d * e,
+             "experts": n * cfg.top_k * expert}
+    executed = {**model, "dispatch": 2.0 * n * e * c * d,
+                "experts": e * c * expert,
+                "combine": 2.0 * n * e * c * d}
+    unembed = 2.0 * n * d * cfg.vocab
+    return {"capacity": c, "executed_per_layer": executed,
+            "model_per_layer": model, "unembed": unembed,
+            "executed": cfg.n_layers * sum(executed.values()) + unembed,
+            "model": cfg.n_layers * sum(model.values()) + unembed}
+
+
 def case(name: str) -> BenchCase:
     for c in CASES:
         if c.name == name:

@@ -2,9 +2,12 @@
 
     python -m kubernetes_tpu_torch.perf.profile_forward           # forward
     python -m kubernetes_tpu_torch.perf.profile_forward --train   # train step
+    python -m kubernetes_tpu_torch.perf.profile_forward --moe [--train]
 
 Builds the 600M config of ``chip_bench`` (bf16 params, random weights
-from seed 0), warms one forward (or one train step) per case, then
+from seed 0), or with ``--moe`` the MoE at those widths with 4 experts,
+top-2, f32 params, B4 T2048 (``chip_smoke.py``'s ``moe`` phase), warms
+one forward (or one train step) per case, then
 traces one more under ``torch.profiler`` and prints one JSON line per
 case: the host-clock time of the traced call, the device-busy time (the
 union of kernel intervals), the idle share, the time per kernel group
@@ -24,7 +27,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from ..workloads import lm
+from ..workloads import lm, moe
 from . import chip_bench
 
 CASES = ("lm-600m-t2k-flash", "lm-600m-t8k-flash")
@@ -84,8 +87,29 @@ def _train_call(case: chip_bench.BenchCase):
     return call
 
 
+def _moe_call(train: bool):
+    cfg = moe.MoEConfig(n_layers=8, **chip_bench.MOE_WIDTHS)
+    params, opt_state = moe.init_train_state(
+        torch.Generator("cuda").manual_seed(0), cfg)
+    batch = moe.synthetic_batch(torch.Generator("cuda").manual_seed(1), cfg,
+                                *chip_bench.MOE_BATCH)
+    if not train:
+        forward = moe.make_forward(cfg)
+        return lambda: forward(params, batch[:, :-1])
+    step = moe.make_train_step(cfg)
+
+    def call():
+        step(params, opt_state, batch)  # updates both in place
+    return call
+
+
 def profile_case(case: chip_bench.BenchCase, train: bool = False) -> dict:
     call = (_train_call if train else _forward_call)(case)
+    return profile_call(call, case.name, train, case.batch, case.seq)
+
+
+def profile_call(call, name: str, train: bool, batch: int, seq: int) -> dict:
+    """One warm call of ``call``, then one traced."""
     call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
@@ -105,8 +129,8 @@ def profile_case(case: chip_bench.BenchCase, train: bool = False) -> dict:
     busy = _busy_us((e.time_range.start, e.time_range.end) for e in kernels)
     heavy = sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP]
     return {
-        "case": case.name, "mode": "train_step" if train else "forward",
-        "batch": case.batch, "seq": case.seq,
+        "case": name, "mode": "train_step" if train else "forward",
+        "batch": batch, "seq": seq,
         "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
         "idle_share": 1.0 - busy / wall_us, "kernels": len(kernels),
         "group_ms": {g: us / 1e3 for g, us in sorted(by_group.items())},
@@ -122,6 +146,11 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(json.dumps({"device": smi}), flush=True)
+    if "--moe" in sys.argv[1:]:
+        row = profile_call(_moe_call(train), "moe-600m-e4-top2", train,
+                           *chip_bench.MOE_BATCH)
+        print(json.dumps(row), flush=True)
+        return 0
     for name in CASES:
         print(json.dumps(profile_case(chip_bench.case(name), train)),
               flush=True)

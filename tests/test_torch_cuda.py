@@ -36,6 +36,11 @@ with its launch counts. The f32-output instances, which the ring runs so
 that it rounds each sum once, give the bf16 instances' outputs bit for
 bit once rounded.
 
+The MoE forward at ``MoEConfig()`` and at the ``dryrun_multichip``
+MoE config (head dim 16) passes the layer-wise gate of
+``perf/gates.py`` against the plain paths on the CPU, and one
+full-width MoE train step fits the card.
+
 One test, which skips with fewer than two cards, launches the kernels
 on tensors of device 1 while device 0 is current: each launches on its
 tensors' device.
@@ -483,3 +488,63 @@ def test_one_member_ring_on_the_card_is_the_flash_path(gen):
     assert torch.equal(o, o_ref)
     for a, b in zip(leaves, ref):
         assert torch.equal(a.grad, b.grad)
+
+
+# -- The MoE (workloads/moe.py) on the card. --
+
+#: The reference's ``MoEConfig()`` (4 heads of 32) and the MoE config of
+#: its ``dryrun_multichip`` at ep 2 (``__graft_entry__.py:69``: 2 heads
+#: of 16, 4 experts), each at B4 T512: enough tokens that the layer
+#: gate's 1% bound on routing flips is not one token's worth.
+MOE_CONFIGS = {"default": {},
+               "dryrun_multichip": dict(vocab=64, d_model=32, n_layers=1,
+                                        n_heads=2, d_ff=64, n_experts=4,
+                                        top_k=2)}
+
+
+@pytest.mark.parametrize("name", list(MOE_CONFIGS))
+def test_moe_forward_on_the_card_passes_the_layer_gate(gen, name):
+    """The MoE forward through the flash kernels, one causal launch a
+    layer, held layer by layer (``perf/gates.moe_layer_gate``) against
+    the plain bf16 and f32 paths on the CPU; its loss within 1e-2 of the
+    CPU's plain forward, relative."""
+    from kubernetes_tpu_torch.perf import gates
+    from kubernetes_tpu_torch.workloads import moe
+    cfg = moe.MoEConfig(**MOE_CONFIGS[name])
+    params = moe.init_params(gen, cfg)
+    batch = moe.synthetic_batch(gen, cfg, 4, 512)
+    cpu = lm._tree_map(lambda p: p.cpu(), params)
+    before = fa.launches
+    logits, _ = moe.make_forward(cfg)(params, batch[:, :-1])
+    assert fa.launches == before + cfg.n_layers
+    assert logits.shape == (4, 512, cfg.vocab)
+    for row in gates.moe_layer_gate(params, batch[:, :-1], cfg,
+                                    plain_params=cpu):
+        assert row["ok"], row
+    with torch.inference_mode():
+        loss = float(moe.loss_fn(params, batch, cfg))
+        plain = float(moe.loss_fn(cpu, batch.cpu(), cfg))
+    assert abs(loss - plain) <= 1e-2 * abs(plain)
+
+
+def test_moe_full_width_step_fits_the_card(gen):
+    """One train step of the 600M-wide MoE (8 layers, 4 experts, top-2,
+    f32 params and AdamW state, bf16 compute) at B4 T2048: two forward
+    and one backward launch a layer under remat, a finite loss, and a
+    peak of allocated memory within 90% of the card's."""
+    from kubernetes_tpu_torch.perf import chip_bench
+    from kubernetes_tpu_torch.workloads import moe
+    cfg = moe.MoEConfig(n_layers=8, **chip_bench.MOE_WIDTHS)
+    params, opt_state = moe.init_train_state(gen, cfg)
+    batch = moe.synthetic_batch(gen, cfg, *chip_bench.MOE_BATCH)
+    step = moe.make_train_step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fwd, bwd = fa.launches, fa.bwd_launches
+    params, opt_state, loss = step(params, opt_state, batch)
+    torch.cuda.synchronize()
+    assert (fa.launches - fwd, fa.bwd_launches - bwd) == (
+        2 * cfg.n_layers, cfg.n_layers)
+    assert torch.isfinite(loss)
+    total = torch.cuda.get_device_properties(0).total_memory
+    assert torch.cuda.max_memory_allocated() <= 0.9 * total
