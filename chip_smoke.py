@@ -60,6 +60,13 @@ back:
    whole ring's time and each rank's share;
 7. entry: the tiny entry-point forward (the reference's default
    attention, the ring, at sp = 1) on the card against the CPU;
+   mnist: the MNIST payload (plain PyTorch ops) on the card, 40 Adam
+   steps: held-out accuracy over 0.85 and within 1e-2 of the CPU's run
+   of the same seed;
+   dryrun: ``entry.dryrun_multichip`` on every card (each rank a process
+   over NCCL): one dense step over ``default_axis_sizes(cards)`` (head
+   dim 16) and one MoE ep step, every rank counted, the losses finite,
+   positive and the same on every rank;
 8. main path (serving): the payload ``smoke_test`` and the 600M-config
    LM forward (d_model 2048, 8 layers, 16 heads of 128, d_ff 8192, vocab
    32768, bf16 params, random weights from a seed) at the t2k and t8k
@@ -116,6 +123,13 @@ back:
    rank's attention time and one K/V rotation's, and how much of the
    rotations the kernels hide. With one card, a line that says it was
    not run: ring_loopback has held the ring's arithmetic on that card;
+   lm_fsdp_tp: with two cards or more, the 600M LM at full width and
+   depth, B4 T2048, params sharded over fsdp and heads and FFN columns
+   over tp: fsdp = 2 and tp = 2; with four cards also fsdp = 2 x tp = 2
+   and sp = 2 x tp = 2. Every rank counted; the losses under lm_sp's
+   gates; step ms, tokens/s and MFU per card, peak memory per card and
+   each rank's collectives per layer (the fsdp gather, the tp pair's
+   all-reduces). With one card, a line that says it was not run;
    moe (the MoE, ``workloads/moe.py``, on one card): the reference's
    ``MoEConfig()`` at B4 T512 (head dim 32), its forward counted and
    held layer by layer (``perf/gates.moe_layer_gate``: each layer given
@@ -131,11 +145,15 @@ back:
    memory;
    moe_ep: with two cards or more, that MoE expert-parallel over NCCL,
    one rank process per card: ep = 2 at full depth; with four cards also
-   ep = 2 x sp = 2 and dp = 2 x ep = 2 at 2 layers. Every rank counted;
-   the losses the same on every rank and within 1e-3 of one card's at
-   step 1, 5e-3 after; step ms and peak memory per card and each rank's
-   exchange time per layer. With one card, a line that says it was not
-   run;
+   ep = 2 x sp = 2, dp = 2 x ep = 2 and ep = 2 x tp = 2 at 2 layers.
+   Every rank counted; the losses the same on every rank; the bf16 mesh
+   within 1e-3 of one card's bf16 step at step 1; an f32 witness (the
+   mesh in f32 with the ring's plain version against one card in f32
+   with plain attention) within 1e-4 at every step; after step 1 the
+   bf16 mesh no further from one card's f32 step than twice one card's
+   bf16 step is. Step ms and peak memory per card, each rank's exchange
+   time per layer and the f32 steps' seconds. With one card, a line that
+   says it was not run;
 17. vector_add_device_us: ``device_us`` of K1 and of ``torch.add`` at
    the timed cases, from ``torch.profiler`` (CUPTI) kernel events; last,
    so that nothing is timed after the profiler ran;
@@ -177,12 +195,14 @@ from kubernetes_tpu_torch.node import runtimehook
 from kubernetes_tpu_torch.perf import chip_bench
 from kubernetes_tpu_torch.perf.gates import drift, moe_layer_gate
 from kubernetes_tpu_torch.perf.launch_cost import host_us
-from kubernetes_tpu_torch.entry import entry
+from kubernetes_tpu_torch.entry import dryrun_config, dryrun_multichip, entry
 from kubernetes_tpu_torch.preemption import read_marker
 from kubernetes_tpu_torch.workloads import checkpoint as ckpt
+from kubernetes_tpu_torch.workloads import collectives
 from kubernetes_tpu_torch.workloads import flash_attention as fa
 from kubernetes_tpu_torch.workloads import lm
 from kubernetes_tpu_torch.workloads import metrics_reporter
+from kubernetes_tpu_torch.workloads import mnist
 from kubernetes_tpu_torch.workloads import moe
 from kubernetes_tpu_torch.workloads import rendezvous
 from kubernetes_tpu_torch.workloads import ring_attention as ra
@@ -282,6 +302,9 @@ MOE_WARM = 2
 MOE_LOSS_RTOL = 1e-2
 #: Train steps of each moe_ep run.
 MOE_EP_STEPS = 3
+#: Steps of the MNIST payload on the card, and the accuracy it must pass.
+MNIST_STEPS = 40
+MNIST_ACCURACY = 0.85
 #: Seconds any subprocess may take before it is killed and the run fails.
 SUBPROCESS_TIMEOUT = 600
 
@@ -1026,14 +1049,67 @@ def check_entry() -> None:
     say("entry", ok=True, shape=list(got.shape), max_abs_err_vs_cpu=err)
 
 
+def check_mnist() -> None:
+    """The MNIST payload (``workloads/mnist.py``; plain PyTorch ops, no
+    kernel of the port) on the card: MNIST_STEPS Adam steps, held-out
+    accuracy over MNIST_ACCURACY, and within 1e-2 of the CPU's run of the
+    same seed (the same data and initial weights, drawn on the host)."""
+    t0 = time.perf_counter()
+    acc = mnist.train(steps=MNIST_STEPS, device="cuda")
+    seconds = time.perf_counter() - t0
+    cpu = mnist.train(steps=MNIST_STEPS, device="cpu")
+    if not (acc > MNIST_ACCURACY and abs(acc - cpu) <= 1e-2):
+        raise AssertionError(f"mnist: accuracy {acc} on the card, {cpu} on "
+                             "the CPU")
+    say("mnist", ok=True, steps=MNIST_STEPS, accuracy=acc, cpu_accuracy=cpu,
+        seconds=seconds)
+
+
+def check_dryrun() -> dict:
+    """``entry.dryrun_multichip`` on every card of this host (each rank
+    a process over NCCL): one dense train step over
+    ``default_axis_sizes(cards)`` and one MoE ep step, counted on every
+    rank. A dense step makes 2 x layers ring forwards and layers ring
+    backwards at each rank's H / tp heads (head dim 16), the MoE's 2 x
+    its layers and its layers; the rank at sp index i launches i + 1
+    blocks a ring call, i of them non-causal. Returns the launches over
+    all ranks."""
+    n = torch.cuda.device_count()
+    run = dryrun_config(n)
+    t0 = time.perf_counter()
+    ranks = dryrun_multichip(n)
+    seconds = time.perf_counter() - t0
+    total = dict.fromkeys(counters(), 0)
+    layers, moe_layers = run.cfg.n_layers, run.moe_cfg.n_layers
+    for out in ranks:
+        i, j = out["coordinate"]["sp"], out["moe_coordinate"]["sp"]
+        want = causal_only(
+            flash_attn_fwd=2 * (layers + moe_layers),
+            flash_attn_bwd=layers + moe_layers,
+            flash_attn_fwd_non_causal=2 * (layers * i + moe_layers * j),
+            flash_attn_bwd_non_causal=layers * i + moe_layers * j)
+        got = causal_only(**out["launches"])
+        if got != want:
+            raise AssertionError(f"dryrun rank {out['rank']}: launches "
+                                 f"{got}, want {want}")
+        for key, count in got.items():
+            total[key] += count
+    losses = {out["loss"] for out in ranks}
+    moe_losses = {out["moe_loss"] for out in ranks}
+    if len(losses) != 1 or len(moe_losses) != 1:
+        raise AssertionError(f"dryrun: ranks disagree: {ranks}")
+    say("dryrun", ok=True, devices=n, sizes=run.sizes,
+        moe_sizes=run.moe_sizes, head_dim=run.cfg.head_dim,
+        loss=losses.pop(), moe_loss=moe_losses.pop(), seconds=seconds,
+        ranks=[{k: out[k] for k in ("rank", "coordinate", "moe_coordinate",
+                                    "launches")} for out in ranks])
+    return total
+
+
 def counters() -> dict:
     """Launches by kernel instance: the attention kernels' causal and
     non-causal instances apart."""
-    return {"vector_add": va.launches,
-            "flash_attn_fwd": fa.launches - fa.non_causal_launches,
-            "flash_attn_bwd": fa.bwd_launches - fa.non_causal_bwd_launches,
-            "flash_attn_fwd_non_causal": fa.non_causal_launches,
-            "flash_attn_bwd_non_causal": fa.non_causal_bwd_launches}
+    return {"vector_add": va.launches, **fa.counts()}
 
 
 def zero_counters() -> None:
@@ -1582,18 +1658,20 @@ def lm_sp_cfg(n_layers: int) -> lm.LMConfig:
 
 
 def timed_steps(cfg: lm.LMConfig, batch: int, seq: int, mesh=None,
-                device="cuda") -> dict:
-    """LM_SP_STEPS train steps from the params of seed 0 on the global
-    batch of seed 1, every counter set to 0 just before and read just
-    after: each step's loss (read at once, so the host clock between
-    reads is the step time), the host time until the step returns (its
-    enqueue: where it is close to the step time, the host sets the pace)
-    and the peak memory."""
-    params, opt_state = lm.init_train_state(
-        torch.Generator(device).manual_seed(0), cfg)
+                device="cuda", attention=None) -> dict:
+    """LM_SP_STEPS train steps from the params of seed 0 (each rank its
+    blocks, ``lm.init_sharded``) on the global batch of seed 1, with
+    ``attention`` (default ``cfg.attn_impl``'s), every counter set to 0
+    just before and read just after: each step's loss (read at once, so
+    the host clock between reads is the step time), the host time until
+    the step returns (its enqueue: where it is close to the step time,
+    the host sets the pace), the peak memory and the steps' seconds."""
+    params, opt_state = lm.init_sharded(
+        torch.Generator(device).manual_seed(0), cfg, mesh)
     tokens = lm.synthetic_batch(torch.Generator(device).manual_seed(1), cfg,
                                 batch, seq, device)
-    step = lm.make_train_step(cfg, device=device, mesh=mesh)
+    step = lm.make_train_step(cfg, device=device, mesh=mesh,
+                              attention=attention)
     if device == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1607,9 +1685,15 @@ def timed_steps(cfg: lm.LMConfig, batch: int, seq: int, mesh=None,
     launches = counters()
     return {"losses": losses, "launches": launches,
             "step_ms": [(b - a) * 1e3 for a, b in zip(ends, ends[1:])],
-            "host_ms": host_ms,
+            "host_ms": host_ms, "seconds": ends[-1] - ends[0],
             "peak_memory_gb": (torch.cuda.max_memory_allocated() / 1e9
                                if device == "cuda" else None)}
+
+
+def lm_f32(cfg: lm.LMConfig) -> lm.LMConfig:
+    """``cfg`` with f32 params and compute: the witness of a mesh run."""
+    return dataclasses.replace(cfg, param_dtype=torch.float32,
+                               compute_dtype=torch.float32)
 
 
 def ring_overlap(mesh, block: tuple, device="cuda") -> dict:
@@ -1660,20 +1744,22 @@ def lm_sp_rank(run: dict, device="cuda") -> dict:
         **ring_overlap(mesh, block, device)}
 
 
-#: One rank of an lm_sp run: NCCL on the card that CUDA_VISIBLE_DEVICES
-#: gives it, ``lm_sp_rank`` of this script; its result as the last line.
-LM_SP_RANK = r"""
+#: One rank of a mesh run: NCCL on the card that CUDA_VISIBLE_DEVICES
+#: gives it, in a group of RANK_WORLD ranks, the function RANK_FN of this
+#: script (``lm_sp_rank``, ``lm_fsdp_tp_rank``, ``moe_ep_rank``) on the
+#: run RANK_RUN; its result as the last line.
+MESH_RANK = r"""
 import json, os, torch
 from torch import distributed as dist
 import chip_smoke
 from kubernetes_tpu_torch.workloads import rendezvous
 torch.cuda.set_device(0)
-run = json.loads(os.environ["SP_RUN"])
 rendezvous.init_process_group("127.0.0.1", int(os.environ["RANK_PORT"]),
                               int(os.environ["RANK_INDEX"]),
-                              run["dp"] * run["sp"], "nccl", timeout=300.0,
-                              bind_ip="127.0.0.1")
-out = chip_smoke.lm_sp_rank(run)
+                              int(os.environ["RANK_WORLD"]), "nccl",
+                              timeout=300.0, bind_ip="127.0.0.1")
+out = getattr(chip_smoke, os.environ["RANK_FN"])(
+    json.loads(os.environ["RANK_RUN"]))
 dist.destroy_process_group()
 print(json.dumps(out))
 """
@@ -1706,6 +1792,14 @@ def run_ranks(script: str, world: int, env: dict, what: str) -> list:
     return outs
 
 
+def run_mesh(fn: str, run: dict, world: int) -> list:
+    """:data:`MESH_RANK` of ``fn`` on ``run`` as ``world`` rank
+    processes, one card each; each one's result."""
+    return run_ranks(MESH_RANK, world, {
+        "RANK_FN": fn, "RANK_RUN": json.dumps(run),
+        "RANK_WORLD": str(world)}, f"{fn} {run['name']}")
+
+
 def lm_sp_runs(cards: int) -> list:
     """The lm_sp runs a host of ``cards`` takes: sp = 2 at full depth,
     B1 T8192; with four cards, also sp = 4 and dp = 2 x sp = 2 at 2
@@ -1720,7 +1814,7 @@ def lm_sp_runs(cards: int) -> list:
 
 def check_lm_sp(peak: float, known: bool) -> dict:
     """With two cards or more, the 600M LM sequence-parallel over NCCL
-    (:func:`lm_sp_runs`, rank processes of :data:`LM_SP_RANK`), counted
+    (:func:`lm_sp_runs`, rank processes of :func:`lm_sp_rank`), counted
     on every rank: 2 x layers ring forwards and layers ring backwards a
     step, rank i launching i + 1 blocks each (i of them non-causal). Its
     losses against one card's steps of the same config (the
@@ -1740,8 +1834,7 @@ def check_lm_sp(peak: float, known: bool) -> dict:
                           run["batch"], run["seq"])
         torch.cuda.empty_cache()
         world = run["dp"] * run["sp"]
-        ranks = run_ranks(LM_SP_RANK, world, {"SP_RUN": json.dumps(run)},
-                          f"lm_sp {run['name']}")
+        ranks = run_mesh("lm_sp_rank", run, world)
         for out in ranks:
             i, layers = out["coordinate"]["sp"], cfg.n_layers * LM_SP_STEPS
             want = causal_only(
@@ -1785,6 +1878,187 @@ def check_lm_sp(peak: float, known: bool) -> dict:
                 "blocks_backward_ms", "ring_backward_ms", "hidden_share")}
                 for out in ranks], one_card_host_ms=one["host_ms"])
         torch.cuda.empty_cache()
+    return total
+
+
+def lm_fsdp_tp_runs(cards: int) -> list:
+    """The lm_fsdp_tp runs a host of ``cards`` takes, each the 600M LM at
+    full width and depth, B4 T2048: fsdp = 2 and tp = 2; with four cards
+    also fsdp = 2 x tp = 2 and ``default_axis_sizes(4)`` (sp = 2 x tp =
+    2)."""
+    one = dict(dp=1, fsdp=1, sp=1, tp=1, n_layers=8, batch=4, seq=2048)
+    runs = [dict(one, name="fsdp2", fsdp=2), dict(one, name="tp2", tp=2)]
+    if cards >= 4:
+        runs += [dict(one, name="fsdp2tp2", fsdp=2, tp=2),
+                 dict(one, name="sp2tp2", **sharding.default_axis_sizes(4))]
+    return runs
+
+
+def layer_collectives_ms(cfg: lm.LMConfig, mesh, params: dict, rows: int,
+                         positions: int, device="cuda") -> dict:
+    """The collectives of one layer's forward on this rank, by CUDA
+    events: the fsdp all-gather of its sharded weights (``params``' layer
+    0), and the tp pair's two f32 all-reduces of a [rows, positions,
+    d_model] activation (the attention's and the FFN's partial sums);
+    None for an axis of one rank."""
+    lay = lm.layout(cfg, mesh)
+    row = {"fsdp_gather_ms": None, "fsdp_gather_bytes": None,
+           "tp_allreduce_ms": None, "tp_allreduce_bytes": None}
+    if lay.fsdp is not None:
+        weights = [(params["layers"][k][0], d)
+                   for k, d in lm._FSDP_DIMS.items() if d is not None]
+        row["fsdp_gather_ms"] = time_ms(lambda: [
+            collectives.all_gather(w, lay.fsdp, d) for w, d in weights], 10)
+        row["fsdp_gather_bytes"] = sharding.mesh_sizes(mesh)["fsdp"] * sum(
+            w.numel() * w.element_size() for w, _ in weights)
+    if lay.tp is not None:
+        x = torch.randn((rows, positions, cfg.d_model), device=device,
+                        generator=torch.Generator(device).manual_seed(3))
+        row["tp_allreduce_ms"] = time_ms(
+            lambda: [collectives.all_reduce(x, (lay.tp,)) for _ in range(2)],
+            10)
+        row["tp_allreduce_bytes"] = 2 * x.numel() * x.element_size()
+    return row
+
+
+def lm_fsdp_tp_rank(run: dict, device="cuda") -> dict:
+    """One rank of an lm_fsdp_tp run (``run``: the four axis sizes,
+    n_layers, batch, seq): LM_SP_STEPS bf16 train steps over the mesh
+    through the kernels (:func:`timed_steps`, counted; each rank its
+    blocks of params, master and AdamW state), the same steps in f32 with
+    the ring's plain version (``ring_attention.gathered_attention``: the
+    kernels take bf16 alone), then :func:`layer_collectives_ms`."""
+    cfg = lm_sp_cfg(run["n_layers"])
+    sizes = {a: run[a] for a in sharding.AXES}
+    mesh = sharding.make_mesh(device_type=device, **sizes)
+    out = timed_steps(cfg, run["batch"], run["seq"], mesh, device)
+    torch.cuda.empty_cache()
+    ring = ra.ring_of(mesh)
+    witness = timed_steps(
+        lm_f32(cfg), run["batch"], run["seq"], mesh, device,
+        lambda q, k, v: ra.gathered_attention(q, k, v, ring))
+    out.update(f32_losses=witness["losses"], f32_seconds=witness["seconds"])
+    torch.cuda.empty_cache()
+    params, _ = lm.init_sharded(torch.Generator(device).manual_seed(0),
+                                dataclasses.replace(cfg, n_layers=1), mesh)
+    out.update(layer_collectives_ms(
+        cfg, mesh, params, run["batch"] // (sizes["dp"] * sizes["fsdp"]),
+        run["seq"] // sizes["sp"], device))
+    return {"rank": dist.get_rank(), "coordinate": dict(zip(
+        mesh.mesh_dim_names, mesh.get_coordinate())), **out}
+
+
+def check_lm_fsdp_tp(peak: float, known: bool) -> dict:
+    """With two cards or more, the 600M LM (bf16 params with an f32
+    master, the ring) with params sharded over fsdp and heads and FFN
+    columns over tp, over NCCL (:func:`lm_fsdp_tp_runs`, rank processes
+    of :func:`lm_fsdp_tp_rank`), counted on every rank: 2 x layers ring
+    forwards and layers ring backwards a step, the rank at sp index i
+    launching i + 1 blocks each (i of them non-causal) at its H / tp
+    heads. Its losses the same on every rank and within 1e-3 relative of
+    one card's steps of the same config (flash attention, seeds 0 and 1)
+    at step 1, 5e-3 after, as lm_sp's. The f32 witness: the mesh's steps
+    in f32 (params and compute, ``gathered_attention``) within 1e-4
+    relative of one card's f32 steps (plain attention) at every step,
+    where a fault of the layout (a block, a gather, a tp sum, a
+    gradient's direction) shows. Beside the gates, each bf16 step's
+    distance from one card's f32 step against one card's bf16 step's (the
+    drift rule's reading), and one card's bf16 steps with plain attention
+    against its flash ones and its f32 ones: the spread of one card's own
+    bf16 rounding. Step ms, tokens/s and MFU per card, peak memory per
+    card, the collectives' ms per layer, each rank's launches and the
+    witness's seconds. Every run is reported before a run that misses
+    fails the phase. With one card, a line that says it was not run.
+    Returns the launches over all ranks."""
+    total = dict.fromkeys(counters(), 0)
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        say("lm_fsdp_tp", skipped="one card")
+        return total
+    one, failed = None, []
+    for run in lm_fsdp_tp_runs(cards):
+        cfg = lm_sp_cfg(run["n_layers"])
+        if one is None:  # every run's config and batch are the same
+            one = timed_steps(dataclasses.replace(cfg, attn_impl="flash"),
+                              run["batch"], run["seq"])
+            torch.cuda.empty_cache()
+            exact = timed_steps(dataclasses.replace(
+                lm_f32(cfg), attn_impl="local"), run["batch"], run["seq"])
+            torch.cuda.empty_cache()
+            plain = timed_steps(dataclasses.replace(cfg, attn_impl="local"),
+                                run["batch"], run["seq"])
+            torch.cuda.empty_cache()
+        world = math.prod(run[a] for a in sharding.AXES)
+        ranks = run_mesh("lm_fsdp_tp_rank", run, world)
+        for out in ranks:
+            i, layers = out["coordinate"]["sp"], cfg.n_layers * LM_SP_STEPS
+            want = causal_only(
+                flash_attn_fwd=2 * layers, flash_attn_bwd=layers,
+                flash_attn_fwd_non_causal=2 * layers * i,
+                flash_attn_bwd_non_causal=layers * i)
+            if out["launches"] != want:
+                raise AssertionError(f"lm_fsdp_tp {run['name']} rank "
+                                     f"{out['rank']}: launches "
+                                     f"{out['launches']}, want {want}")
+            for key, count in out["launches"].items():
+                total[key] += count
+        losses = [out["losses"] for out in ranks]
+        want = one["losses"]
+        ok = all(got == losses[0] for got in losses) and all(
+            math.isfinite(g) and abs(g - w) <= (1e-3 if n == 0 else 5e-3)
+            * abs(w) for n, (g, w) in enumerate(zip(losses[0], want)))
+        ok = ok and len(losses[0]) == LM_SP_STEPS
+        if not ok:
+            failed.append(f"{run['name']}: losses {losses}, one card {want}")
+        f32 = ranks[0]["f32_losses"]
+        f32_rel = [abs(g - w) / abs(w) for g, w in zip(f32, exact["losses"])]
+        witness_ok = (len(f32) == LM_SP_STEPS
+                      and all(out["f32_losses"] == f32 for out in ranks)
+                      and all(map(math.isfinite, f32))
+                      and all(r <= 1e-4 for r in f32_rel))
+        if not witness_ok:
+            failed.append(f"{run['name']}: f32 witness {f32}, one card's "
+                          f"f32 {exact['losses']}")
+        ms = max(sum(out["step_ms"][1:]) / (LM_SP_STEPS - 1)
+                 for out in ranks)
+        one_ms = sum(one["step_ms"][1:]) / (LM_SP_STEPS - 1)
+        ntok = run["batch"] * run["seq"]
+        case = chip_bench.BenchCase(run["name"], cfg.d_model, cfg.n_layers,
+                                    cfg.n_heads, cfg.d_ff, cfg.vocab,
+                                    run["batch"], run["seq"])
+        flops = chip_bench.train_flops_per_token(case) * ntok
+        say("lm_fsdp_tp", ok=ok and witness_ok, bf16_gate_ok=ok,
+            witness_ok=witness_ok, **run, cards=world, losses=losses[0],
+            one_card_losses=want, relative_diffs=[
+                abs(g - w) / abs(w) for g, w in zip(losses[0], want)],
+            f32_losses=f32, f32_rel=f32_rel,
+            f32_seconds=max(out["f32_seconds"] for out in ranks),
+            one_card_f32_seconds=exact["seconds"],
+            one_card_f32_losses=exact["losses"],
+            bf16_from_f32=[abs(g - w) for g, w in zip(losses[0],
+                                                      exact["losses"])],
+            one_card_bf16_from_f32=[abs(g - w) for g, w in zip(
+                want, exact["losses"])],
+            one_card_plain_bf16_losses=plain["losses"],
+            one_card_plain_bf16_from_f32=[abs(g - w) for g, w in zip(
+                plain["losses"], exact["losses"])],
+            one_card_plain_bf16_rel=[abs(g - w) / abs(w) for g, w in zip(
+                plain["losses"], want)],
+            one_card_host_ms=one["host_ms"],
+            step_ms=ms, one_card_step_ms=one_ms,
+            step_timed="steps 2-3, host clock to each loss's read, slowest "
+            "rank", tokens_per_s_per_card=ntok / (ms * 1e-3) / world,
+            one_card_tokens_per_s=ntok / (one_ms * 1e-3),
+            mfu_per_card=flops / (ms * 1e-3) / world / peak,
+            one_card_mfu=flops / (one_ms * 1e-3) / peak, peak_known=known,
+            one_card_peak_memory_gb=one["peak_memory_gb"],
+            ranks=[{k: out[k] for k in (
+                "rank", "coordinate", "step_ms", "host_ms", "peak_memory_gb",
+                "launches", "fsdp_gather_ms", "fsdp_gather_bytes",
+                "tp_allreduce_ms", "tp_allreduce_bytes")} for out in ranks])
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"lm_fsdp_tp losses: {failed}")
     return total
 
 
@@ -1950,16 +2224,18 @@ def check_moe(peak: float, known: bool) -> dict:
 
 
 def moe_steps(cfg: moe.MoEConfig, batch: int, seq: int, mesh=None,
-              device="cuda") -> dict:
+              device="cuda", attention=None) -> dict:
     """MOE_EP_STEPS train steps from the params of seed 0 (each rank its
-    shards) on the global batch of seed 1, every counter set to 0 just
-    before and read just after: each step's loss, read at once (the host
-    clock between reads is the step time), and the peak memory."""
+    shards) on the global batch of seed 1, with ``attention`` (default
+    the ring through the kernels), every counter set to 0 just before and
+    read just after: each step's loss, read at once (the host clock
+    between reads is the step time), the peak memory and the wall
+    seconds of the steps."""
     params, opt_state = moe.init_train_state(
         torch.Generator(device).manual_seed(0), cfg, mesh=mesh)
     tokens = moe.synthetic_batch(torch.Generator(device).manual_seed(1), cfg,
                                  batch, seq, device)
-    step = moe.make_train_step(cfg, mesh, device=device)
+    step = moe.make_train_step(cfg, mesh, device=device, attention=attention)
     if device == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1972,20 +2248,33 @@ def moe_steps(cfg: moe.MoEConfig, batch: int, seq: int, mesh=None,
     launches = counters()
     return {"losses": losses, "launches": launches,
             "step_ms": [(b - a) * 1e3 for a, b in zip(ends, ends[1:])],
+            "seconds": ends[-1] - ends[0],
             "peak_memory_gb": (torch.cuda.max_memory_allocated() / 1e9
                                if device == "cuda" else None)}
 
 
+def f32(cfg: moe.MoEConfig) -> moe.MoEConfig:
+    """``cfg`` in f32 compute: the witness of an ep run."""
+    return dataclasses.replace(cfg, compute_dtype=torch.float32)
+
+
 def moe_ep_rank(run: dict, device="cuda") -> dict:
-    """One rank of a moe_ep run (``run``: dp, ep, sp, n_layers, batch,
-    seq) in a process group of ``dp * ep * sp`` ranks: MOE_EP_STEPS train
-    steps over the mesh, then the time of one layer's expert exchange
-    (to the experts and back, on bf16 [E, C, d] buffers) by CUDA
-    events."""
+    """One rank of a moe_ep run (``run``: dp, ep, sp, tp, n_layers,
+    batch, seq) in a process group of ``dp * ep * sp * tp`` ranks:
+    MOE_EP_STEPS bf16 train steps over the mesh through the kernels
+    (counted), the same steps in f32 with the ring's plain version
+    (``ring_attention.gathered_attention``: the kernels take bf16 alone),
+    then the time of one layer's expert exchange (to the experts and
+    back, on bf16 [E, C, d] buffers) by CUDA events."""
     cfg = moe_cfg(run["n_layers"])
     mesh = moe.make_moe_mesh(device_type=device, dp=run["dp"], ep=run["ep"],
-                             sp=run["sp"])
+                             sp=run["sp"], tp=run["tp"])
     out = moe_steps(cfg, run["batch"], run["seq"], mesh, device)
+    torch.cuda.empty_cache()
+    ring = ra.ring_of(mesh)
+    witness = moe_steps(f32(cfg), run["batch"], run["seq"], mesh, device,
+                        lambda q, k, v: ra.gathered_attention(q, k, v, ring))
+    torch.cuda.empty_cache()
     em = moe.expert_mesh(mesh)
     c = chip_bench.moe_flops(cfg, run["batch"], run["seq"])["capacity"]
     buf = torch.randn((cfg.n_experts, c, cfg.d_model), device=device,
@@ -1995,67 +2284,80 @@ def moe_ep_rank(run: dict, device="cuda") -> dict:
         lambda: moe.from_experts(moe.to_experts(buf, em), em), 10)
     return {"rank": dist.get_rank(), "coordinate": dict(zip(
         mesh.mesh_dim_names, mesh.get_coordinate())), **out,
+        "f32_losses": witness["losses"], "f32_seconds": witness["seconds"],
         "exchange_ms": exchange_ms,
         "exchange_bytes": buf.numel() * buf.element_size()}
 
 
-#: One rank of a moe_ep run: NCCL on the card that CUDA_VISIBLE_DEVICES
-#: gives it, ``moe_ep_rank`` of this script; its result as the last line.
-MOE_EP_RANK = r"""
-import json, os, torch
-from torch import distributed as dist
-import chip_smoke
-from kubernetes_tpu_torch.workloads import rendezvous
-torch.cuda.set_device(0)
-run = json.loads(os.environ["MOE_RUN"])
-rendezvous.init_process_group("127.0.0.1", int(os.environ["RANK_PORT"]),
-                              int(os.environ["RANK_INDEX"]),
-                              run["dp"] * run["ep"] * run["sp"], "nccl",
-                              timeout=300.0, bind_ip="127.0.0.1")
-out = chip_smoke.moe_ep_rank(run)
-dist.destroy_process_group()
-print(json.dumps(out))
-"""
-
-
 def moe_ep_runs(cards: int) -> list:
     """The moe_ep runs a host of ``cards`` takes: ep = 2 at full depth,
-    B4 T2048; with four cards also ep = 2 x sp = 2 and dp = 2 x ep = 2 at
-    2 layers."""
-    runs = [dict(name="ep2", dp=1, ep=2, sp=1, n_layers=8, batch=4,
-                 seq=2048)]
+    B4 T2048; with four cards also ep = 2 x sp = 2, dp = 2 x ep = 2 and
+    ep = 2 x tp = 2 at 2 layers."""
+    one = dict(dp=1, ep=2, sp=1, tp=1, batch=4, seq=2048)
+    runs = [dict(one, name="ep2", n_layers=8)]
     if cards >= 4:
-        runs += [dict(name="ep2sp2", dp=1, ep=2, sp=2, n_layers=2, batch=4,
-                      seq=2048),
-                 dict(name="dp2ep2", dp=2, ep=2, sp=1, n_layers=2, batch=4,
-                      seq=2048)]
+        runs += [dict(one, name="ep2sp2", sp=2, n_layers=2),
+                 dict(one, name="dp2ep2", dp=2, n_layers=2),
+                 dict(one, name="ep2tp2", tp=2, n_layers=2)]
     return runs
+
+
+def moe_ep_gate(losses: dict, one: dict) -> dict:
+    """The moe_ep gate of one run: ``losses`` and ``one`` hold the mesh's
+    and one card's ``bf16`` and ``f32`` losses by step. The bf16 mesh
+    within 1e-3 relative of one card's bf16 step at step 1; the f32 mesh
+    (the witness) within 1e-4 relative of one card's f32 step at every
+    step, where a fault of routing, capacity, exchange or gradient sums
+    shows; after step 1 the bf16 mesh by the drift rule
+    (``perf/gates.py``): no further from one card's f32 step than twice
+    one card's bf16 step is. Returns the numbers and ``ok``."""
+    bf, f, one_bf, one_f = (losses["bf16"], losses["f32"], one["bf16"],
+                            one["f32"])
+    row = {"step1_rel": abs(bf[0] - one_bf[0]) / abs(one_bf[0]),
+           "f32_rel": [abs(g - w) / abs(w) for g, w in zip(f, one_f)],
+           "bf16_from_f32": [abs(g - w) for g, w in zip(bf, one_f)],
+           "one_card_bf16_from_f32": [abs(g - w)
+                                      for g, w in zip(one_bf, one_f)]}
+    row["ok"] = (
+        len(bf) == len(f) == MOE_EP_STEPS
+        and all(map(math.isfinite, bf + f))
+        and row["step1_rel"] <= 1e-3
+        and all(r <= 1e-4 for r in row["f32_rel"])
+        and all(m <= 2 * o for m, o in zip(row["bf16_from_f32"][1:],
+                                           row["one_card_bf16_from_f32"][1:])))
+    return row
 
 
 def check_moe_ep(peak: float, known: bool) -> dict:
     """With two cards or more, the full-width MoE expert-parallel over
-    NCCL (:func:`moe_ep_runs`, rank processes of :data:`MOE_EP_RANK`),
-    counted on every rank: a step makes 2 x layers ring forwards and
+    NCCL (:func:`moe_ep_runs`, rank processes of :func:`moe_ep_rank`),
+    counted on every rank: a bf16 step makes 2 x layers ring forwards and
     layers ring backwards, the rank at sp index i launching i + 1 blocks
-    each (i of them non-causal). The losses the same on every rank and
-    within 1e-3 relative of one card's steps (seeds 0 and 1) at step 1,
-    5e-3 after. Step ms and tokens/s per card, peak memory per card and
-    each rank's exchange time per layer. Every run is reported before a
-    run whose losses miss fails the phase. With one card, a line that
-    says it was not run. Returns the launches over all ranks."""
+    each (i of them non-causal). Its losses the same on every rank and
+    held by :func:`moe_ep_gate` against one card's steps (seeds 0 and 1) in
+    bf16 and in f32 with plain attention. Step ms and tokens/s per card,
+    peak memory per card, each rank's exchange time per layer, and the
+    seconds of the f32 steps. Every run is reported before a run that
+    misses fails the phase. With one card, a line that says it was not
+    run. Returns the launches over all ranks."""
     total = dict.fromkeys(counters(), 0)
     cards = torch.cuda.device_count()
     if cards < 2:
         say("moe_ep", skipped="one card")
         return total
-    failed = []
+    failed, ones = [], {}
     for run in moe_ep_runs(cards):
         cfg = moe_cfg(run["n_layers"])
-        one = moe_steps(cfg, run["batch"], run["seq"])
-        torch.cuda.empty_cache()
-        world = run["dp"] * run["ep"] * run["sp"]
-        ranks = run_ranks(MOE_EP_RANK, world, {"MOE_RUN": json.dumps(run)},
-                          f"moe_ep {run['name']}")
+        if run["n_layers"] not in ones:
+            bf16 = moe_steps(cfg, run["batch"], run["seq"])
+            torch.cuda.empty_cache()
+            exact = moe_steps(f32(cfg), run["batch"], run["seq"],
+                              attention=ra.reference_attention)
+            torch.cuda.empty_cache()
+            ones[run["n_layers"]] = (bf16, exact)
+        one, exact = ones[run["n_layers"]]
+        world = run["dp"] * run["ep"] * run["sp"] * run["tp"]
+        ranks = run_mesh("moe_ep_rank", run, world)
         for out in ranks:
             i, layers = out["coordinate"]["sp"], cfg.n_layers * MOE_EP_STEPS
             want = causal_only(
@@ -2068,23 +2370,25 @@ def check_moe_ep(peak: float, known: bool) -> dict:
                                      f"{out['launches']}, want {want}")
             for key, count in out["launches"].items():
                 total[key] += count
-        losses = [out["losses"] for out in ranks]
-        want = one["losses"]
-        ok = all(got == losses[0] for got in losses) and all(
-            math.isfinite(g) and abs(g - w) <= (1e-3 if n == 0 else 5e-3)
-            * abs(w) for n, (g, w) in enumerate(zip(losses[0], want)))
-        ok = ok and len(losses[0]) == MOE_EP_STEPS
+        losses = {"bf16": ranks[0]["losses"], "f32": ranks[0]["f32_losses"]}
+        gate = moe_ep_gate(losses, {"bf16": one["losses"],
+                                 "f32": exact["losses"]})
+        ok = gate["ok"] and all(
+            out["losses"] == losses["bf16"]
+            and out["f32_losses"] == losses["f32"] for out in ranks)
         if not ok:
-            failed.append(f"{run['name']}: losses {losses}, one card {want}")
+            failed.append(f"{run['name']}: {losses}, gate {gate}")
         ms = max(sum(out["step_ms"][1:]) / (MOE_EP_STEPS - 1)
                  for out in ranks)
         one_ms = sum(one["step_ms"][1:]) / (MOE_EP_STEPS - 1)
         ntok = run["batch"] * run["seq"]
         flops = chip_bench.moe_flops(cfg, run["batch"], run["seq"])
         model, executed = 3 * flops["model"], 3 * flops["executed"]
-        say("moe_ep", ok=ok, **run, cards=world, losses=losses[0],
-            one_card_losses=want, relative_diffs=[
-                abs(g - w) / abs(w) for g, w in zip(losses[0], want)],
+        say("moe_ep", ok=ok, **run, cards=world, losses=losses["bf16"],
+            one_card_losses=one["losses"], f32_losses=losses["f32"],
+            one_card_f32_losses=exact["losses"], gate=gate,
+            f32_seconds=max(out["f32_seconds"] for out in ranks),
+            one_card_f32_seconds=exact["seconds"],
             step_ms=ms, one_card_step_ms=one_ms,
             step_timed=f"steps 2-{MOE_EP_STEPS}, host clock to each loss's "
             "read, slowest rank",
@@ -2099,7 +2403,7 @@ def check_moe_ep(peak: float, known: bool) -> dict:
             one_card_peak_memory_gb=one["peak_memory_gb"],
             ranks=[{k: out[k] for k in (
                 "rank", "coordinate", "step_ms", "peak_memory_gb",
-                "launches", "exchange_ms", "exchange_bytes")}
+                "launches", "exchange_ms", "exchange_bytes", "f32_seconds")}
                 for out in ranks])
         torch.cuda.empty_cache()
     if failed:
@@ -2146,6 +2450,9 @@ def main() -> int:
     # The ring's block arithmetic at t8k on one card, counted inside.
     loopback_launches = check_ring_loopback(gen)
     check_entry()
+    check_mnist()
+    # dryrun_multichip on every card, counted on every rank inside.
+    dryrun_launches = check_dryrun()
 
     # The main path, counted: every counter to 0 just before, read after.
     cases = [chip_bench.case(c) for c in MAIN_CASES]
@@ -2219,8 +2526,10 @@ def main() -> int:
     check_trainer_resume()
     check_demo()
     check_trainer_dp2(world_1_losses)
-    # Sequence parallelism over NCCL, counted on every rank inside.
+    # Sequence parallelism, then fsdp and tp, over NCCL, counted on
+    # every rank inside.
     lm_sp_launches = check_lm_sp(peak, known)
+    lm_fsdp_tp_launches = check_lm_fsdp_tp(peak, known)
     # The MoE on one card and, with two cards or more, expert-parallel
     # over NCCL; each counted inside.
     moe_launches = check_moe(peak, known)
@@ -2229,8 +2538,10 @@ def main() -> int:
                    "train": train_launches[k], "trainer": trainer_launches[k],
                    "trainer_default_lm": default_lm_launches[k],
                    "ring_loopback": loopback_launches[k],
-                   "lm_sp": lm_sp_launches[k], "moe": moe_launches[k],
-                   "moe_ep": moe_ep_launches[k]}
+                   "dryrun": dryrun_launches[k],
+                   "lm_sp": lm_sp_launches[k],
+                   "lm_fsdp_tp": lm_fsdp_tp_launches[k],
+                   "moe": moe_launches[k], "moe_ep": moe_ep_launches[k]}
                for k in launches}
 
     # Last of all: the one profiled phase (K1's device_us).

@@ -21,25 +21,19 @@ and prints their losses as one JSON line:
   attention launch run at the rank's shapes. The router's gradient
   (f32) and the experts' are taken whole;
 - ``ranks_<n>``: the same, with the experts also run as n groups of
-  E / n, each in products of its own, as the ranks run them;
-- with ``--mesh`` (n cards): ``mesh_bf16``, the ep = n mesh over NCCL
-  (``moe.make_train_step`` over ``moe.make_moe_mesh(ep=n)``), and the
-  same in f32 compute, ``mesh_f32``, beside one card's f32 steps,
-  ``one_card_f32`` (both with the plain attention: the kernels take
-  bf16 alone). In f32 no rounding of bf16 stands between them.
+  E / n, each in products of its own, as the ranks run them.
+
+The mesh itself, in bf16 and in f32 beside one card's f32 steps, is
+``chip_smoke.py``'s ``moe_ep`` phase (its f32 witness).
 
     python -m kubernetes_tpu_torch.perf.moe_rounding [--layers 8] \\
-        [--steps 3] [--shares 1,2] [--mesh]
+        [--steps 3] [--shares 1,2]
 """
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
-import os
-import socket
 import subprocess
-import tempfile
 
 import torch
 import torch.nn.functional as F
@@ -47,7 +41,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..workloads import lm, moe
 from ..workloads.lm import _rms_norm
-from ..workloads.ring_attention import reference_attention, ring_apply
+from ..workloads.ring_attention import ring_apply
 from . import chip_bench
 
 #: The weights each block of rows takes through an alias of its own:
@@ -165,18 +159,16 @@ def make_step(cfg: moe.MoEConfig, shares: int, lr: float = 3e-3,
 
 
 def losses(cfg: moe.MoEConfig, batch: int, seq: int, steps: int,
-           shares: int | None = None, device="cuda", groups: int = 1,
-           mesh=None, attention=None) -> list:
-    """``steps`` train steps from the params of seed 0 (each rank its
-    shards) on the batch of seed 1: ``moe.make_train_step``'s over
-    ``mesh`` with ``attention`` (``shares`` None), or :func:`make_step`'s
-    with ``shares`` blocks and ``groups`` expert groups."""
+           shares: int | None = None, device="cuda", groups: int = 1) -> list:
+    """``steps`` train steps from the params of seed 0 on the batch of
+    seed 1: ``moe.make_train_step``'s (``shares`` None), or
+    :func:`make_step`'s with ``shares`` blocks and ``groups`` expert
+    groups."""
     params, opt_state = moe.init_train_state(
-        torch.Generator(device).manual_seed(0), cfg, mesh=mesh)
+        torch.Generator(device).manual_seed(0), cfg)
     tokens = moe.synthetic_batch(torch.Generator(device).manual_seed(1), cfg,
                                  batch, seq, device)
-    step = (moe.make_train_step(cfg, mesh, device=device,
-                                attention=attention) if shares is None
+    step = (moe.make_train_step(cfg, device=device) if shares is None
             else make_step(cfg, shares, groups=groups))
     out = []
     for _ in range(steps):
@@ -185,54 +177,11 @@ def losses(cfg: moe.MoEConfig, batch: int, seq: int, steps: int,
     return out
 
 
-def _f32(cfg: moe.MoEConfig) -> moe.MoEConfig:
-    return dataclasses.replace(cfg, compute_dtype=torch.float32)
-
-
-def _mesh_rank(rank: int, world: int, port: int, layers: int, steps: int,
-               out: str) -> None:
-    """Rank ``rank`` of an ep = ``world`` mesh over NCCL on card
-    ``rank``: the bf16 steps, then the f32 steps with the plain
-    attention; rank 0 writes both to ``out``."""
-    from torch import distributed as dist
-    torch.cuda.set_device(rank)
-    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
-                            rank=rank, world_size=world)
-    try:
-        mesh = moe.make_moe_mesh(ep=world)
-        cfg = moe.MoEConfig(n_layers=layers, **chip_bench.MOE_WIDTHS)
-        b, t = chip_bench.MOE_BATCH
-        row = {"mesh_bf16": losses(cfg, b, t, steps, mesh=mesh)}
-        torch.cuda.empty_cache()
-        row["mesh_f32"] = losses(_f32(cfg), b, t, steps, mesh=mesh,
-                                 attention=reference_attention)
-        if rank == 0:
-            with open(out, "w") as f:
-                json.dump(row, f)
-    finally:
-        dist.destroy_process_group()
-
-
-def mesh_losses(world: int, layers: int, steps: int) -> dict:
-    """:func:`_mesh_rank` on ``world`` processes, one card each."""
-    import torch.multiprocessing as mp
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    with tempfile.TemporaryDirectory() as tmp:
-        out = os.path.join(tmp, "mesh.json")
-        mp.spawn(_mesh_rank, args=(world, port, layers, steps, out),
-                 nprocs=world, join=True)
-        with open(out) as f:
-            return json.load(f)
-
-
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--layers", type=int, default=8)
     parser.add_argument("--steps", type=int, default=3)
     parser.add_argument("--shares", default="1,2")
-    parser.add_argument("--mesh", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("moe_rounding: torch sees no CUDA device")
@@ -251,12 +200,6 @@ def main() -> int:
         if n > 1:
             torch.cuda.empty_cache()
             row[f"ranks_{n}"] = losses(cfg, b, t, args.steps, n, groups=n)
-    if args.mesh:
-        torch.cuda.empty_cache()
-        row["one_card_f32"] = losses(_f32(cfg), b, t, args.steps,
-                                     attention=reference_attention)
-        torch.cuda.empty_cache()
-        row.update(mesh_losses(max(shares), args.layers, args.steps))
     print(json.dumps(row), flush=True)
     return 0
 

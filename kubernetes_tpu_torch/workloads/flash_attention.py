@@ -38,6 +38,15 @@ bwd_launches = 0
 non_causal_launches = 0
 non_causal_bwd_launches = 0
 
+
+def counts() -> dict:
+    """The launches so far by kernel instance: causal and non-causal
+    apart, forward and backward."""
+    return {"flash_attn_fwd": launches - non_causal_launches,
+            "flash_attn_bwd": bwd_launches - non_causal_bwd_launches,
+            "flash_attn_fwd_non_causal": non_causal_launches,
+            "flash_attn_bwd_non_causal": non_causal_bwd_launches}
+
 #: Head dims the kernels take, each a template instance of both: 16 (the
 #: trainer's default LM, 2 heads of a 32-wide model) to 128 (the 600M
 #: LM's).

@@ -19,12 +19,22 @@ backward. Both take the kernels' plain versions on CPU tensors.
 ``"local"`` runs the plain :func:`~.ring_attention.reference_attention`
 under autograd.
 
-Sequence parallelism: given a ``mesh`` (``sharding.make_mesh``, the
+The parallel layout: given a ``mesh`` (``sharding.make_mesh``, the
 reference's argument) every public function takes the global token batch
-and each rank computes its block, rows by its ``dp`` coordinate and
-positions by its ``sp`` coordinate (RoPE at global positions); the loss
-and gradients are averaged over all the mesh's ranks. fsdp and tp shard
-nothing yet and are refused (ROADMAP queue 1 item 4).
+and each rank computes its block, rows by its ``(dp, fsdp)`` coordinate
+and positions by its ``sp`` coordinate (RoPE at global positions). Params
+are each rank's blocks under :func:`param_specs`, the reference's ZeRO-3
+plus Megatron layout (:func:`init_sharded`): every weight sharded over
+``fsdp`` on one dim, all-gathered inside its layer's rematerialized
+region (so the backward gathers again and no layer's whole weights
+outlive it) and its gradient reduce-scattered back; attention heads and
+FFN columns over ``tp``, the activation entering the column-sharded
+``wq/wk/wv/w1/w3`` (its gradient summed over tp) and the ``wo``/``w2``
+partial sums leaving by an all-reduce in f32 (``collectives.py``). Each
+rank runs ``H / tp`` heads through the ring over the sp group of its own
+``(dp, fsdp, tp)`` coordinate. The loss is averaged over the mesh and
+each gradient summed over the ranks that hold a replica of its block
+(:func:`loss_and_grads`).
 
 Training: :func:`make_train_step` (forward, loss, backward, AdamW
 against an f32 master for bf16 params), :func:`init_train_state` and
@@ -49,10 +59,13 @@ from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
+from . import sharding
+from .collectives import enter_tp, gather, leave_tp, reduce_gradients_
 from .flash_attention import FlashAttention, flash_attention
 from .rendezvous import barrier
 from .ring_attention import reference_attention, ring_apply, ring_of
-from .sharding import DATA_SPEC, mesh_sizes, shard
+from .sharding import (DATA_SPEC, axis_group, map_specs, mesh_sizes, shard,
+                       shard_params, whole_shape)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +107,35 @@ class LMConfig:
     @property
     def head_dim(self) -> int:
         return self.d_model // self.n_heads
+
+
+def param_specs(cfg: LMConfig) -> dict:
+    """The reference's partition specs of the params, one entry per dim
+    (the leading None is the stacked-layers axis): the embedding over
+    vocab rows by ``fsdp``; each weight over ``fsdp`` on one dim and over
+    ``tp`` on its heads or FFN columns (``wq/wk/wv/w1/w3``) or rows
+    (``wo/w2``); the norms replicated."""
+    return {
+        "embed": ("fsdp", None),
+        "layers": {
+            "ln1": (None, None),
+            "wq": (None, "fsdp", "tp"),
+            "wk": (None, "fsdp", "tp"),
+            "wv": (None, "fsdp", "tp"),
+            "wo": (None, "tp", "fsdp"),
+            "ln2": (None, None),
+            "w1": (None, "fsdp", "tp"),
+            "w3": (None, "fsdp", "tp"),
+            "w2": (None, "tp", "fsdp"),
+        },
+        "ln_f": (None,),
+    }
+
+
+#: The dim of one layer's weight (its layer axis taken off) that is
+#: sharded over fsdp, or None.
+_FSDP_DIMS = {name: spec.index("fsdp") - 1 if "fsdp" in spec else None
+              for name, spec in param_specs(None)["layers"].items()}
 
 
 def init_params(generator: torch.Generator, cfg: LMConfig) -> dict:
@@ -189,8 +231,7 @@ def _attention(q, k, v, cfg: LMConfig, ring) -> torch.Tensor:
 
 def _check_mesh(cfg: LMConfig, mesh) -> dict:
     """The mesh's axis sizes, after the reference's refusals: "flash" on
-    more than one device, "local" with the attention sharded. fsdp and
-    tp, which the port does not shard yet, raise too."""
+    more than one device, "local" with the attention sharded."""
     sizes = mesh_sizes(mesh)
     if cfg.attn_impl == "flash" and math.prod(sizes.values()) != 1:
         raise ValueError(
@@ -202,12 +243,66 @@ def _check_mesh(cfg: LMConfig, mesh) -> dict:
             "attn_impl='local' is batch-parallel only (plain attention over "
             "one rank's sequence); use 'ring' when sp/tp shard the "
             "attention itself")
-    if sizes["fsdp"] != 1 or sizes["tp"] != 1:
-        raise NotImplementedError(
-            f"fsdp={sizes['fsdp']}, tp={sizes['tp']}: the port shards "
-            "neither params (FSDP2) nor heads (tensor parallelism) yet, "
-            "ROADMAP queue 1 item 4; use dp and sp")
     return sizes
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """What a forward needs of its mesh, looked up once, for the dense LM
+    and the MoE (``moe.py``'s meshes have ``ep`` where this has
+    ``fsdp``): this rank's place on its sp ring (None at sp = 1); the
+    groups of the fsdp, tp and ep axes through its coordinate (None for
+    an axis of one rank or one the mesh lacks); ``replicas``, the groups
+    of its dp and sp axes of more than one rank (under ep, the ranks
+    holding copies of its experts); the axis ``sizes``, this rank's
+    ``coord`` and the global ranks in mesh order (``order``). Without a
+    mesh: one rank, every group None."""
+    ring: Any = None
+    fsdp: Any = None
+    tp: Any = None
+    ep: Any = None
+    replicas: tuple = ()
+    sizes: dict = dataclasses.field(default_factory=dict)
+    coord: dict = dataclasses.field(default_factory=dict)
+    order: tuple = (0,)
+
+    @property
+    def world(self) -> int:
+        return len(self.order)
+
+    @property
+    def blocks(self) -> int:
+        """The token blocks: ranks but for the tp copies of each."""
+        return self.world // self.sizes.get("tp", 1)
+
+
+def mesh_layout(mesh) -> Layout:
+    """The :class:`Layout` of ``mesh`` (of any axis names), with no
+    refusals; ``Layout()`` without one."""
+    if mesh is None:
+        return Layout()
+    sizes = mesh_sizes(mesh)
+    # Only summed over: their group ranks may be in any order.
+    replicas = tuple(mesh[a].get_group() for a in ("dp", "sp")
+                     if sizes.get(a, 1) > 1)
+    return Layout(ring_of(mesh), axis_group(mesh, "fsdp"),
+                  axis_group(mesh, "tp"), axis_group(mesh, "ep"),
+                  replicas, sizes,
+                  dict(zip(mesh.mesh_dim_names, mesh.get_coordinate())),
+                  tuple(mesh.mesh.flatten().tolist()))
+
+
+def layout(cfg: LMConfig, mesh) -> Layout:
+    """The :class:`Layout` of ``mesh``, after :func:`_check_mesh`'s
+    refusals."""
+    _check_mesh(cfg, mesh)
+    return mesh_layout(mesh)
+
+
+def _embedding(params: dict, lay: Layout, cfg: LMConfig) -> torch.Tensor:
+    """The whole embedding in the compute dtype, gathered over fsdp (its
+    vocab rows): for the lookup and the tied unembed."""
+    return gather(params["embed"], lay.fsdp, 0).to(cfg.compute_dtype)
 
 
 #: One layer's weights, in the order :func:`_layer` takes them.
@@ -224,67 +319,86 @@ _LAYER_KEYS = ("ln1", "wq", "wk", "wv", "wo", "ln2", "w1", "w3", "w2")
 _DOTS_SAVED = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
 
 
-def _layer(x: torch.Tensor, cfg: LMConfig, ring, offset: int,
-           *weights) -> torch.Tensor:
+def _layer(x: torch.Tensor, cfg: LMConfig, lay: Layout, attend,
+           offset: int, *weights) -> torch.Tensor:
     """One pre-norm transformer layer over this rank's block of the
-    sequence, which starts at global position ``offset`` (``ring``: its
-    place on the sp ring, or None); ``weights`` in
-    ``_LAYER_KEYS`` order, in any dtype (cast to the compute dtype here,
-    inside the rematerialized region, as the reference casts inside its
-    scan)."""
+    sequence, which starts at global position ``offset``, on the mesh's
+    :class:`Layout` ``lay``, its attention ``attend(q, k, v)``;
+    ``weights``, this rank's blocks in ``_LAYER_KEYS`` order, in any
+    dtype: gathered over fsdp and cast to the compute dtype here, inside
+    the rematerialized region, as the reference casts inside its scan.
+    Under tp the rank runs its ``H / tp`` heads and ``d_ff / tp`` FFN
+    columns."""
     cdt = cfg.compute_dtype
-    lp = {name: w.to(cdt) for name, w in zip(_LAYER_KEYS, weights)}
+    lp = {name: (w if _FSDP_DIMS[name] is None
+                 else gather(w, lay.fsdp, _FSDP_DIMS[name])).to(cdt)
+          for name, w in zip(_LAYER_KEYS, weights)}
     b, t, _ = x.shape
-    h, dh = cfg.n_heads, cfg.head_dim
-    y = _rms_norm(x, lp["ln1"])
+    dh = cfg.head_dim
+    h = lp["wq"].shape[1] // dh
+    y = enter_tp(_rms_norm(x, lp["ln1"]), lay.tp)
     q = (y @ lp["wq"]).reshape(b, t, h, dh).transpose(1, 2)
     k = (y @ lp["wk"]).reshape(b, t, h, dh).transpose(1, 2)
     v = (y @ lp["wv"]).reshape(b, t, h, dh).transpose(1, 2)
     q, k = _rope(q, cfg, offset), _rope(k, cfg, offset)
-    o = _attention(q, k, v, cfg, ring).to(q.dtype)
+    o = attend(q, k, v).to(q.dtype)
     o = o.transpose(1, 2).reshape(b, t, h * dh)
-    x = x + o @ lp["wo"]
+    x = x + leave_tp(o @ lp["wo"], lay.tp)
 
-    y = _rms_norm(x, lp["ln2"])
+    y = enter_tp(_rms_norm(x, lp["ln2"]), lay.tp)
     gate = F.silu(y @ lp["w1"]) * (y @ lp["w3"])
-    return x + gate @ lp["w2"]
+    return x + leave_tp(gate @ lp["w2"], lay.tp)
 
 
 def hidden_states(params: dict, tokens: torch.Tensor, cfg: LMConfig,
-                  mesh=None) -> torch.Tensor:
+                  mesh=None, attention=None) -> torch.Tensor:
     """tokens [B, T] int -> final hidden states [B, T, d_model]
     (post-ln_f, pre-unembed). Under a ``mesh`` ``tokens`` is the global
-    batch and the result this rank's block of it, [B / (dp * fsdp),
-    T / sp, d_model] (``sharding.ACT_SPEC``).
+    batch, ``params`` this rank's blocks, and the result this rank's
+    block of the states, [B / (dp * fsdp), T / sp, d_model]
+    (``sharding.ACT_SPEC``), whole over tp.
 
     With ``cfg.remat`` and grad enabled each layer is one
     ``torch.utils.checkpoint`` region, so its activations are recomputed
     in the backward pass: with attn_impl="flash" (or "ring" at sp = 1) a
     train step then makes 2 x n_layers forward attention launches
     (n_layers without remat) and n_layers backward ones; at sp > 1, 2 x
-    n_layers ring forwards and n_layers ring backwards."""
-    sizes = _check_mesh(cfg, mesh)
+    n_layers ring forwards and n_layers ring backwards.
+
+    ``attention(q, k, v)``, where given, takes the place of
+    ``cfg.attn_impl``'s attention over this rank's [B, H / tp, T / sp, D]
+    block (e.g. ``ring_attention.gathered_attention``, the plain version
+    that also takes f32); the layer is otherwise the same."""
+    lay = layout(cfg, mesh)
+    return _hidden(params, tokens, cfg, lay, mesh,
+                   _embedding(params, lay, cfg), attention)
+
+
+def _hidden(params: dict, tokens: torch.Tensor, cfg: LMConfig, lay: Layout,
+            mesh, embed: torch.Tensor, attention=None) -> torch.Tensor:
+    """:func:`hidden_states`, given the :class:`Layout` and the whole
+    embedding (:func:`_embedding`), which the unembed shares."""
     tokens = shard(mesh, tokens, DATA_SPEC)
-    ring, offset = None, 0
-    if sizes["sp"] > 1:
-        ring = ring_of(mesh)
-        offset = ring.index * tokens.shape[1]
+    offset = 0 if lay.ring is None else lay.ring.index * tokens.shape[1]
     cdt = cfg.compute_dtype
-    x = params["embed"].to(cdt)[tokens.long()]
+    if attention is None:
+        def attention(q, k, v):
+            return _attention(q, k, v, cfg, lay.ring)
+    x = embed[tokens.long()]
     # unbind, not w[i]: its backward stacks the layers' grads once,
     # where indexing would add a full-size zero tensor per layer.
     per_layer = zip(*(params["layers"][name].unbind(0)
                       for name in _LAYER_KEYS))
     remat = cfg.remat and torch.is_grad_enabled()
     for weights in per_layer:
+        args = (x, cfg, lay, attention, offset, *weights)
         if not remat:
-            x = _layer(x, cfg, ring, offset, *weights)
+            x = _layer(*args)
         elif cfg.remat_policy == "dots":
-            x = checkpoint(_layer, x, cfg, ring, offset, *weights,
-                           use_reentrant=False, context_fn=_dots_context)
+            x = checkpoint(_layer, *args, use_reentrant=False,
+                           context_fn=_dots_context)
         else:
-            x = checkpoint(_layer, x, cfg, ring, offset, *weights,
-                           use_reentrant=False)
+            x = checkpoint(_layer, *args, use_reentrant=False)
     return _rms_norm(x, params["ln_f"].to(cdt))
 
 
@@ -293,11 +407,15 @@ def _dots_context():
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: LMConfig,
-            mesh=None) -> torch.Tensor:
+            mesh=None, attention=None) -> torch.Tensor:
     """tokens [B, T] int -> logits [B, T, vocab] f32; under a ``mesh``
-    this rank's block of them, [B / (dp * fsdp), T / sp, vocab]."""
-    x = hidden_states(params, tokens, cfg, mesh)
-    return (x @ params["embed"].to(cfg.compute_dtype).T).float()
+    this rank's block of them, [B / (dp * fsdp), T / sp, vocab].
+    ``attention`` as in :func:`hidden_states`. The embedding is gathered
+    once, for the lookup and the tied unembed."""
+    lay = layout(cfg, mesh)
+    embed = _embedding(params, lay, cfg)
+    x = _hidden(params, tokens, cfg, lay, mesh, embed, attention)
+    return (x @ embed.T).float()
 
 
 def _xent_sum(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -332,20 +450,21 @@ def _chunked_xent(x: torch.Tensor, targets: torch.Tensor, embed: torch.Tensor,
 
 
 def loss_fn(params: dict, batch: torch.Tensor, cfg: LMConfig,
-            mesh=None) -> torch.Tensor:
+            mesh=None, attention=None) -> torch.Tensor:
     """batch [B, T+1] int -> mean next-token cross-entropy (f32). Under
     a ``mesh`` ``batch`` is the global one and the loss the mean over
     this rank's block of tokens: inputs and targets are shifted first,
-    then sharded, so no rank needs its neighbour's tokens."""
+    then sharded, so no rank needs its neighbour's tokens. ``attention``
+    as in :func:`hidden_states`."""
     inputs, targets = batch[:, :-1], batch[:, 1:]
     targets = shard(mesh, targets, DATA_SPEC)
     b, t = targets.shape
     if cfg.loss_chunk and b * t > cfg.loss_chunk:
-        x = hidden_states(params, inputs, cfg, mesh)
-        return _chunked_xent(x, targets,
-                             params["embed"].to(cfg.compute_dtype),
-                             cfg.loss_chunk)
-    logits = forward(params, inputs, cfg, mesh)
+        lay = layout(cfg, mesh)
+        embed = _embedding(params, lay, cfg)
+        x = _hidden(params, inputs, cfg, lay, mesh, embed, attention)
+        return _chunked_xent(x, targets, embed, cfg.loss_chunk)
+    logits = forward(params, inputs, cfg, mesh, attention)
     return _xent_sum(logits.reshape(b * t, -1), targets.reshape(b * t)) \
         / (b * t)
 
@@ -446,10 +565,33 @@ def init_opt_state(params: dict, cfg: LMConfig, lr: float = 3e-3):
 
 def init_train_state(generator: torch.Generator, cfg: LMConfig,
                      lr: float = 3e-3):
-    """Params and optimizer state on ``generator``'s device: the
-    one-device counterpart of the reference's ``init_sharded``."""
+    """Whole params and optimizer state on ``generator``'s device, for
+    one device: :func:`init_sharded` without a mesh."""
     params = init_params(generator, cfg)
     return params, init_opt_state(params, cfg, lr)
+
+
+def init_sharded(generator: torch.Generator, cfg: LMConfig, mesh,
+                 lr: float = 3e-3):
+    """This rank's params and optimizer state on ``mesh``: the whole
+    params initialised (the same on every rank from the same seed), this
+    rank's block of each kept under :func:`param_specs`, and the f32
+    master and AdamW state made over the blocks, as the reference's
+    ``init_sharded`` lays them out. Without a mesh,
+    :func:`init_train_state`."""
+    params = shard_params(mesh, init_params(generator, cfg),
+                          param_specs(cfg))
+    return params, init_opt_state(params, cfg, lr)
+
+
+def state_specs(cfg: LMConfig) -> dict:
+    """The partition specs of a train state ``{"params", "opt_state"}``
+    (:func:`init_sharded`): the params', for the params, the AdamW
+    moments and the f32 master; ``()`` for the step count."""
+    specs = param_specs(cfg)
+    adam = {"count": (), "mu": specs, "nu": specs}
+    return {"params": specs,
+            "opt_state": (adam, specs) if _is_mixed(cfg) else adam}
 
 
 def _average_(tensors: list, group) -> None:
@@ -492,27 +634,49 @@ def _one_of(group, mesh):
     return group if mesh is None else _mesh_group(mesh)
 
 
+#: The axes that split the global batch into token blocks.
+TOKEN_AXES = ("dp", "fsdp", "sp")
+
+
+def _spec_leaves(tree: dict, specs: dict) -> list:
+    """The spec of each leaf of ``tree``, in :func:`_leaves` order."""
+    if isinstance(tree, dict):
+        return [s for key, val in tree.items()
+                for s in _spec_leaves(val, specs[key])]
+    return [specs]
+
+
 def loss_and_grads(params: dict, batch: torch.Tensor, cfg: LMConfig,
-                   group=None, mesh=None):
+                   group=None, mesh=None, attention=None):
     """``(loss, grads)``: the loss detached, grads a dict shaped like
     ``params`` in the params' dtype (``jax.value_and_grad(loss_fn)``).
-    Under a process ``group`` (``batch`` this rank's rows) or a ``mesh``
-    (``batch`` the global one, each rank its block of it) both are
-    averaged over the ranks, each of which holds an equal share of the
-    tokens: the loss and gradients of the whole batch."""
+    Under a process ``group`` (``batch`` this rank's rows) both are
+    averaged over its ranks. Under a ``mesh`` (``batch`` the global one,
+    ``params`` this rank's blocks) the loss is averaged over the mesh and
+    each leaf's gradient, already summed over fsdp where the leaf is
+    sharded on it (the gather's reduce-scatter), is summed over the other
+    ranks that hold a replica of its block among ``dp``, ``fsdp`` and
+    ``sp`` (never over tp: see ``collectives.reduce_gradients_``) and
+    divided by ``dp * fsdp * sp``, the number of token blocks. Either
+    way: the loss and gradients of the whole batch. ``attention`` as in
+    :func:`hidden_states`."""
     group = _one_of(group, mesh)
     wrt = _tree_map(lambda p: p.detach().requires_grad_(), params)
-    loss = loss_fn(wrt, batch, cfg, mesh)
+    loss = loss_fn(wrt, batch, cfg, mesh, attention)
     grads = torch.autograd.grad(loss, _leaves(wrt))
     loss = loss.detach()
-    if group is not None:
+    if group is not None and mesh is not None:
+        _average_([loss], group)
+        reduce_gradients_(list(grads), _spec_leaves(wrt, param_specs(cfg)),
+                          mesh, TOKEN_AXES)
+    elif group is not None:
         _average_([loss, *grads], group)
     grads = iter(grads)
     return loss, _tree_map(lambda _: next(grads), wrt)
 
 
 def make_train_step(cfg: LMConfig, lr: float = 3e-3, device=None,
-                    group=None, mesh=None):
+                    group=None, mesh=None, attention=None):
     """``step(params, opt_state, batch) -> (params, opt_state, loss)`` on
     ``device`` (default ``cuda``; raises without one unless
     ``device="cpu"``): forward, loss, backward and AdamW (against the
@@ -520,8 +684,11 @@ def make_train_step(cfg: LMConfig, lr: float = 3e-3, device=None,
     are updated in place and returned, where the reference donates its
     buffers; ``loss`` is a 0-dim f32 tensor on the device. Under a
     process ``group`` (data parallelism: ``batch`` is this rank's rows)
-    or a ``mesh`` (dp and sp: ``batch`` is the global batch) the loss and
-    gradients are averaged over the ranks before AdamW."""
+    or a ``mesh`` (``batch`` is the global batch; params, master and AdamW
+    state this rank's blocks) the loss and gradients are those of the
+    whole batch (:func:`loss_and_grads`) before AdamW. ``attention`` as
+    in :func:`hidden_states` (the kernels take bf16 alone: an f32 step
+    on a mesh passes ``ring_attention.gathered_attention``)."""
     dev = resolve_device(device)
     opt = make_optimizer(lr)
     _one_of(group, mesh)
@@ -530,7 +697,8 @@ def make_train_step(cfg: LMConfig, lr: float = 3e-3, device=None,
         if batch.device != dev:
             raise ValueError(f"batch is on {batch.device}, the step was "
                              f"made for {dev}")
-        loss, grads = loss_and_grads(params, batch, cfg, group, mesh)
+        loss, grads = loss_and_grads(params, batch, cfg, group, mesh,
+                                     attention)
         with torch.no_grad():
             if _is_mixed(cfg):
                 inner, master = opt_state
@@ -596,10 +764,14 @@ def train(cfg: LMConfig, steps: int, batch: int, seq: int,
     Under a process ``group`` the loop is data-parallel over its ranks:
     ``batch`` is the global batch, a multiple of the group's size; every
     rank draws the same global batch of each step and trains on its own
-    rows. Under a ``mesh`` (dp and sp over all the process group's
-    ranks) every rank draws the same global batch and the step shards
-    it: rows by dp, positions by sp. Either way the ranks agree on the
-    start step (a barrier before reading the checkpoint) and on the
+    rows. Under a ``mesh`` (over all the process group's ranks) every
+    rank draws the same global batch and the step shards it: rows by dp
+    and fsdp, positions by sp; each rank holds its blocks of the state
+    (:func:`init_sharded`). A save gathers the whole state (every rank
+    takes part) and writes it in the one-device format, so a checkpoint
+    resumes on any mesh or none; a resume restores the whole state on
+    the host and keeps each rank's blocks. Either way the ranks agree on
+    the start step (a barrier before reading the checkpoint) and on the
     preemption verdict (the largest of their flags, every step), so all
     of them save at the same step. Rank 0 is the one writer of
     checkpoints and markers; a barrier after each save keeps every rank
@@ -626,11 +798,26 @@ def train(cfg: LMConfig, steps: int, batch: int, seq: int,
         barrier(gang, dev)
 
     def init():
-        params, opt_state = init_train_state(
-            torch.Generator(device=dev).manual_seed(rng_seed), cfg, lr)
+        params, opt_state = init_sharded(
+            torch.Generator(device=dev).manual_seed(rng_seed), cfg, mesh, lr)
         return {"params": params, "opt_state": opt_state}
 
-    state, start = ckpt.resume_or_init(ckpt_dir, init)
+    specs, template = state_specs(cfg), None
+    if mesh is not None:
+        sizes = mesh_sizes(mesh)
+
+        def template():
+            """The whole state's skeleton, on the host."""
+            return map_specs(lambda x, spec: ckpt.TensorSpec(
+                whole_shape(x.shape, spec, sizes), x.dtype,
+                torch.device("cpu")), init(), specs)
+
+    state, start = ckpt.resume_or_init(ckpt_dir, init, template_fn=template)
+    if start and mesh is not None:
+        # This rank's blocks on the device; the step count (spec ())
+        # stays on the host, as AdamW keeps it.
+        state = map_specs(lambda x, spec: shard(mesh, x, spec).to(
+            dev, copy=True) if spec else x, state, specs)
     if rank == 0:
         # A marker left by the previous incarnation's preemption round
         # must not satisfy a new round's wait.
@@ -646,10 +833,18 @@ def train(cfg: LMConfig, steps: int, batch: int, seq: int,
         dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=gang)
         return bool(flag.item())
 
+    def whole(x: torch.Tensor, spec: tuple):
+        """``x`` gathered whole; on the host at the writer, None at the
+        other ranks."""
+        x = sharding.gather(mesh, x, spec)
+        return x.cpu() if rank == 0 else None
+
     def save(step: int) -> None:
+        state = {"params": params, "opt_state": opt_state}
+        if mesh is not None:
+            state = map_specs(whole, state, specs)
         if rank == 0:
-            ckpt.save(step, {"params": params, "opt_state": opt_state},
-                      ckpt_dir)
+            ckpt.save(step, state, ckpt_dir)
         if gang is not None:
             barrier(gang, dev)
 

@@ -14,7 +14,14 @@ tp)``. Every public function takes the GLOBAL token batch; a rank at
 ``(dp i, ep j, sp s)`` computes rows ``[(i * ep + j) * Bl, ...)`` and
 positions ``[s * Tl, (s + 1) * Tl)`` of it (:data:`MOE_ACT_SPEC`), and
 holds the ``E / ep`` experts of its ep index (:func:`param_specs`,
-:func:`shard_params`). The reference's routing and einsums run on global
+:func:`shard_params`). Under ``tp`` it holds its block of the q/k/v
+columns and ``wo`` rows (``H / tp`` heads, as in the dense LM) and of
+every expert's ``w1/w3`` columns and ``w2`` rows; the activations
+entering those weights are tp-replicated (``collectives.enter_tp``) and
+the attention's and experts' partial sums are all-reduced over tp in f32
+(``collectives.leave_tp``), the experts' before :func:`from_experts`.
+The router stays replicated and in f32, so the tp ranks of one token
+block route it alike. The reference's routing and einsums run on global
 arrays under ``jit``, and the port keeps their semantics exactly:
 
 - one capacity ``C`` for all ``N = B * T`` tokens of the mesh, each
@@ -31,15 +38,15 @@ arrays under ``jit``, and the port keeps their semantics exactly:
   its experts, and all-gathers their outputs over ``ep``
   (:class:`_ToExperts`, :class:`_FromExperts`); each collective's
   backward is its transpose;
-- the gradients of one step over the global batch: the loss and dense
-  gradients averaged over the mesh, expert gradients summed over their
-  replicas (each replica saw only its ep group's tokens' output
-  gradients) and scaled as the dense ones (:func:`loss_and_grads`).
+- the gradients of one step over the global batch: the loss averaged
+  over the mesh, the dense gradients summed over the token blocks'
+  ranks, expert gradients over their replicas (each replica saw only its
+  ep group's tokens' output gradients), each divided by the number of
+  token blocks (:func:`loss_and_grads`).
 
-At any ``(dp, ep, sp)`` the forward logits, the loss and every gradient
-are the one-process forward's and step's on the global batch
-(``tests/test_torch_moe_ep.py``). tp shards nothing yet and is refused
-(ROADMAP queue 1 item 4).
+At any ``(dp, ep, sp, tp)`` the forward logits, the loss and every
+gradient are the one-process forward's and step's on the global batch
+(``tests/test_torch_moe_ep.py``).
 """
 from __future__ import annotations
 
@@ -51,9 +58,11 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from . import lm
-from .lm import _leaves, _rms_norm, _rope, _tree_map, make_optimizer
-from .ring_attention import ring_apply, ring_of
+from . import lm, sharding
+from .collectives import (_AllReduce, all_gather, all_reduce, enter_tp,
+                          leave_tp, reduce_gradients_, reduce_scatter)
+from .lm import Layout, _leaves, _rms_norm, _rope, _tree_map, make_optimizer
+from .ring_attention import ring_apply
 from .sharding import mesh_sizes, shard
 
 MOE_AXES = ("dp", "ep", "sp", "tp")
@@ -66,6 +75,8 @@ MOE_DATA_SPEC = (("dp", "ep"), "sp")
 
 #: The expert weights, sharded over ep on their expert dim (dim 1).
 EXPERT_KEYS = ("w1", "w3", "w2")
+#: The axes that split the global batch into token blocks.
+TOKEN_AXES = ("dp", "ep", "sp")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,8 +125,9 @@ def make_moe_mesh(devices=None, *, dp: int = 1, ep: int = 1, sp: int = 1,
 
 
 def param_specs(cfg: MoEConfig) -> dict:
-    """The reference's specs, one entry per dim; of them only ``ep``
-    shards anything here (tp is refused)."""
+    """The reference's specs, one entry per dim: q/k/v columns and ``wo``
+    rows over tp, as in the dense LM; the experts over ep, their
+    ``w1/w3`` columns and ``w2`` rows over tp; the rest replicated."""
     return {
         "embed": (None, None),
         "layers": {
@@ -172,19 +184,14 @@ params_from_jax = lm.params_from_jax
 
 
 def _check_mesh(cfg: MoEConfig, mesh) -> dict:
-    """The mesh's axis sizes, after the refusals: a mesh of other axes,
-    tp > 1 (not sharded yet) and experts that do not split over ep."""
+    """The mesh's axis sizes, after the refusals: a mesh of other axes
+    and experts that do not split over ep."""
     if mesh is None:
         return dict.fromkeys(MOE_AXES, 1)
     if tuple(mesh.mesh_dim_names) != MOE_AXES:
         raise ValueError(f"an MoE mesh has the axes {MOE_AXES} "
                          f"(make_moe_mesh), not {mesh.mesh_dim_names}")
     sizes = mesh_sizes(mesh)
-    if sizes["tp"] != 1:
-        raise NotImplementedError(
-            f"tp={sizes['tp']}: the port shards neither heads nor expert "
-            "FFN columns (tensor parallelism) yet, ROADMAP queue 1 item 4; "
-            "use dp, ep and sp")
     if cfg.n_experts % sizes["ep"]:
         raise ValueError(f"n_experts={cfg.n_experts} does not split over "
                          f"ep={sizes['ep']}")
@@ -193,106 +200,32 @@ def _check_mesh(cfg: MoEConfig, mesh) -> dict:
 
 def shard_params(params: dict, cfg: MoEConfig, mesh=None) -> dict:
     """This rank's params of the global ``params`` (:func:`param_specs`):
-    every leaf whole but ``w1``, ``w3``, ``w2``, of which it keeps the
-    ``E / ep`` experts of its ep index, each a copy of its own."""
+    the ``E / ep`` experts of its ep index and, under tp, its block of
+    the heads and expert FFN columns, each a copy of its own."""
     _check_mesh(cfg, mesh)
-    if mesh is None:
-        return params
-    specs = param_specs(cfg)
-
-    def conv(node, spec):
-        if isinstance(node, dict):
-            return {key: conv(val, spec[key]) for key, val in node.items()}
-        return shard(mesh, node, spec).clone()
-
-    return conv(params, specs)
+    return sharding.shard_params(mesh, params, param_specs(cfg))
 
 
 # -- The mesh, as one forward sees it. --
 
-@dataclasses.dataclass(frozen=True)
-class ExpertMesh:
-    """What a forward needs of a mesh of more than one rank, looked up
-    once: the axis ``sizes`` and this rank's ``coord``, the global ranks
-    in mesh order (``order``, dp-major), the ``ep`` axis's group, and the
-    groups of the dp and sp axes of more than one rank, which together
-    hold the replicas of this rank's experts."""
-    sizes: dict
-    coord: dict
-    order: list
-    ep: object
-    replicas: tuple
-
-    @property
-    def world(self) -> int:
-        return len(self.order)
-
-
-def expert_mesh(mesh) -> ExpertMesh | None:
-    """:class:`ExpertMesh` of ``mesh``; None without one or for one rank,
-    the single-device path. The mesh must span the default process
-    group, over which the pick counts, the aux loss and the dense
-    gradients are reduced."""
+def expert_mesh(mesh) -> Layout | None:
+    """The :class:`~.lm.Layout` of ``mesh``, the same type the dense LM
+    uses (here: its sp ring, the ep and tp groups, the dp and sp groups
+    that hold the replicas of this rank's experts, sizes, coordinate and
+    mesh order); None without a mesh or for one rank, the single-device
+    path. The mesh must span the default process group, over which the
+    pick counts, the aux loss and the dense gradients are reduced."""
     if mesh is None or mesh.size() == 1:
         return None
     from torch import distributed as dist
     if mesh.size() != dist.get_world_size():
         raise ValueError(f"the mesh's {mesh.size()} ranks must span the "
                          f"process group's {dist.get_world_size()}")
-    sizes = mesh_sizes(mesh)
-    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
-    ep = None
-    if sizes["ep"] > 1:
-        ep = mesh["ep"].get_group()
-        # reduce_scatter / all_gather order the experts by group rank.
-        if dist.get_rank(ep) != coord["ep"]:
-            raise ValueError("the ep axis's group ranks are not its mesh "
-                             "order")
-    replicas = tuple(mesh[a].get_group() for a in ("dp", "sp")
-                     if sizes[a] > 1)
-    return ExpertMesh(sizes, coord, mesh.mesh.flatten().tolist(), ep,
-                      replicas)
+    return lm.mesh_layout(mesh)
 
 
-# -- Collectives whose backward is their transpose. --
-
-def _all_reduce(x: torch.Tensor, groups) -> torch.Tensor:
-    from torch import distributed as dist
-    x = x.contiguous().clone()
-    for group in groups:
-        dist.all_reduce(x, group=group)
-    return x
-
-
-class _AllReduce(torch.autograd.Function):
-    """Sum over the ranks of each of ``groups`` in turn; the backward is
-    the same sum of the gradients."""
-
-    @staticmethod
-    def forward(ctx, x, groups):
-        ctx.groups = groups
-        return _all_reduce(x, groups)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return _all_reduce(grad, ctx.groups), None
-
-
-def _reduce_scatter(x: torch.Tensor, group) -> torch.Tensor:
-    from torch import distributed as dist
-    n = dist.get_world_size(group)
-    out = x.new_empty((x.shape[0] // n, *x.shape[1:]))
-    dist.reduce_scatter_tensor(out, x.contiguous(), group=group)
-    return out
-
-
-def _all_gather(x: torch.Tensor, group) -> torch.Tensor:
-    from torch import distributed as dist
-    n = dist.get_world_size(group)
-    out = x.new_empty((x.shape[0] * n, *x.shape[1:]))
-    dist.all_gather_into_tensor(out, x.contiguous(), group=group)
-    return out
-
+# -- The expert exchange: collectives whose backward is their transpose
+# (``collectives.py``). --
 
 class _ToExperts(torch.autograd.Function):
     """[E, C, d] slots filled by this rank -> [E / ep, C, d] of its ep
@@ -301,17 +234,17 @@ class _ToExperts(torch.autograd.Function):
     replicas, all-gather over ep."""
 
     @staticmethod
-    def forward(ctx, x, em: ExpertMesh):
+    def forward(ctx, x, em: Layout):
         ctx.em = em
         if em.ep is not None:
-            x = _reduce_scatter(x, em.ep)
-        return _all_reduce(x, em.replicas)
+            x = reduce_scatter(x, em.ep)
+        return all_reduce(x, em.replicas)
 
     @staticmethod
     def backward(ctx, grad):
-        grad = _all_reduce(grad, ctx.em.replicas)
+        grad = all_reduce(grad, ctx.em.replicas)
         if ctx.em.ep is not None:
-            grad = _all_gather(grad, ctx.em.ep)
+            grad = all_gather(grad, ctx.em.ep)
         return grad, None
 
 
@@ -320,31 +253,31 @@ class _FromExperts(torch.autograd.Function):
     experts: all-gather over ep. Backward: reduce-scatter over ep."""
 
     @staticmethod
-    def forward(ctx, x, em: ExpertMesh):
+    def forward(ctx, x, em: Layout):
         ctx.em = em
-        return x if em.ep is None else _all_gather(x, em.ep)
+        return x if em.ep is None else all_gather(x, em.ep)
 
     @staticmethod
     def backward(ctx, grad):
         if ctx.em.ep is None:
             return grad, None
-        return _reduce_scatter(grad, ctx.em.ep), None
+        return reduce_scatter(grad, ctx.em.ep), None
 
 
-def to_experts(buffers: torch.Tensor, em: ExpertMesh | None):
+def to_experts(buffers: torch.Tensor, em: Layout | None):
     """The expert exchange, token side to expert side (identity without
     a mesh)."""
     return buffers if em is None else _ToExperts.apply(buffers, em)
 
 
-def from_experts(outputs: torch.Tensor, em: ExpertMesh | None):
+def from_experts(outputs: torch.Tensor, em: Layout | None):
     """The expert exchange, expert side back to token side."""
     return outputs if em is None else _FromExperts.apply(outputs, em)
 
 
 # -- Routing. --
 
-def _positions(picks: torch.Tensor, rows: int, em: ExpertMesh | None):
+def _positions(picks: torch.Tensor, rows: int, em: Layout | None):
     """``(before [k, n, E], totals [k, E])`` for this rank's ``picks``
     ([k, n, E] one-hot int64 of each round, ``n = rows * Tl`` tokens in
     row-major order): how many tokens before each one in GLOBAL order
@@ -363,10 +296,12 @@ def _positions(picks: torch.Tensor, rows: int, em: ExpertMesh | None):
         gathered = counts.new_empty((em.world * k, rows, e))
         dist.all_gather_into_tensor(gathered, counts.contiguous())
         grid = gathered.view(em.world, k, rows, e)
-        if em.order != list(range(em.world)):
+        if em.order != tuple(range(em.world)):
             # Stacked views: an index tensor made from the list would be
             # a copy from the host that waits for the device.
             grid = torch.stack([grid[r] for r in em.order])
+        # The tp ranks of a token block route it alike: keep one copy.
+        grid = grid.view(em.blocks, em.sizes["tp"], k, rows, e)[:, 0]
         blocks = em.sizes["dp"] * em.sizes["ep"]
         segs = em.sizes["sp"]
         block = em.coord["dp"] * em.sizes["ep"] + em.coord["ep"]
@@ -380,7 +315,7 @@ def _positions(picks: torch.Tensor, rows: int, em: ExpertMesh | None):
 
 
 def _route(y: torch.Tensor, router_w: torch.Tensor, cfg: MoEConfig,
-           rows: int = 1, em: ExpertMesh | None = None,
+           rows: int = 1, em: Layout | None = None,
            parts: dict | None = None):
     """Top-k routing (GShard) of this rank's tokens ``y`` [n, d] (``rows``
     rows of ``n / rows`` positions): ``(dispatch [n, E, C] one-hot,
@@ -392,7 +327,7 @@ def _route(y: torch.Tensor, router_w: torch.Tensor, cfg: MoEConfig,
     given, receives ``top_k``: each token's k picks [n, k], before the
     capacity cut."""
     n, E, K = y.shape[0], cfg.n_experts, cfg.top_k
-    N = n * (em.world if em is not None else 1)
+    N = n * (em.blocks if em is not None else 1)
     capacity = max(1, int(cfg.capacity_factor * cfg.top_k * N / E))
     logits = y.float() @ router_w.float()                     # [n, E]
     probs = torch.softmax(logits, dim=-1)
@@ -415,7 +350,8 @@ def _route(y: torch.Tensor, router_w: torch.Tensor, cfg: MoEConfig,
     # * mean top-1 share); the top-1 share carries no gradient.
     prob_sum = probs.sum(0)
     if em is not None:
-        prob_sum = _AllReduce.apply(prob_sum, (None,))  # the whole mesh
+        # Over the whole mesh, each token block counted once per tp rank.
+        prob_sum = _AllReduce.apply(prob_sum, (None,)) / em.sizes["tp"]
     aux = E * torch.sum(prob_sum / N * (totals[0].float() / N))
 
     fill = torch.zeros(E, dtype=torch.int64, device=y.device)
@@ -441,24 +377,27 @@ def _route(y: torch.Tensor, router_w: torch.Tensor, cfg: MoEConfig,
 
 
 def _moe_ffn(y: torch.Tensor, lp: dict, cfg: MoEConfig,
-             em: ExpertMesh | None = None, parts: dict | None = None):
+             em: Layout | None = None, parts: dict | None = None):
     """[B, T, d] -> ([B, T, d], aux) through the top-k routed experts.
-    ``lp``'s expert weights are this rank's ``E / ep`` experts; the
-    buffers cross the mesh at :func:`to_experts` and
-    :func:`from_experts`, the reference's ``P("ep", None, None)``
-    constraints. ``parts``, where given, receives the routing:
-    ``dispatch`` and ``top_k`` (:func:`_route`)."""
+    ``lp``'s expert weights are this rank's ``E / ep`` experts (under tp
+    its block of their FFN columns); the buffers cross the mesh at
+    :func:`to_experts` and :func:`from_experts`, the reference's
+    ``P("ep", None, None)`` constraints, and the experts' partial sums
+    are all-reduced over tp in f32 between. ``parts``, where given,
+    receives the routing: ``dispatch`` and ``top_k`` (:func:`_route`)."""
     cdt = cfg.compute_dtype
     b, t, d = y.shape
     yf = y.reshape(b * t, d)
     dispatch, combine, aux = _route(yf, lp["router"], cfg, b, em, parts)
     if parts is not None:
         parts["dispatch"] = dispatch
-    expert_in = to_experts(
-        torch.einsum("nec,nd->ecd", dispatch.to(cdt), yf), em)
+    tp = None if em is None else em.tp
+    expert_in = enter_tp(to_experts(
+        torch.einsum("nec,nd->ecd", dispatch.to(cdt), yf), em), tp)
     h = F.silu(torch.einsum("ecd,edf->ecf", expert_in, lp["w1"].to(cdt)))
     h = h * torch.einsum("ecd,edf->ecf", expert_in, lp["w3"].to(cdt))
-    out = from_experts(torch.einsum("ecf,efd->ecd", h, lp["w2"].to(cdt)), em)
+    out = from_experts(leave_tp(
+        torch.einsum("ecf,efd->ecd", h, lp["w2"].to(cdt)), tp), em)
     mixed = torch.einsum("nec,ecd->nd", combine.to(cdt), out)
     return mixed.reshape(b, t, d), aux
 
@@ -471,22 +410,26 @@ _LAYER_KEYS = ("ln1", "wq", "wk", "wv", "wo", "ln2", "router", "w1", "w3",
 
 
 def _attention_block(x: torch.Tensor, lp: dict, cfg: MoEConfig, attend,
-                     offset: int) -> torch.Tensor:
+                     offset: int, tp=None) -> torch.Tensor:
     """``x`` plus causal self-attention of its rms-normed self, at global
-    positions from ``offset``; ``attend(q, k, v)`` over [B, H, T, D]."""
+    positions from ``offset``; ``attend(q, k, v)`` over [B, H, T, D].
+    Under tp (its group ``tp``) this rank's heads, those of its ``wq``
+    columns, and their partial sums all-reduced in f32."""
     b, t, _ = x.shape
-    h, dh = cfg.n_heads, cfg.head_dim
-    y = _rms_norm(x, lp["ln1"])
+    dh = cfg.head_dim
+    h = lp["wq"].shape[1] // dh
+    y = enter_tp(_rms_norm(x, lp["ln1"]), tp)
     q = (y @ lp["wq"]).reshape(b, t, h, dh).transpose(1, 2)
     k = (y @ lp["wk"]).reshape(b, t, h, dh).transpose(1, 2)
     v = (y @ lp["wv"]).reshape(b, t, h, dh).transpose(1, 2)
     q, k = _rope(q, cfg, offset), _rope(k, cfg, offset)
     o = attend(q, k, v).to(q.dtype)
-    return x + o.transpose(1, 2).reshape(b, t, h * dh) @ lp["wo"]
+    return x + leave_tp(o.transpose(1, 2).reshape(b, t, h * dh) @ lp["wo"],
+                        tp)
 
 
 def _layer(x: torch.Tensor, cfg: MoEConfig, attend, offset: int,
-           em: ExpertMesh | None, *weights, parts: dict | None = None):
+           em: Layout | None, *weights, parts: dict | None = None):
     """One pre-norm layer, attention then MoE FFN: ``(x, aux)``. Weights
     in ``_LAYER_KEYS`` order, cast to the compute dtype here, inside the
     rematerialized region (the router stays as it is: routing is
@@ -495,7 +438,8 @@ def _layer(x: torch.Tensor, cfg: MoEConfig, attend, offset: int,
     cdt = cfg.compute_dtype
     lp = {name: w if name == "router" else w.to(cdt)
           for name, w in zip(_LAYER_KEYS, weights)}
-    x = _attention_block(x, lp, cfg, attend, offset)
+    x = _attention_block(x, lp, cfg, attend, offset,
+                         None if em is None else em.tp)
     moe_out, aux = _moe_ffn(_rms_norm(x, lp["ln2"]), lp, cfg, em, parts)
     return x + moe_out, aux
 
@@ -516,7 +460,7 @@ def hidden_states(params: dict, tokens: torch.Tensor, cfg: MoEConfig,
     tokens = shard(mesh, tokens, MOE_DATA_SPEC)
     offset = 0 if em is None else em.coord["sp"] * tokens.shape[1]
     if attention is None:
-        ring = ring_of(mesh)
+        ring = None if em is None else em.ring
 
         def attention(q, k, v):
             return ring_apply(q, k, v, ring)
@@ -570,29 +514,23 @@ def is_expert(path: str) -> bool:
 def loss_and_grads(params: dict, batch: torch.Tensor, cfg: MoEConfig,
                    mesh=None, attention=None):
     """``(loss, grads)`` of the global ``batch``: the loss detached,
-    grads shaped like this rank's ``params``. Under a mesh the loss and
-    the dense gradients are averaged over its ranks; an expert's
-    gradient is summed over its replicas (the dp and sp ranks of its ep
-    index, each of which saw the output gradients of its own ep group's
-    tokens) and divided by the mesh's size, as the dense ones are.
-    ``attention`` as in :func:`hidden_states`."""
+    grads shaped like this rank's ``params``. Under a mesh the loss is
+    averaged over its ranks; a dense gradient is summed over the token
+    blocks' ranks (dp, ep and sp; a tp-replicated leaf carries the whole
+    gradient on every tp rank, a tp-sharded one its own block), an
+    expert's over its replicas (the dp and sp ranks of its ep index, each
+    of which saw the output gradients of its own ep group's tokens), and
+    each divided by the number of token blocks. ``attention`` as in
+    :func:`hidden_states`."""
     wrt = _tree_map(lambda p: p.detach().requires_grad_(), params)
     loss = loss_fn(wrt, batch, cfg, mesh, attention)
     grads = list(torch.autograd.grad(loss, _leaves(wrt)))
     loss = loss.detach()
-    em = expert_mesh(mesh)
-    if em is not None:
+    if expert_mesh(mesh) is not None:
         from torch import distributed as dist
-        expert = [is_expert(p) for p in _paths(wrt)]
-        lm._average_([loss] + [g for g, e in zip(grads, expert) if not e],
-                     dist.group.WORLD)
-        experts = [g for g, e in zip(grads, expert) if e]
-        if experts:
-            flat = torch.cat([g.reshape(-1) for g in experts])
-            flat = _all_reduce(flat, em.replicas).div_(em.world)
-            for g, part in zip(experts, flat.split([g.numel()
-                                                    for g in experts])):
-                g.copy_(part.view_as(g))
+        lm._average_([loss], dist.group.WORLD)
+        reduce_gradients_(grads, lm._spec_leaves(wrt, param_specs(cfg)),
+                          mesh, TOKEN_AXES)
     grads = iter(grads)
     return loss, _tree_map(lambda _: next(grads), wrt)
 

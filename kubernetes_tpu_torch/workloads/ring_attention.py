@@ -155,9 +155,11 @@ class Ring:
 
 
 def ring_of(mesh, seq_axis: str = "sp") -> Ring | None:
-    """This rank's :class:`Ring` on ``mesh``'s ``seq_axis``; None without
-    a mesh or when the axis has one member. Peers are global ranks, read
-    from the mesh in the axis's order: under ``dp > 1`` the axis group's
+    """This rank's :class:`Ring` on ``mesh``'s ``seq_axis``: the ranks
+    that share its every other coordinate (each ``(dp, fsdp, tp)``
+    coordinate has a ring of its own); None without a mesh or when the
+    axis has one member. Peers are global ranks, read from the mesh in
+    the axis's order: under ``dp > 1`` or ``tp > 1`` the axis group's
     own ranks are not the global ones."""
     if mesh is None:
         return None
@@ -265,16 +267,21 @@ class RingAttention(torch.autograd.Function):
 
 def ring_attention(q, k, v, mesh, *, seq_axis: str = "sp",
                    batch_axes: tuple = ("dp", "fsdp")) -> torch.Tensor:
-    """Causal MHA over this rank's [B, H, Tl, D] blocks: the batch
-    already split over ``batch_axes`` (the dense LM's ``(dp, fsdp)``),
-    the sequence over the ring axis ``seq_axis``. Degenerates to one
-    causal launch when the ring has one member or ``mesh`` is None.
-    Differentiable (:class:`RingAttention`) while grad is enabled."""
+    """Causal MHA over this rank's [B, H, Tl, D] blocks of q, k and v,
+    laid out as the reference's spec ``(batch_axes, "tp", seq_axis,
+    None)``: the batch split over ``batch_axes`` (the dense LM's ``(dp,
+    fsdp)``, the MoE's ``(dp, ep)``), the heads over ``tp``, the sequence
+    over the ring axis ``seq_axis``; each tp coordinate has a ring of its
+    own (:func:`ring_of`). Degenerates to one causal launch when the ring
+    has one member or ``mesh`` is None. Differentiable
+    (:class:`RingAttention`) while grad is enabled."""
     if mesh is not None:
-        missing = [a for a in (seq_axis, *batch_axes)
+        spec = (batch_axes, "tp", seq_axis, None)
+        missing = [a for a in (*batch_axes, "tp", seq_axis)
                    if a not in mesh.mesh_dim_names]
         if missing:
-            raise ValueError(f"mesh has no axis {missing}")
+            raise ValueError(f"mesh has no axis {missing} of the spec "
+                             f"{spec}")
     return ring_apply(q, k, v, ring_of(mesh, seq_axis))
 
 
@@ -285,6 +292,29 @@ def ring_apply(q, k, v, ring: Ring | None) -> torch.Tensor:
     if torch.is_grad_enabled():
         return RingAttention.apply(q, k, v, ring)
     return ring_forward(q, k, v, ring)[0]
+
+
+def gathered_attention(q, k, v, ring: Ring | None) -> torch.Tensor:
+    """The ring's plain version, in any dtype: causal attention of this
+    rank's [B, H, Tl, D] queries over the whole ring's keys, K and V
+    all-gathered over the ring's group (their gradients reduce-scattered
+    back, ``collectives.gather``), f32 softmax, the output in
+    ``q.dtype``; :func:`reference_attention` without a ring. The kernels
+    take bf16 alone: this is the attention of an f32 step on a mesh."""
+    if ring is None:
+        return reference_attention(q, k, v)
+    from torch import distributed as dist
+    from .collectives import gather
+    if dist.get_rank(ring.group) != ring.index:
+        raise ValueError("the ring's group ranks are not its order")
+    k, v = gather(k, ring.group, 2), gather(v, ring.group, 2)
+    d, tl = q.shape[-1], q.shape[2]
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / d ** 0.5
+    rows = torch.arange(tl, device=q.device) + ring.index * tl
+    cols = torch.arange(k.shape[2], device=q.device)
+    scores = scores + torch.where(rows[:, None] >= cols[None, :], 0.0, _NEG)
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
 
 
 # -- One process, every rank: the ring's arithmetic without the ring. --

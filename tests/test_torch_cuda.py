@@ -44,6 +44,9 @@ full-width MoE train step fits the card.
 One test, which skips with fewer than two cards, launches the kernels
 on tensors of device 1 while device 0 is current: each launches on its
 tensors' device.
+Another, which also skips with fewer than two cards, runs the fsdp
+gather and the tp pair (``workloads/collectives.py``) on two cards over
+NCCL against two gloo ranks on the CPU.
 
 Two tests capture a launch in a CUDA graph and replay it after changing
 the inputs in place: they show that the wrappers launch on PyTorch's
@@ -548,3 +551,77 @@ def test_moe_full_width_step_fits_the_card(gen):
     assert torch.isfinite(loss)
     total = torch.cuda.get_device_properties(0).total_memory
     assert torch.cuda.max_memory_allocated() <= 0.9 * total
+
+
+#: One rank of a two-rank group, NCCL on its card or gloo on the CPU: the
+#: fsdp gather along dim 1 and the tp pair, forward and backward, its
+#: outputs and gradients saved to OUT<rank>.pt on the host.
+_COLLECTIVES_RANK = r"""
+import os, torch
+from torch import distributed as dist
+from kubernetes_tpu_torch.workloads import collectives, rendezvous
+rank, cuda = int(os.environ["RANK"]), os.environ["DEV"] == "cuda"
+dev = torch.device("cuda", rank) if cuda else torch.device("cpu")
+if cuda:
+    torch.cuda.set_device(rank)
+rendezvous.init_process_group("127.0.0.1", int(os.environ["PORT"]), rank, 2,
+                              "nccl" if cuda else "gloo", 120.0, "127.0.0.1")
+g = torch.Generator().manual_seed(rank)
+w = torch.randn((4, 6), generator=g).to(dev).requires_grad_()
+x = torch.randn((3, 8), generator=g).to(dev).requires_grad_()
+c = torch.randn((3, 12), generator=torch.Generator().manual_seed(9)).to(dev)
+group = dist.group.WORLD
+whole = collectives.gather(w, group, 1)
+part = collectives.enter_tp(x, group)[:, 4 * rank:4 * rank + 4] @ whole
+out = collectives.leave_tp(part, group)
+(out * c).sum().backward()
+torch.save({"whole": whole.detach().cpu(), "out": out.detach().cpu(),
+            "w_grad": w.grad.cpu(), "x_grad": x.grad.cpu()},
+           os.environ["OUT"] + f"{rank}.pt")
+dist.destroy_process_group()
+"""
+
+
+def test_fsdp_gather_and_tp_pair_over_nccl_match_gloo(tmp_path):
+    """The fsdp gather (all-gather along dim 1, reduce-scatter of the
+    gradient) and the tp pair ("enter": gradient all-reduced; "leave":
+    f32 all-reduce) on two cards over NCCL give what two gloo ranks on
+    the CPU give from the same inputs: the gathered weight and the
+    output exactly, the gradients within 1e-6 (f32 sums of two terms)."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    results = {}
+    for backend in ("cuda", "cpu"):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        out = str(tmp_path / f"{backend}-")
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", _COLLECTIVES_RANK], cwd=root,
+            env={**os.environ, "PYTHONPATH": root, "RANK": str(r),
+                 "DEV": backend, "PORT": str(port), "OUT": out},
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        try:
+            for proc in procs:
+                log, _ = proc.communicate(timeout=300)
+                assert proc.returncode == 0, log
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+        results[backend] = [torch.load(f"{out}{r}.pt") for r in range(2)]
+    for rank, (got, want) in enumerate(zip(results["cuda"],
+                                           results["cpu"])):
+        assert torch.equal(got["whole"], want["whole"]), rank
+        torch.testing.assert_close(got["out"], want["out"], atol=1e-6,
+                                   rtol=1e-6)
+        for key in ("w_grad", "x_grad"):
+            torch.testing.assert_close(got[key], want[key], atol=1e-6,
+                                       rtol=1e-6, msg=f"{key} rank {rank}")

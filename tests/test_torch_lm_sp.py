@@ -22,8 +22,10 @@ one device and against itself in one process, on the CPU.
   steps of ``lm.train`` over the mesh against ``lm.train`` in one
   process.
 - The refusals: "flash" on a multi-device mesh and "local" with sp > 1
-  raise ``ValueError`` as the reference does; fsdp > 1 and tp > 1 raise
-  ``NotImplementedError`` naming ROADMAP queue 1 item 4.
+  raise ``ValueError`` as the reference does. The ring at ``fsdp = 2 x
+  sp = 2`` and ``sp = 2 x tp = 2``, which the port once refused, runs
+  and its logits match the reference's as the others do
+  (``tests/test_torch_lm_fsdp_tp.py`` holds those axes further).
 
 Each group of ranks is started once for the module, as subprocesses
 waited on with a timeout; their ports come from the OS.
@@ -82,7 +84,9 @@ def forwards(name, mesh):
     tokens = torch.from_numpy(data["tokens"])
     for compute in ("float32", "bfloat16"):
         cfg = config(compute)
-        params = lm.params_from_jax(tree, cfg, device="cpu")
+        params = sharding.shard_params(
+            mesh, lm.params_from_jax(tree, cfg, device="cpu"),
+            lm.param_specs(cfg))
         out[f"{name}:{compute}"] = lm.make_forward(cfg, "cpu", mesh)(
             params, tokens).numpy()
 def save():
@@ -125,10 +129,13 @@ meta["train"] = lm.train(cfg, steps=int(os.environ["STEPS"]), batch=2,
 save()
 """
 
-#: Four ranks, dp = 2 x sp = 2: the forwards, then each refusal's type
-#: and message.
+#: Four ranks, dp = 2 x sp = 2: the forwards, then those at fsdp = 2 x
+#: sp = 2 and sp = 2 x tp = 2, then each refusal's type and message
+#: (None where the forward runs).
 _DP2SP2 = _PRELUDE + r"""
 forwards("dp2sp2", sharding.make_mesh(device_type="cpu", dp=2, sp=2))
+forwards("fsdp2sp2", sharding.make_mesh(device_type="cpu", fsdp=2, sp=2))
+forwards("sp2tp2", sharding.make_mesh(device_type="cpu", sp=2, tp=2))
 tokens = torch.from_numpy(data["tokens"])
 refusals = {}
 for name, sizes, attn in (("flash_dp2sp2", dict(dp=2, sp=2), "flash"),
@@ -138,7 +145,9 @@ for name, sizes, attn in (("flash_dp2sp2", dict(dp=2, sp=2), "flash"),
                           ("ring_tp2", dict(sp=2, tp=2), "ring")):
     mesh = sharding.make_mesh(device_type="cpu", **sizes)
     cfg = config("float32", attn_impl=attn)
-    params = lm.params_from_jax(tree, cfg, device="cpu")
+    params = sharding.shard_params(
+        mesh, lm.params_from_jax(tree, cfg, device="cpu"),
+        lm.param_specs(cfg))
     try:
         lm.forward(params, tokens, cfg, mesh)
         refusals[name] = None
@@ -258,6 +267,27 @@ def test_sp_forward_matches_the_reference_on_one_device(
     assert seen == {(d, s) for d in range(sizes["dp"]) for s in range(2)}
 
 
+@pytest.mark.parametrize("compute,atol", [("float32", 1e-4),
+                                          ("bfloat16", 5e-2)])
+@pytest.mark.parametrize("name,sizes", [("fsdp2sp2", dict(fsdp=2, sp=2)),
+                                        ("sp2tp2", dict(sp=2, tp=2))])
+def test_fsdp_and_tp_forward_match_the_reference_on_one_device(
+        dp2sp2, reference_logits, name, sizes, compute, atol):
+    """The meshes the port once refused: every rank's block of logits
+    (rows by fsdp, positions by sp, whole over tp) against the
+    reference's one-device forward."""
+    sizes = {**dict.fromkeys(sharding.AXES, 1), **sizes}
+    want = torch.from_numpy(np.array(reference_logits[compute]))
+    seen = set()
+    for out, meta in dp2sp2:
+        coord = meta[name]
+        block = sharding.block(want, sharding.ACT_SPEC, sizes, coord)
+        np.testing.assert_allclose(out[f"{name}:{compute}"], block.numpy(),
+                                   atol=atol, rtol=0)
+        seen.add(tuple(coord[a] for a in sharding.AXES))
+    assert len(seen) == 4
+
+
 def _one_process_steps():
     cfg = tlm.LMConfig(**SMALL, compute_dtype=torch.float32)
     data = _inputs()
@@ -323,10 +353,11 @@ def test_refusals_match_the_reference(dp2sp2):
             assert kind == "ValueError" and "single-device" in msg, name
         kind, msg = refusals["local_sp2"]
         assert kind == "ValueError" and "batch-parallel only" in msg
+        # fsdp and tp are sharded now: the ring runs there, and
+        # test_fsdp_and_tp_forward_match_the_reference_on_one_device
+        # holds what it computes.
         for name in ("ring_fsdp2", "ring_tp2"):
-            kind, msg = refusals[name]
-            assert kind == "NotImplementedError", name
-            assert "ROADMAP queue 1 item 4" in msg, name
+            assert refusals[name] is None, (name, refusals[name])
 
 
 def test_no_mesh_and_a_mesh_of_one_are_the_same_forward():

@@ -1,14 +1,16 @@
 """The port's MoE expert-parallel over gloo, against itself in one
 process, on the CPU.
 
-The invariant: at any ``(dp, ep, sp)`` mesh the forward logits (each
-rank's block), the aux and the loss, and every gradient (dense leaves
-whole, each rank's expert shard against the matching slice of the
-one-process gradient) equal the one-process forward and step on the
+The invariant: at any ``(dp, ep, sp, tp)`` mesh the forward logits (each
+rank's block), the aux and the loss, and every gradient (each rank's
+block of each leaf, under ``param_specs``, against the matching block of
+the one-process gradient) equal the one-process forward and step on the
 global batch, within 1e-5 (relative to each leaf's largest gradient: the
 ranks sum in another order). Meshes: ``ep 2`` (two ranks), ``dp 2 x ep
-2`` and ``ep 2 x sp 2`` (four ranks each), at ``MoEConfig()`` widths with
-f32 compute, params from the reference's ``init_params``.
+2``, ``ep 2 x sp 2`` and ``ep 2 x tp 2`` (four ranks each), at
+``MoEConfig()`` widths with f32 compute, params from the reference's
+``init_params``. At ``ep 2 x tp 2`` each rank holds half the heads and
+half of each expert's FFN columns.
 
 Three cases at every mesh:
 
@@ -31,10 +33,12 @@ Then two AdamW steps at ``ep 2`` against one process (losses within
 1e-5; params by the AdamW rule of ``tests/test_torch_train.py``); three
 in bf16 against one process that rounds each rank's share of the dense
 gradients as the mesh does (``perf/moe_rounding.py``); and the
-refusals: ``tp = 2`` raises ``NotImplementedError`` naming ROADMAP queue
-1 item 4, experts that do not split over ep raise ``ValueError``.
+refusals: experts that do not split over ep raise ``ValueError``; ``tp =
+2``, once refused, runs and matches. The ep 2 x tp 2 mesh's logits are
+also held against the reference's forward (its ring attention replaced
+by its plain attention, as ``tests/test_torch_moe.py`` does).
 
-The three gangs run one after another, as subprocesses waited on with a
+The four gangs run one after another, as subprocesses waited on with a
 timeout; their ports come from the OS.
 """
 import json
@@ -61,7 +65,7 @@ STEPS = 2
 #: phase takes them.
 BF16_STEPS = 3
 MESHES = {"ep2": dict(ep=2), "dp2ep2": dict(dp=2, ep=2),
-          "ep2sp2": dict(ep=2, sp=2)}
+          "ep2sp2": dict(ep=2, sp=2), "ep2tp2": dict(ep=2, tp=2)}
 CASES = {"default": ("default", {}), "lopsided": ("lopsided", {}),
          "tight": ("default", {"capacity_factor": 0.25})}
 
@@ -151,8 +155,12 @@ if world == 4 and sizes.get("dp") == 2:
     meta["permuted_coord"] = dict(zip(permuted.mesh_dim_names,
                                       permuted.get_coordinate()))
     tp_mesh = moe.make_moe_mesh(device_type="cpu", ep=2, tp=2)
-    refused("tp2", lambda: moe.make_forward(config(), "cpu", tp_mesh)(
-        moe.init_params(torch.Generator().manual_seed(0), config()), tokens))
+    refused("tp2", lambda: out.__setitem__("tp2:logits", moe.make_forward(
+        config(), "cpu", tp_mesh)(moe.shard_params(moe.params_from_jax(
+            tree("default"), config(), "cpu"), config(), tp_mesh),
+            tokens)[0].numpy()))
+    meta["tp2_coord"] = dict(zip(tp_mesh.mesh_dim_names,
+                                 tp_mesh.get_coordinate()))
 meta["refusals"] = refusals
 np.savez(os.environ["OUT"] + f"{rank}.npz", **out)
 with open(os.environ["OUT"] + f"{rank}.json", "w") as f:
@@ -283,7 +291,7 @@ def test_mesh_forward_equals_one_process(gangs, one_process, name, case):
         assert got.shape == tuple(block.shape)
         np.testing.assert_allclose(got, block.numpy(), atol=1e-5, rtol=0)
         assert abs(meta[f"{case}:aux"] - want_aux) <= 1e-5 * want_aux
-        seen.add(tuple(coord[a] for a in ("dp", "ep", "sp")))
+        seen.add(tuple(coord[a] for a in tmoe.MOE_AXES))
     assert len(seen) == len(gangs[name])  # every block compared
 
 
@@ -432,12 +440,40 @@ def test_ep2_bf16_steps_are_one_process_with_rank_rounding(gangs):
     assert off > 1e-4, (plain, shares)
 
 
-def test_refusals(gangs):
-    for name in ("ep2", "dp2ep2", "ep2sp2"):
+def test_refusals(gangs, one_process):
+    for name in MESHES:
         for _, meta in gangs[name]:
             kind, msg = meta["refusals"]["experts_3_ep2"]
             assert kind == "ValueError" and "split over ep=2" in msg
-    for _, meta in gangs["dp2ep2"]:
-        kind, msg = meta["refusals"]["tp2"]
-        assert kind == "NotImplementedError"
-        assert "ROADMAP queue 1 item 4" in msg
+    # tp is sharded now: ep 2 x tp 2 runs, and each rank's block of the
+    # logits is the one-process forward's.
+    want = one_process["default"][0]
+    for out, meta in gangs["dp2ep2"]:
+        assert meta["refusals"]["tp2"] is None, meta["refusals"]["tp2"]
+        block = sharding.block(want, tmoe.MOE_ACT_SPEC, _sizes("ep2tp2"),
+                               meta["tp2_coord"])
+        np.testing.assert_allclose(out["tp2:logits"], block.numpy(),
+                                   atol=1e-5, rtol=0)
+
+
+def test_ep2tp2_forward_matches_the_reference(gangs, monkeypatch):
+    """The ep 2 x tp 2 mesh's logits against the reference's MoE forward
+    on one device, its ring attention replaced by its plain attention
+    (the reference's ring fails under the installed jax; ROADMAP queue
+    3): f32 at 1e-4, as the dense LM's forward is held."""
+    from kubernetes_tpu.workloads import ring_attention as jra
+
+    monkeypatch.setattr(jmoe, "ring_attention",
+                        lambda q, k, v, mesh, **_: jra.reference_attention(
+                            q, k, v))
+    cfg = jmoe.MoEConfig(compute_dtype=jax.numpy.float32)
+    mesh = jmoe.make_moe_mesh(jax.devices()[:1])
+    jp = jmoe.init_params(jax.random.PRNGKey(0), cfg)
+    want, _ = jmoe.forward(jp, jax.numpy.asarray(_inputs()["tokens"]), cfg,
+                           mesh)
+    want = torch.from_numpy(np.array(want))
+    for out, meta in gangs["ep2tp2"]:
+        block = sharding.block(want, tmoe.MOE_ACT_SPEC, _sizes("ep2tp2"),
+                               meta["coord"])
+        np.testing.assert_allclose(out["default:logits"], block.numpy(),
+                                   atol=1e-4, rtol=0)

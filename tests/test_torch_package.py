@@ -48,6 +48,7 @@ def test_port_imports_no_jax_at_run_time():
                 "workloads.flash_attention", "workloads.ring_attention",
                 "workloads.checkpoint", "workloads.metrics_reporter",
                 "workloads.rendezvous", "workloads.sharding",
+                "workloads.collectives", "workloads.mnist",
                 "workloads.trainer", "workloads.distributed_demo",
                 "preemption", "perf.chip_bench", "perf.profile_forward",
                 "kernels.build", "native", "deviceplugin.gpu_plugin",
