@@ -30,43 +30,48 @@ back:
 4. host_path: the host cost of each piece of a K1 launch at the payload
    size (the checks, the allocation, the stream, the ctypes call with
    and without a launch) beside ``torch.add``'s;
-5. flash_attn: the flash-attention forward against plain attention at
-   the listed shapes (ragged tails, the edges of the kernels' tiles and
-   TMA boxes at every head dim 16 to 128, many heads and a batch, the
-   trainer's default LM, the main path's shapes), and timed at the main
-   shapes and the trainer's D-16 shape beside PyTorch's SDPA pinned to
-   each backend that
-   takes the inputs (flash, cuDNN, efficient) as a yardstick, with the
-   wrapper's ``host_us``;
-6. flash_attn_bwd: the flash-attention backward against the plain
-   backward at the same shapes, gated against an f32 backward, and timed
-   beside the backward of SDPA under each backend, with ``host_us``;
-   ring_kernels: the kernels' non-causal instances with f32 outputs (the
-   ring's blocks before their queries), forward and backward, against
-   their plain versions at every head dim and T at the tile and TMA
-   edges (1 to 1000), under the same tolerances and drift gate, each
-   launch counted as non-causal; timed at the 600M LM's t8k blocks at
-   sp = 2 and 4 (B1 H16 T4096 and T2048, D128) beside SDPA with
-   ``is_causal=False``;
-   causal_f32: the causal instances with f32 outputs (the ring's
-   diagonal blocks), forward and backward, at B1 H16 T4096 D128 under
-   the same tolerances and drift gate, counted as causal, timed beside
-   causal SDPA;
+5. flash_attn: the causal bf16 instances (the LM's), forward and
+   backward, at the listed shapes (ragged tails, the edges of the
+   kernels' tiles and TMA boxes at every head dim 16 to 128, many heads
+   and a batch, the trainer's default LM, the main path's shapes): o and
+   lse against plain attention, each gradient under a drift gate against
+   an f32 backward, each launch counted; timed at the main shapes and the
+   trainer's D-16 shape beside PyTorch's SDPA pinned to each backend
+   that takes the inputs (flash, cuDNN, efficient) as a yardstick, with
+   the wrapper's ``host_us``;
+6. ring_kernels: the same for the non-causal instances with f32
+   outputs (the ring's blocks before their queries) at every head dim
+   and T at the tile and TMA edges (1 to 1000), timed at the 600M LM's
+   t8k blocks at sp = 2 and 4 (B1 H16 T4096 and T2048, D128) beside SDPA
+   with ``is_causal=False``;
+   causal_f32: the same for the causal instances with f32 outputs (the
+   ring's diagonal blocks) at B1 H16 T4096 D128, timed;
+   head_dims: every instance (causal or not, bf16 or f32 out), forward
+   and backward, at head dims that are no tile's width (8, 24, 25, 40,
+   48, 80, 96, 112; 25 through the padded copy) and T 1, 127, 129, 257,
+   under the same tolerances and drift gate, each launch counted; head
+   dim 136 raises; the padded copy of D 25 timed against D 32; then
+   Phi-3-mini's attention (B4 H32 T2048 D96, causal) gated and timed
+   beside SDPA, its bound at the true head dim;
    ring_loopback: the 600M LM's attention at t8k (B1 H16 T8192 D128)
-   split into sp = 2 and 4 blocks, forward and backward through the
-   ring's block code and f32 merge on one card, counted (sp(sp+1)/2
-   launches each way, sp(sp-1)/2 non-causal); o, lse, dq, dk, dv under
-   the drift gate against f32 attention of the whole sequence; the
-   whole ring's time and each rank's share;
+   split into sp = 2 and 4 blocks, and the same shape at head dim 96
+   split in two, forward and backward through the ring's block code and
+   f32 merge on one card, counted (sp(sp+1)/2 launches each way,
+   sp(sp-1)/2 non-causal); o, lse, dq, dk, dv under the drift gate
+   against f32 attention of the whole sequence; the whole ring's time
+   and each rank's share;
 7. entry: the tiny entry-point forward (the reference's default
    attention, the ring, at sp = 1) on the card against the CPU;
    mnist: the MNIST payload (plain PyTorch ops) on the card, 40 Adam
    steps: held-out accuracy over 0.85 and within 1e-2 of the CPU's run
    of the same seed;
-   dryrun: ``entry.dryrun_multichip`` on every card (each rank a process
-   over NCCL): one dense step over ``default_axis_sizes(cards)`` (head
-   dim 16) and one MoE ep step, every rank counted, the losses finite,
-   positive and the same on every rank;
+   dryrun: ``entry.dryrun_multichip`` on every card and, with three
+   cards or more, on the first three (head dim 48; each rank a process
+   over NCCL): one dense step over ``default_axis_sizes(n)`` and one MoE
+   step, every rank counted, the losses finite, positive and the same on
+   every rank; dryrun_odd: the dense configs of 3 and 6 devices (head
+   dims 48 and 24) at a 1-device layout on the card, one counted step
+   each within 1e-3 of the CPU's;
 8. main path (serving): the payload ``smoke_test`` and the 600M-config
    LM forward (d_model 2048, 8 layers, 16 heads of 128, d_ff 8192, vocab
    32768, bf16 params, random weights from a seed) at the t2k and t8k
@@ -85,6 +90,14 @@ back:
 11. train_loop: ``lm.train`` on the card at the entry config with
    checkpoints every 2 steps, 4 steps then a resume to 6, the marker and
    the metrics report;
+   phi3: the LM at Phi-3-mini's published widths (d_model 3072, 32 heads
+   of 96, d_ff 8192, vocab 32064; random weights from a seed): the
+   forward at 32 layers, bf16 params, B4 T2048, counted, its logits
+   under the drift gate against the plain and f32 forwards, its ms,
+   tokens/s, MFU and peak memory; at 16 layers (the depth cut) every
+   gradient under the drift gate, then 3 train steps (f32 master,
+   AdamW), the first counted, the loss falling, step ms, tokens/s, MFU
+   and peak memory;
 12. trainer (the TrainJob worker payload): ``trainer.main()`` in this
    process as a one-rank gang, ``MODEL=lm`` at the 600M width and depth
    (f32 params, as the reference trainer's), B4 T2048, 3 steps, every
@@ -107,6 +120,9 @@ back:
    steps through the flash kernels, every counter set to 0 just before
    and read just after; its loss must fall and follow, step by step, the
    same trainer with plain attention (``LM_ATTN=local``);
+   trainer_lm_d96: the same with ``LM_D_MODEL=192 LM_HEADS=2`` (head dim
+   96), counted, its loss within 1e-3 of ``lm.train``'s in-process at
+   every step, the plain-attention trainer's beside it;
 15. demo: ``python -m kubernetes_tpu_torch.workloads.distributed_demo``
    on the card, 6 steps, and its exact final value;
 16. trainer_dp2: with two cards or more, two rank processes over NCCL,
@@ -118,16 +134,21 @@ back:
    sp = 2 at full depth, B1 T8192, 3 steps; with four cards also sp = 4
    and dp = 2 x sp = 2 at 2 layers. Every rank counted (rank i launches
    i + 1 blocks a ring call, i of them non-causal); the losses the same
-   on every rank and within 1e-3 relative of one card's steps at step 1,
-   5e-3 after; step ms, tokens/s, MFU and peak memory per card; each
+   on every rank and held by the mesh gate (``mesh_gate``): the bf16
+   mesh within 1e-3 relative of one card's bf16 step at step 1; an f32
+   witness (the mesh in f32 with the ring's plain version) within 1e-4
+   of one card's f32 steps at every step; after step 1 the bf16 mesh no
+   further from one card's f32 step than twice the larger distance from
+   it of one card's two bf16 paths (the flash kernels, plain attention);
+   step ms, tokens/s, MFU and peak memory per card; each
    rank's attention time and one K/V rotation's, and how much of the
    rotations the kernels hide. With one card, a line that says it was
    not run: ring_loopback has held the ring's arithmetic on that card;
    lm_fsdp_tp: with two cards or more, the 600M LM at full width and
    depth, B4 T2048, params sharded over fsdp and heads and FFN columns
    over tp: fsdp = 2 and tp = 2; with four cards also fsdp = 2 x tp = 2
-   and sp = 2 x tp = 2. Every rank counted; the losses under lm_sp's
-   gates; step ms, tokens/s and MFU per card, peak memory per card and
+   and sp = 2 x tp = 2. Every rank counted; the losses under the mesh
+   gate; step ms, tokens/s and MFU per card, peak memory per card and
    each rank's collectives per layer (the fsdp gather, the tp pair's
    all-reduces). With one card, a line that says it was not run;
    moe (the MoE, ``workloads/moe.py``, on one card): the reference's
@@ -146,12 +167,8 @@ back:
    moe_ep: with two cards or more, that MoE expert-parallel over NCCL,
    one rank process per card: ep = 2 at full depth; with four cards also
    ep = 2 x sp = 2, dp = 2 x ep = 2 and ep = 2 x tp = 2 at 2 layers.
-   Every rank counted; the losses the same on every rank; the bf16 mesh
-   within 1e-3 of one card's bf16 step at step 1; an f32 witness (the
-   mesh in f32 with the ring's plain version against one card in f32
-   with plain attention) within 1e-4 at every step; after step 1 the
-   bf16 mesh no further from one card's f32 step than twice one card's
-   bf16 step is. Step ms and peak memory per card, each rank's exchange
+   Every rank counted; the losses the same on every rank and under the
+   mesh gate. Step ms and peak memory per card, each rank's exchange
    time per layer and the f32 steps' seconds. With one card, a line that
    says it was not run;
 17. vector_add_device_us: ``device_us`` of K1 and of ``torch.add`` at
@@ -195,7 +212,8 @@ from kubernetes_tpu_torch.node import runtimehook
 from kubernetes_tpu_torch.perf import chip_bench
 from kubernetes_tpu_torch.perf.gates import drift, moe_layer_gate
 from kubernetes_tpu_torch.perf.launch_cost import host_us
-from kubernetes_tpu_torch.entry import dryrun_config, dryrun_multichip, entry
+from kubernetes_tpu_torch.entry import (dryrun_config, dryrun_inputs,
+                                         dryrun_multichip, entry)
 from kubernetes_tpu_torch.preemption import read_marker
 from kubernetes_tpu_torch.workloads import checkpoint as ckpt
 from kubernetes_tpu_torch.workloads import collectives
@@ -245,9 +263,32 @@ RING_SHAPES = ([(1, 2, t, d) for d in (16, 32, 64, 128)
 #: The causal instances with f32 outputs (the ring's diagonal blocks),
 #: timed at the t8k block at sp = 2.
 CAUSAL_F32_SHAPE = RING_TIMED_SHAPES[0]
-#: The loopback ring: the 600M LM's attention at t8k, split sp ways.
+#: The loopback ring: the 600M LM's attention at t8k, split sp ways; then
+#: the same shape at Phi-3-mini's head dim 96, split in two.
 LOOPBACK_SHAPE = (1, 16, 8192, 128)
 LOOPBACK_SPS = (2, 4)
+LOOPBACK_D96_SHAPE = (1, 16, 8192, 96)
+#: Head dims that are no tile's width (8 to 112; 25 not a multiple of 8,
+#: so through the padded copy) at T over the tile and TMA edges: every
+#: instance of both kernels against its plain version.
+HEAD_DIMS = (8, 24, 25, 40, 48, 80, 96, 112)
+HEAD_DIM_TS = (1, 127, 129, 257)
+#: Phi-3-mini's attention at its serving and training shape (B4 T2048,
+#: 32 heads of 96): the kernels line's D-96 rows.
+PHI3_ATTN_SHAPE = (4, 32, 2048, 96)
+#: Phi-3-mini's published widths (microsoft/Phi-3-mini-4k-instruct,
+#: config.json: hidden_size 3072, 32 attention and 32 KV heads,
+#: intermediate_size 8192, vocab_size 32064, 32 layers, rope_theta 10000,
+#: SwiGLU, RMSNorm), inheriting the reference LM's tied unembed and RoPE
+#: on interleaved pairs; served at full depth at PHI3_BATCH (B, T) and
+#: trained at PHI3_TRAIN_LAYERS, PHI3_STEPS steps.
+PHI3 = dict(vocab=32064, d_model=3072, n_layers=32, n_heads=32, d_ff=8192)
+PHI3_BATCH = (4, 2048)
+PHI3_TRAIN_LAYERS = 16
+PHI3_STEPS = 3
+#: Device counts with an odd factor whose dense dryrun config steps on
+#: one card at a 1-device layout: head dim 48 at 3, 24 at 6.
+DRYRUN_ODD = (3, 6)
 #: Train steps of each lm_sp run.
 LM_SP_STEPS = 3
 #: o against the plain version: both round o to bf16 and the kernel also
@@ -675,268 +716,6 @@ def check_host_path() -> None:
         us_runs={k: [first[k], second[k]] for k in pieces})
 
 
-def check_flash(gen, name: str) -> list[dict]:
-    results = {}
-    for b, h, t, d in FLASH_SHAPES:
-        q, k, v = (torch.randn((b, h, t, d), generator=gen, device="cuda")
-                   .to(torch.bfloat16) for _ in range(3))
-        before = fa.launches
-        o, lse = fa.flash_attention_fwd(q, k, v)
-        torch.cuda.synchronize()
-        if fa.launches != before + 1:
-            raise AssertionError("flash_attn_fwd did not count its launch")
-        o_ref, lse_ref = reference_attention_with_lse(q, k, v)
-        err = (o.float() - o_ref.float()).abs()
-        lse_err = float((lse - lse_ref).abs().max())
-        bad = int((err > O_ATOL + O_RTOL * o_ref.float().abs()).sum())
-        row = {"shape": [b, h, t, d], "max_abs_err": float(err.max()),
-               "lse_max_abs_err": lse_err, "o_outside_tol": bad}
-        if bad or not lse_err <= LSE_ATOL or not bool(torch.isfinite(o).all()):
-            raise AssertionError(f"flash_attn_fwd disagrees: {row}")
-        del o_ref, lse_ref, err
-        if (b, h, t, d) in TIMED_FLASH_SHAPES:
-            flops = 4.0 * b * h * d * t * (t + 1) / 2
-            nbytes = 4 * b * h * t * d * 2 + b * h * t * 4
-            row.update(timed(lambda: fa.flash_attention_fwd(q, k, v),
-                             lambda: reference_attention_with_lse(q, k, v),
-                             sdpa_forwards(q, k, v), 20))
-            add_bound(row, flops, nbytes, name)
-            row["host_us"] = host_us(lambda: fa.flash_attention_fwd(q, k, v),
-                                     ATTN_HOST_CALLS)
-            row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
-            torch.cuda.empty_cache()
-        results[(b, h, t, d)] = row
-    say("flash_attn", ok=True, o_atol=O_ATOL, o_rtol=O_RTOL,
-        lse_atol=LSE_ATOL, results=list(results.values()))
-    return [results[shape] for shape in TIMED_FLASH_SHAPES]
-
-
-def check_flash_bwd(gen, name: str) -> list[dict]:
-    """The backward kernel against the plain backward on the same bf16
-    inputs (o and lse from the forward kernel). Gate: each gradient's
-    deviation from the f32 gradient (the plain backward of f32 attention
-    at the unrounded f32 inputs) within 2x the largest and 1.5x the mean
-    deviation of the plain bf16 backward's."""
-    results = {}
-    for b, h, t, d in FLASH_SHAPES:
-        x32 = [torch.randn((b, h, t, d), generator=gen, device="cuda")
-               for _ in range(4)]
-        q, k, v, do = (x.to(torch.bfloat16) for x in x32)
-        o, lse = fa.flash_attention_fwd(q, k, v)
-        before = fa.bwd_launches
-        got = fa.flash_attention_bwd(q, k, v, o, lse, do)
-        torch.cuda.synchronize()
-        if fa.bwd_launches != before + 1:
-            raise AssertionError("flash_attn_bwd did not count its launch")
-        plain = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
-        o32, lse32 = reference_attention_with_lse(*x32[:3])
-        exact = fa.flash_attention_bwd_plain(*x32[:3], o32, lse32, x32[3])
-        del o32, lse32
-        row = {"shape": [b, h, t, d], "max_abs_err": max(
-            float((g.float() - p.float()).abs().max())
-            for g, p in zip(got, plain))}
-        for gname, g, p, e in zip(("dq", "dk", "dv"), got, plain, exact):
-            row[gname] = drift(g, p, e)
-            if gname in ("dq", "dk") and t == 1:
-                # At T = 1 a softmax over one key has no score gradient:
-                # dS, dq and dk are 0, and both deviations are f32
-                # rounding of the cancelling dP - delta, whose ratio says
-                # nothing. The kernel is held to O_ATOL of them, the
-                # bound the card tests keep against the plain version.
-                row[gname]["ok"] = row[gname]["max_abs_vs_f32"] <= O_ATOL
-            if not (row[gname]["ok"] and bool(torch.isfinite(g).all())):
-                raise AssertionError(f"flash_attn_bwd {gname} drifts: {row}")
-        del plain, exact, x32
-        if (b, h, t, d) in TIMED_FLASH_SHAPES:
-            flops = 10.0 * b * h * d * t * (t + 1) / 2
-            nbytes = 8 * b * h * t * d * 2 + b * h * t * 4
-            row.update(timed(
-                lambda: fa.flash_attention_bwd(q, k, v, o, lse, do),
-                lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do),
-                sdpa_backwards(q, k, v, do), 20))
-            add_bound(row, flops, nbytes, name)
-            row["host_us"] = host_us(
-                lambda: fa.flash_attention_bwd(q, k, v, o, lse, do),
-                ATTN_HOST_CALLS)
-            row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
-        del got, q, k, v, do, o, lse
-        torch.cuda.empty_cache()
-        results[(b, h, t, d)] = row
-    say("flash_attn_bwd", ok=True, results=list(results.values()))
-    return [results[shape] for shape in TIMED_FLASH_SHAPES]
-
-
-def check_ring_kernels(gen, name: str) -> tuple[list, list]:
-    """The non-causal instances that the ring runs (f32 outputs), forward
-    and backward, against their plain versions at RING_SHAPES: ``o`` and
-    ``lse`` to the forward's tolerances, each gradient to the backward's
-    drift gate against the f32 backward. Timed at RING_TIMED_SHAPES
-    beside SDPA with ``is_causal=False``. Returns the timed forward and
-    backward rows."""
-    f32 = torch.float32
-    fwd_rows, bwd_rows = {}, {}
-    for b, h, t, d in RING_SHAPES:
-        x32 = [torch.randn((b, h, t, d), generator=gen, device="cuda")
-               for _ in range(4)]
-        q, k, v, do = (x.to(torch.bfloat16) for x in x32)
-        before = counters()
-        o, lse = fa.flash_attention_fwd(q, k, v, causal=False, out_dtype=f32)
-        got = fa.flash_attention_bwd(q, k, v, o.to(q.dtype), lse, do,
-                                     causal=False, out_dtype=f32)
-        torch.cuda.synchronize()
-        after = counters()
-        counted = {key: after[key] - before[key] for key in after}
-        if counted != {**dict.fromkeys(counted, 0),
-                       "flash_attn_fwd_non_causal": 1,
-                       "flash_attn_bwd_non_causal": 1}:
-            raise AssertionError(f"non-causal launches counted {counted}")
-        o_ref, lse_ref = reference_attention_with_lse(q, k, v, causal=False,
-                                                      out_dtype=f32)
-        err = (o - o_ref).abs()
-        lse_err = float((lse - lse_ref).abs().max())
-        bad = int((err > O_ATOL + O_RTOL * o_ref.abs()).sum())
-        row = {"shape": [b, h, t, d], "out_dtype": "float32",
-               "max_abs_err": float(err.max()), "lse_max_abs_err": lse_err,
-               "o_outside_tol": bad}
-        if bad or not lse_err <= LSE_ATOL or not bool(torch.isfinite(o).all()):
-            raise AssertionError(f"non-causal flash_attn_fwd disagrees: {row}")
-        del o_ref, lse_ref, err
-        o = o.to(q.dtype)  # the backward takes the merged o in bf16
-        plain = fa.flash_attention_bwd_plain(q, k, v, o, lse, do,
-                                             causal=False, out_dtype=f32)
-        o32, lse32 = reference_attention_with_lse(*x32[:3], causal=False)
-        exact = fa.flash_attention_bwd_plain(*x32[:3], o32, lse32, x32[3],
-                                             causal=False)
-        del o32, lse32, x32
-        brow = {"shape": [b, h, t, d], "out_dtype": "float32",
-                "max_abs_err": max(float((g - p).abs().max())
-                                   for g, p in zip(got, plain))}
-        for gname, g, p, e in zip(("dq", "dk", "dv"), got, plain, exact):
-            brow[gname] = drift(g, p, e)
-            if gname in ("dq", "dk") and t == 1:
-                # As in check_flash_bwd: no score gradient at T = 1.
-                brow[gname]["ok"] = brow[gname]["max_abs_vs_f32"] <= O_ATOL
-            if not (brow[gname]["ok"] and bool(torch.isfinite(g).all())):
-                raise AssertionError(
-                    f"non-causal flash_attn_bwd {gname} drifts: {brow}")
-        del plain, exact, got
-        if (b, h, t, d) in RING_TIMED_SHAPES:
-            def kernel():
-                return fa.flash_attention_fwd(q, k, v, causal=False,
-                                              out_dtype=f32)
-
-            def kernel_bwd():
-                return fa.flash_attention_bwd(q, k, v, o, lse, do,
-                                              causal=False, out_dtype=f32)
-            n = b * h * t * d
-            row.update(timed(
-                kernel,
-                lambda: reference_attention_with_lse(q, k, v, causal=False,
-                                                     out_dtype=f32),
-                sdpa_forwards(q, k, v, causal=False), 20))
-            flops = 4.0 * b * h * d * t * t
-            # q, k, v bf16 in; o f32 and lse out.
-            add_bound(row, flops, 3 * n * 2 + n * 4 + b * h * t * 4, name)
-            row["host_us"] = host_us(kernel, ATTN_HOST_CALLS)
-            row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
-            brow.update(timed(
-                kernel_bwd,
-                lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do,
-                                                     causal=False,
-                                                     out_dtype=f32),
-                sdpa_backwards(q, k, v, do, causal=False), 20))
-            flops = 10.0 * b * h * d * t * t
-            # q, k, v, o, do bf16 and lse in; dq, dk, dv f32 out.
-            add_bound(brow, flops, 5 * n * 2 + 3 * n * 4 + b * h * t * 4,
-                      name)
-            brow["host_us"] = host_us(kernel_bwd, ATTN_HOST_CALLS)
-            brow["tflops"] = flops / (brow["ms"] * 1e-3) / 1e12
-        del q, k, v, do, o, lse
-        torch.cuda.empty_cache()
-        fwd_rows[(b, h, t, d)], bwd_rows[(b, h, t, d)] = row, brow
-    say("ring_kernels", ok=True, o_atol=O_ATOL, o_rtol=O_RTOL,
-        lse_atol=LSE_ATOL, forward=list(fwd_rows.values()),
-        backward=list(bwd_rows.values()))
-    return ([fwd_rows[shape] for shape in RING_TIMED_SHAPES],
-            [bwd_rows[shape] for shape in RING_TIMED_SHAPES])
-
-
-def check_causal_f32(gen, name: str) -> tuple[dict, dict]:
-    """The causal instances with f32 outputs, which the ring runs on its
-    diagonal blocks, at the 600M LM's t8k block at sp = 2
-    (CAUSAL_F32_SHAPE): the forward against its plain version to the
-    forward's tolerances, the backward to the drift gate against the f32
-    backward, each launch counted as causal; each timed beside causal
-    SDPA. Returns the forward and backward rows."""
-    b, h, t, d = CAUSAL_F32_SHAPE
-    f32 = torch.float32
-    x32 = [torch.randn(CAUSAL_F32_SHAPE, generator=gen, device="cuda")
-           for _ in range(4)]
-    q, k, v, do = (x.to(torch.bfloat16) for x in x32)
-    before = counters()
-    o, lse = fa.flash_attention_fwd(q, k, v, out_dtype=f32)
-    got = fa.flash_attention_bwd(q, k, v, o.to(q.dtype), lse, do,
-                                 out_dtype=f32)
-    torch.cuda.synchronize()
-    after = counters()
-    counted = {key: after[key] - before[key] for key in after}
-    if counted != causal_only(flash_attn_fwd=1, flash_attn_bwd=1):
-        raise AssertionError(f"causal f32-out launches counted {counted}")
-    o_ref, lse_ref = reference_attention_with_lse(q, k, v, out_dtype=f32)
-    err = (o - o_ref).abs()
-    lse_err = float((lse - lse_ref).abs().max())
-    bad = int((err > O_ATOL + O_RTOL * o_ref.abs()).sum())
-    row = {"shape": list(CAUSAL_F32_SHAPE), "out_dtype": "float32",
-           "max_abs_err": float(err.max()), "lse_max_abs_err": lse_err,
-           "o_outside_tol": bad}
-    if bad or not lse_err <= LSE_ATOL or not bool(torch.isfinite(o).all()):
-        raise AssertionError(f"causal f32-out flash_attn_fwd disagrees: {row}")
-    del o_ref, lse_ref, err
-    o = o.to(q.dtype)
-    plain = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, out_dtype=f32)
-    o32, lse32 = reference_attention_with_lse(*x32[:3])
-    exact = fa.flash_attention_bwd_plain(*x32[:3], o32, lse32, x32[3])
-    del o32, lse32, x32
-    brow = {"shape": list(CAUSAL_F32_SHAPE), "out_dtype": "float32",
-            "max_abs_err": max(float((g - p).abs().max())
-                               for g, p in zip(got, plain))}
-    for gname, g, p, e in zip(("dq", "dk", "dv"), got, plain, exact):
-        brow[gname] = drift(g, p, e)
-        if not (brow[gname]["ok"] and bool(torch.isfinite(g).all())):
-            raise AssertionError(
-                f"causal f32-out flash_attn_bwd {gname} drifts: {brow}")
-    del plain, exact, got
-
-    def kernel():
-        return fa.flash_attention_fwd(q, k, v, out_dtype=f32)
-
-    def kernel_bwd():
-        return fa.flash_attention_bwd(q, k, v, o, lse, do, out_dtype=f32)
-    n = b * h * t * d
-    row.update(timed(
-        kernel, lambda: reference_attention_with_lse(q, k, v, out_dtype=f32),
-        sdpa_forwards(q, k, v), 20))
-    flops = 4.0 * b * h * d * t * (t + 1) / 2
-    # q, k, v bf16 in; o f32 and lse out.
-    add_bound(row, flops, 3 * n * 2 + n * 4 + b * h * t * 4, name)
-    row["host_us"] = host_us(kernel, ATTN_HOST_CALLS)
-    row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
-    brow.update(timed(
-        kernel_bwd,
-        lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do,
-                                             out_dtype=f32),
-        sdpa_backwards(q, k, v, do), 20))
-    flops = 10.0 * b * h * d * t * (t + 1) / 2
-    # q, k, v, o, do bf16 and lse in; dq, dk, dv f32 out.
-    add_bound(brow, flops, 5 * n * 2 + 3 * n * 4 + b * h * t * 4, name)
-    brow["host_us"] = host_us(kernel_bwd, ATTN_HOST_CALLS)
-    brow["tflops"] = flops / (brow["ms"] * 1e-3) / 1e12
-    del q, k, v, do, o, lse
-    torch.cuda.empty_cache()
-    say("causal_f32", ok=True, forward=row, backward=brow)
-    return row, brow
-
-
 def rank_backward(q, held, o, lse, do, i: int, n: int):
     """Rank ``i``'s share of a ring's backward without the rotations:
     its blocks' launches (``held``: the (k, v) it holds after s
@@ -948,17 +727,16 @@ def rank_backward(q, held, o, lse, do, i: int, n: int):
     return acc
 
 
-def check_ring_loopback(gen) -> dict:
-    """The 600M LM's attention at t8k (LOOPBACK_SHAPE, bf16) split into
-    sp = 2 and 4 blocks, forward and backward through the ring's block
-    code and merge on one card (``ring_attention.loopback_*``), counted:
-    sp(sp+1)/2 launches each way, sp(sp-1)/2 of them non-causal. o, lse,
-    dq, dk and dv against f32 attention of the whole sequence, no
-    further from it than the plain bf16 path (2x its largest, 1.5x its
-    mean deviation). Times the whole loopback and each rank's share.
-    Returns the launches."""
-    b, h, t, d = LOOPBACK_SHAPE
-    x32 = [torch.randn(LOOPBACK_SHAPE, generator=gen, device="cuda")
+def check_ring_loopback(gen, shape: tuple, sps: tuple) -> dict:
+    """Attention at ``shape`` (bf16) split into each of ``sps`` blocks,
+    forward and backward through the ring's block code and merge on one
+    card (``ring_attention.loopback_*``), counted: sp(sp+1)/2 launches
+    each way, sp(sp-1)/2 of them non-causal. o, lse, dq, dk and dv
+    against f32 attention of the whole sequence, no further from it than
+    the plain bf16 path (2x its largest, 1.5x its mean deviation). Times
+    the whole loopback and each rank's share. Returns the launches."""
+    b, h, t, d = shape
+    x32 = [torch.randn(shape, generator=gen, device="cuda")
            for _ in range(4)]
     q, k, v, do = (x.to(torch.bfloat16) for x in x32)
     o32, lse32 = reference_attention_with_lse(*x32[:3])
@@ -974,7 +752,7 @@ def check_ring_loopback(gen) -> dict:
     torch.cuda.empty_cache()
     total = dict.fromkeys(counters(), 0)
     runs = []
-    for sp in LOOPBACK_SPS:
+    for sp in sps:
         qs, ks, vs, dos = ([blk.contiguous() for blk in x.chunk(sp, dim=2)]
                            for x in (q, k, v, do))
         torch.cuda.synchronize()
@@ -1022,10 +800,194 @@ def check_ring_loopback(gen) -> dict:
                      "backward_ms": bwd_ms, "per_rank": shares, **rows})
         del qs, ks, vs, dos, os_, lses
         torch.cuda.empty_cache()
-    say("ring_loopback", ok=True, shape=list(LOOPBACK_SHAPE), runs=runs)
+    say("ring_loopback", ok=True, shape=list(shape), runs=runs)
     del plain, exact
     torch.cuda.empty_cache()
     return total
+
+
+def gate_instance(x32: list, causal: bool, out_dtype) -> tuple[dict, dict]:
+    """One launch of each kernel's instance (causal or not, bf16 or f32
+    out) on the bf16 rounding of ``x32`` ([q, k, v, do], f32), counted,
+    against the plain versions: ``o`` and ``lse`` to the forward's
+    tolerances, each gradient under the drift gate against the f32
+    backward at the unrounded inputs (at T = 1, dq and dk within O_ATOL,
+    as in :func:`check_flash_bwd`). Returns the forward and backward
+    rows; raises on a miss."""
+    q, k, v, do = (x.to(torch.bfloat16) for x in x32)
+    suffix = "" if causal else "_non_causal"
+    before = counters()
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, out_dtype)
+    got = fa.flash_attention_bwd(q, k, v, o.to(q.dtype), lse, do, causal,
+                                 out_dtype)
+    torch.cuda.synchronize()
+    after = counters()
+    counted = {key: after[key] - before[key] for key in after}
+    if counted != causal_only(**{f"flash_attn_fwd{suffix}": 1,
+                                 f"flash_attn_bwd{suffix}": 1}):
+        raise AssertionError(f"launches counted {counted}")
+    what = {"shape": list(q.shape), "causal": causal,
+            "out_dtype": _dtype_name(out_dtype)}
+    o_ref, lse_ref = reference_attention_with_lse(q, k, v, causal, out_dtype)
+    err = (o.float() - o_ref.float()).abs()
+    lse_err = float((lse - lse_ref).abs().max())
+    bad = int((err > O_ATOL + O_RTOL * o_ref.float().abs()).sum())
+    row = {**what, "max_abs_err": float(err.max()),
+           "lse_max_abs_err": lse_err, "o_outside_tol": bad}
+    if bad or not lse_err <= LSE_ATOL or o.shape != q.shape \
+            or not bool(torch.isfinite(o).all()):
+        raise AssertionError(f"flash_attn_fwd disagrees: {row}")
+    del o_ref, lse_ref, err
+    o = o.to(q.dtype)
+    plain = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal,
+                                         out_dtype)
+    o32, lse32 = reference_attention_with_lse(*x32[:3], causal)
+    exact = fa.flash_attention_bwd_plain(*x32[:3], o32, lse32, x32[3],
+                                         causal)
+    del o32, lse32
+    brow = {**what, "max_abs_err": max(float((g.float() - p.float())
+                                             .abs().max())
+                                       for g, p in zip(got, plain))}
+    for gname, g, p, e in zip(("dq", "dk", "dv"), got, plain, exact):
+        brow[gname] = drift(g, p, e)
+        if gname in ("dq", "dk") and q.shape[2] == 1:
+            brow[gname]["ok"] = brow[gname]["max_abs_vs_f32"] <= O_ATOL
+        if not (brow[gname]["ok"] and g.shape == q.shape
+                and bool(torch.isfinite(g).all())):
+            raise AssertionError(f"flash_attn_bwd {gname} drifts: {brow}")
+    return row, brow
+
+
+def _ratio(row: dict) -> float:
+    """A drift row's largest deviation over the plain version's."""
+    plain = row["plain_max_abs_vs_f32"]
+    return row["max_abs_vs_f32"] / plain if plain else 0.0
+
+
+def time_instance(row: dict, brow: dict, x32: list, causal: bool, out_dtype,
+                  name: str) -> None:
+    """Times the instance's forward and backward (from its forward's o
+    and lse) at the bf16 rounding of ``x32`` beside SDPA of the same
+    causality, into ``row`` and ``brow``: ms (CUDA events, in turns with
+    each library call), plain_ms, library_ms, the bound at these shapes
+    (q, k, v, dO in bf16; o, dq, dk, dv in ``out_dtype``; lse f32),
+    host_us and TFLOP/s."""
+    q, k, v, do = (x.to(torch.bfloat16) for x in x32)
+    b, h, t, d = q.shape
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, out_dtype)
+    o = o.to(q.dtype)
+    n, out = b * h * t * d, torch.finfo(out_dtype).bits // 8
+    flops = 4.0 * b * h * d * t * ((t + 1) / 2 if causal else t)
+
+    def kernel():
+        return fa.flash_attention_fwd(q, k, v, causal, out_dtype)
+
+    def kernel_bwd():
+        return fa.flash_attention_bwd(q, k, v, o, lse, do, causal, out_dtype)
+    row.update(timed(kernel, lambda: reference_attention_with_lse(
+        q, k, v, causal, out_dtype), sdpa_forwards(q, k, v, causal), 20))
+    add_bound(row, flops, 3 * n * 2 + n * out + b * h * t * 4, name)
+    row["host_us"] = host_us(kernel, ATTN_HOST_CALLS)
+    row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
+    brow.update(timed(kernel_bwd, lambda: fa.flash_attention_bwd_plain(
+        q, k, v, o, lse, do, causal, out_dtype),
+        sdpa_backwards(q, k, v, do, causal), 20))
+    add_bound(brow, 2.5 * flops, 5 * n * 2 + 3 * n * out + b * h * t * 4,
+              name)
+    brow["host_us"] = host_us(kernel_bwd, ATTN_HOST_CALLS)
+    brow["tflops"] = 2.5 * flops / (brow["ms"] * 1e-3) / 1e12
+
+
+def check_instances(gen, name: str, phase: str, shapes: list,
+                    timed_shapes: list, causal: bool,
+                    out_dtype) -> tuple[list, list]:
+    """Both kernels' instance (causal or not, bf16 or f32 out) at each of
+    ``shapes`` under :func:`gate_instance`, timed at ``timed_shapes`` by
+    :func:`time_instance`; says ``phase`` with every forward and backward
+    row. Returns the timed forward and backward rows, in
+    ``timed_shapes``' order."""
+    fwd, bwd = {}, {}
+    for shape in shapes:
+        x32 = [torch.randn(shape, generator=gen, device="cuda")
+               for _ in range(4)]
+        row, brow = gate_instance(x32, causal, out_dtype)
+        if shape in timed_shapes:
+            time_instance(row, brow, x32, causal, out_dtype, name)
+        del x32
+        torch.cuda.empty_cache()
+        fwd[shape], bwd[shape] = row, brow
+    say(phase, ok=True, o_atol=O_ATOL, o_rtol=O_RTOL, lse_atol=LSE_ATOL,
+        forward=list(fwd.values()), backward=list(bwd.values()))
+    return ([fwd[shape] for shape in timed_shapes],
+            [bwd[shape] for shape in timed_shapes])
+
+
+def check_head_dims(gen, name: str) -> tuple[dict, dict]:
+    """The kernels at head dims that are no tile's width: every instance
+    (causal or not, bf16 or f32 out), forward and backward, at
+    HEAD_DIMS x HEAD_DIM_TS under :func:`gate_instance`; head dim 136
+    raises and launches nothing; the padded copy of head dim 25 timed
+    against the D-32 launch it pads to; then Phi-3-mini's attention
+    (PHI3_ATTN_SHAPE, causal, bf16) gated and timed beside SDPA, its
+    bound at the true head dim. Returns the timed forward and backward
+    rows."""
+    cases = []
+    for d in HEAD_DIMS:
+        for t in HEAD_DIM_TS:
+            for causal in (True, False):
+                for out_dtype in (torch.bfloat16, torch.float32):
+                    x32 = [torch.randn((1, 2, t, d), generator=gen,
+                                       device="cuda") for _ in range(4)]
+                    row, brow = gate_instance(x32, causal, out_dtype)
+                    # d, t, causal, out, o and lse errors, and each
+                    # gradient's largest deviation over the plain one's.
+                    cases.append([d, t, causal, row["out_dtype"],
+                                  row["max_abs_err"], row["lse_max_abs_err"],
+                                  *(_ratio(brow[g]) for g in ("dq", "dk",
+                                                              "dv"))])
+    before = counters()
+    wide = torch.zeros((1, 2, 8, 136), device="cuda", dtype=torch.bfloat16)
+    try:
+        fa.flash_attention_fwd(wide, wide, wide)
+    except ValueError as err:
+        refused = str(err)
+    else:
+        raise AssertionError("head dim 136 launched")
+    if counters() != before:
+        raise AssertionError("head dim 136 counted a launch")
+    padded = {}
+    for d in (25, 32):
+        shape = PHI3_ATTN_SHAPE[:3] + (d,)
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                       .to(torch.bfloat16) for _ in range(4))
+        o, lse = fa.flash_attention_fwd(q, k, v)
+        padded[d] = {
+            "forward_ms": time_ms(lambda: fa.flash_attention_fwd(q, k, v),
+                                  20),
+            "backward_ms": time_ms(
+                lambda: fa.flash_attention_bwd(q, k, v, o, lse, do), 20)}
+        if d == 25:
+            padded[d]["copy_ms"] = time_ms(lambda: [
+                F.pad(x, (0, 7)) for x in (q, k, v, o, do)], 20)
+        del q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+
+    x32 = [torch.randn(PHI3_ATTN_SHAPE, generator=gen, device="cuda")
+           for _ in range(4)]
+    row, brow = gate_instance(x32, True, torch.bfloat16)
+    time_instance(row, brow, x32, True, torch.bfloat16, name)
+    del x32
+    torch.cuda.empty_cache()
+    say("head_dims", ok=True, head_dims=list(HEAD_DIMS),
+        ts=list(HEAD_DIM_TS), o_atol=O_ATOL, o_rtol=O_RTOL,
+        lse_atol=LSE_ATOL,
+        cases_fields=["d", "t", "causal", "out_dtype", "o_max_abs_err",
+                      "lse_max_abs_err", "dq_max_dev_over_plain",
+                      "dk_max_dev_over_plain", "dv_max_dev_over_plain"],
+        cases=cases, d136=refused,
+        padded_d25_vs_d32={f"d{d}": v for d, v in padded.items()},
+        phi3_forward=row, phi3_backward=brow)
+    return row, brow
 
 
 def check_entry() -> None:
@@ -1066,15 +1028,26 @@ def check_mnist() -> None:
 
 
 def check_dryrun() -> dict:
-    """``entry.dryrun_multichip`` on every card of this host (each rank
-    a process over NCCL): one dense train step over
-    ``default_axis_sizes(cards)`` and one MoE ep step, counted on every
-    rank. A dense step makes 2 x layers ring forwards and layers ring
-    backwards at each rank's H / tp heads (head dim 16), the MoE's 2 x
-    its layers and its layers; the rank at sp index i launches i + 1
-    blocks a ring call, i of them non-causal. Returns the launches over
-    all ranks."""
-    n = torch.cuda.device_count()
+    """``entry.dryrun_multichip`` on every card of this host and, with
+    three cards or more, on the first three (head dim 48): each at n
+    cards :func:`check_dryrun_on`. Returns the launches over all
+    ranks."""
+    cards = torch.cuda.device_count()
+    total = dict.fromkeys(counters(), 0)
+    for n in sorted({cards, 3} if cards >= 3 else {cards}):
+        for key, count in check_dryrun_on(n).items():
+            total[key] += count
+    return total
+
+
+def check_dryrun_on(n: int) -> dict:
+    """``entry.dryrun_multichip(n)`` (each rank a process over NCCL, on
+    the first n cards): one dense train step over
+    ``default_axis_sizes(n)`` and one MoE step, counted on every rank. A
+    dense step makes 2 x layers ring forwards and layers ring backwards
+    at each rank's H / tp heads, the MoE's 2 x its layers and its layers;
+    the rank at sp index i launches i + 1 blocks a ring call, i of them
+    non-causal. Returns the launches over all ranks."""
     run = dryrun_config(n)
     t0 = time.perf_counter()
     ranks = dryrun_multichip(n)
@@ -1103,6 +1076,44 @@ def check_dryrun() -> dict:
         loss=losses.pop(), moe_loss=moe_losses.pop(), seconds=seconds,
         ranks=[{k: out[k] for k in ("rank", "coordinate", "moe_coordinate",
                                     "launches")} for out in ranks])
+    return total
+
+
+def check_dryrun_odd() -> dict:
+    """The dense dryrun configs of DRYRUN_ODD device counts at a 1-device
+    layout on the card: one train step from the dryrun's params and
+    batch (drawn on the host), the ring at sp 1 through the kernels at
+    head dim 48 and 24, counted (2 x layers forward and layers backward
+    causal launches); its loss within 1e-3 relative of the same step's
+    on the CPU. Returns the launches."""
+    total = dict.fromkeys(counters(), 0)
+    rows = []
+    for n in DRYRUN_ODD:
+        run = dryrun_config(n)
+        inputs = dryrun_inputs(run, "cpu")
+        losses = {}
+        for device in ("cpu", "cuda"):
+            # A copy each: the step updates its params in place.
+            params = lm._tree_map(lambda x: x.to(device, copy=True),
+                                  inputs["params"])
+            step = lm.make_train_step(run.cfg, device=device)
+            opt_state = lm.init_opt_state(params, run.cfg)
+            batch = inputs["batch"].to(device)
+            zero_counters()
+            losses[device] = float(step(params, opt_state, batch)[2])
+        launches = counters()
+        want = causal_only(flash_attn_fwd=2 * run.cfg.n_layers,
+                           flash_attn_bwd=run.cfg.n_layers)
+        rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+        row = {"n": n, "head_dim": run.cfg.head_dim, "batch": run.batch,
+               "seq": run.seq, "loss": losses["cuda"],
+               "cpu_loss": losses["cpu"], "rel": rel, "launches": launches}
+        if launches != want or not rel <= 1e-3:
+            raise AssertionError(f"dryrun_odd: {row}, want {want}")
+        for key, count in launches.items():
+            total[key] += count
+        rows.append(row)
+    say("dryrun_odd", ok=True, layout="1 device", runs=rows)
     return total
 
 
@@ -1552,6 +1563,32 @@ LM_ENV_NAMES = ("LM_VOCAB", "LM_D_MODEL", "LM_LAYERS", "LM_HEADS",
 DEFAULT_LM_STEPS = 4
 
 
+def trainer_lm_runs(tmp: str, **lm_env) -> tuple[dict, lm.LMConfig]:
+    """``trainer.main()`` as a gang of one under a TrainJob's env as the
+    reference controller writes it, MODEL=lm and no ``LM_*`` but
+    ``lm_env``, DEFAULT_LM_STEPS steps, through the flash kernels and
+    with plain attention (``LM_ATTN=local``), each counted: ``{attn:
+    {rc, losses, launches, attn_impl}}`` and the flash run's config."""
+    runs, cfgs = {}, {}
+    for attn in ("flash", "local"):
+        env = gang_of_one(MODEL="lm", TOTAL_STEPS=str(DEFAULT_LM_STEPS),
+                          CHECKPOINT_EVERY="0",
+                          CKPT_DIR=os.path.join(tmp, attn), KTPU_SANDBOX=tmp,
+                          **{**dict.fromkeys(LM_ENV_NAMES), **lm_env})
+        if attn == "local":
+            env["LM_ATTN"] = "local"
+        with environ(env):
+            cfgs[attn] = trainer.lm_config(torch.device("cuda"))
+            with step_losses() as losses:
+                zero_counters()
+                rc = trainer.main()
+                torch.cuda.synchronize()
+                launches = counters()
+        runs[attn] = {"rc": rc, "losses": losses, "launches": launches,
+                      "attn_impl": cfgs[attn].attn_impl}
+    return runs, cfgs["flash"]
+
+
 def check_trainer_default_lm() -> dict:
     """A TrainJob's env as the reference controller writes it: MODEL=lm
     and no ``LM_*``, so head dim 16, through the flash kernels,
@@ -1559,26 +1596,9 @@ def check_trainer_default_lm() -> dict:
     same trainer's with plain attention at every step, as in
     :func:`check_trainer_group` (bf16 rounds at other places in the
     two). Returns its launches."""
-    runs, cfgs = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
-        for attn in ("flash", "local"):
-            env = gang_of_one(MODEL="lm", TOTAL_STEPS=str(DEFAULT_LM_STEPS),
-                              CHECKPOINT_EVERY="0",
-                              CKPT_DIR=os.path.join(tmp, attn),
-                              KTPU_SANDBOX=tmp,
-                              **dict.fromkeys(LM_ENV_NAMES))
-            if attn == "local":
-                env["LM_ATTN"] = "local"
-            with environ(env):
-                cfgs[attn] = trainer.lm_config(torch.device("cuda"))
-                with step_losses() as losses:
-                    zero_counters()
-                    rc = trainer.main()
-                    torch.cuda.synchronize()
-                    launches = counters()
-            runs[attn] = {"rc": rc, "losses": losses, "launches": launches,
-                          "attn_impl": cfgs[attn].attn_impl}
-    flash, local, cfg = runs["flash"], runs["local"], cfgs["flash"]
+        runs, cfg = trainer_lm_runs(tmp)
+    flash, local = runs["flash"], runs["local"]
     want = causal_only(flash_attn_fwd=2 * cfg.n_layers * DEFAULT_LM_STEPS,
                        flash_attn_bwd=cfg.n_layers * DEFAULT_LM_STEPS)
     losses = flash["losses"]
@@ -1593,6 +1613,39 @@ def check_trainer_default_lm() -> dict:
         launches_per_step={k: v // DEFAULT_LM_STEPS
                            for k, v in flash["launches"].items()},
         losses=losses, plain_attention_losses=local["losses"])
+    return flash["launches"]
+
+
+def check_trainer_lm_d96() -> dict:
+    """The TrainJob env at head dim 96 (``LM_D_MODEL=192 LM_HEADS=2``, the
+    other ``LM_*`` the trainer's defaults): ``trainer.main()`` through the
+    flash kernels, counted; its loss within 1e-3 relative of
+    ``lm.train``'s in this process on the same config, batch and steps at
+    every step, as :func:`check_trainer` holds the 600M trainer. Its
+    losses beside the plain-attention trainer's are a reading of bf16
+    rounding (the kernels at head dim 96 are held by ``head_dims`` and
+    ``phi3``). Returns its launches."""
+    with tempfile.TemporaryDirectory() as tmp:
+        runs, cfg = trainer_lm_runs(tmp, LM_D_MODEL="192", LM_HEADS="2")
+        with step_losses() as direct:
+            lm.train(cfg, steps=DEFAULT_LM_STEPS, batch=4, seq=16,
+                     ckpt_dir=os.path.join(tmp, "direct"),
+                     checkpoint_every=0)
+    flash, local = runs["flash"], runs["local"]
+    want = causal_only(flash_attn_fwd=2 * cfg.n_layers * DEFAULT_LM_STEPS,
+                       flash_attn_bwd=cfg.n_layers * DEFAULT_LM_STEPS)
+    losses = flash["losses"]
+    if flash["rc"] != 0 or flash["launches"] != want or cfg.head_dim != 96 \
+            or not losses_agree(losses, direct, 1e-3):
+        raise AssertionError(f"trainer_lm_d96: {runs}, lm.train {direct}, "
+                             f"want {want}, head dim {cfg.head_dim}")
+    say("trainer_lm_d96", ok=True, head_dim=cfg.head_dim,
+        n_layers=cfg.n_layers, n_heads=cfg.n_heads, d_model=cfg.d_model,
+        steps=DEFAULT_LM_STEPS, launches=flash["launches"], losses=losses,
+        direct_train_losses=direct,
+        plain_attention_losses=local["losses"],
+        plain_attention_rel=[abs(g - w) / abs(w) for g, w in
+                             zip(losses, local["losses"])])
     return flash["launches"]
 
 
@@ -1729,14 +1782,29 @@ def ring_overlap(mesh, block: tuple, device="cuda") -> dict:
     return row
 
 
+def mesh_witness(cfg: lm.LMConfig, run: dict, mesh, device="cuda") -> dict:
+    """The witness of a mesh run: the same LM_SP_STEPS steps in f32
+    (params and compute) with the ring's plain version
+    (``ring_attention.gathered_attention``: the kernels take bf16 alone);
+    its losses and seconds."""
+    ring = ra.ring_of(mesh)
+    out = timed_steps(lm_f32(cfg), run["batch"], run["seq"], mesh, device,
+                      lambda q, k, v: ra.gathered_attention(q, k, v, ring))
+    torch.cuda.empty_cache()
+    return {"f32_losses": out["losses"], "f32_seconds": out["seconds"]}
+
+
 def lm_sp_rank(run: dict, device="cuda") -> dict:
     """One rank of an lm_sp run (``run``: dp, sp, n_layers, batch, seq)
     in a process group of ``dp * sp`` ranks: LM_SP_STEPS train steps over
-    a dp x sp mesh, then :func:`ring_overlap` at one layer's block."""
+    a dp x sp mesh, their f32 witness (:func:`mesh_witness`), then
+    :func:`ring_overlap` at one layer's block."""
     cfg = lm_sp_cfg(run["n_layers"])
     mesh = sharding.make_mesh(device_type=device, dp=run["dp"],
                               sp=run["sp"])
     out = timed_steps(cfg, run["batch"], run["seq"], mesh, device)
+    torch.cuda.empty_cache()
+    out.update(mesh_witness(cfg, run, mesh, device))
     block = (run["batch"] // run["dp"], cfg.n_heads,
              run["seq"] // run["sp"], cfg.head_dim)
     return {"rank": dist.get_rank(), "coordinate": dict(zip(
@@ -1812,29 +1880,85 @@ def lm_sp_runs(cards: int) -> list:
     return runs
 
 
-def check_lm_sp(peak: float, known: bool) -> dict:
-    """With two cards or more, the 600M LM sequence-parallel over NCCL
-    (:func:`lm_sp_runs`, rank processes of :func:`lm_sp_rank`), counted
-    on every rank: 2 x layers ring forwards and layers ring backwards a
-    step, rank i launching i + 1 blocks each (i of them non-causal). Its
-    losses against one card's steps of the same config (the
-    ``lm-600m-t8k-flash`` shape: flash attention, seeds 0 and 1): 1e-3
-    relative at step 1, 5e-3 after. Step ms, tokens/s and MFU per card,
-    peak memory per card, and each rank's attention and K/V rotation
-    times. With one card, a line that says it was not run. Returns the
-    launches over all ranks."""
-    total = dict.fromkeys(counters(), 0)
-    cards = torch.cuda.device_count()
-    if cards < 2:
-        say("lm_sp", skipped="one card")
-        return total
-    for run in lm_sp_runs(cards):
-        cfg = lm_sp_cfg(run["n_layers"])
-        one = timed_steps(dataclasses.replace(cfg, attn_impl="flash"),
-                          run["batch"], run["seq"])
+def mesh_gate(mesh: dict, one: dict) -> dict:
+    """The gate of one mesh run of lm_sp, lm_fsdp_tp or moe_ep, on its
+    losses by step. ``mesh`` holds the mesh's ``bf16`` steps (through the
+    kernels) and its ``f32`` witness; ``one`` one card's steps of the
+    same config and batch in three paths: ``bf16`` (the flash kernels),
+    ``plain`` (plain attention in their place, bf16) and ``f32`` (plain
+    attention, f32 compute).
+
+    - Step 1: the bf16 mesh within 1e-3 relative of one card's bf16 step.
+    - Every step: the witness within 1e-4 relative of one card's f32
+      step, where a fault of the layout (a block, a gather, a sum, a
+      route) shows.
+    - After step 1, the floored drift rule: the bf16 mesh no further from
+      one card's f32 step than twice ``scale``, the larger distance from
+      it of one card's two bf16 paths, which differ only in rounding. One
+      path alone can land near f32 by chance and give no floor; two
+      rarely both do.
+
+    Returns the numbers and ``ok``."""
+    bf, f, one_f = mesh["bf16"], mesh["f32"], one["f32"]
+    n = len(one_f)
+    row = {"step1_rel": abs(bf[0] - one["bf16"][0]) / abs(one["bf16"][0]),
+           "f32_rel": [abs(g - w) / abs(w) for g, w in zip(f, one_f)],
+           "bf16_from_f32": [abs(g - w) for g, w in zip(bf, one_f)],
+           "one_card_from_f32": {p: [abs(g - w) for g, w in zip(one[p],
+                                                                one_f)]
+                                 for p in ("bf16", "plain")}}
+    row["scale"] = [max(row["one_card_from_f32"][p][s]
+                        for p in ("bf16", "plain")) for s in range(n)]
+    row["drift_share"] = [m / (2 * s) if s else math.inf
+                          for m, s in zip(row["bf16_from_f32"],
+                                          row["scale"])][1:]
+    row["ok"] = (
+        len(bf) == len(f) == n == len(one["bf16"]) == len(one["plain"])
+        and all(map(math.isfinite, bf + f))
+        and row["step1_rel"] <= 1e-3
+        and all(r <= 1e-4 for r in row["f32_rel"])
+        and all(m <= 2 * s for m, s in zip(row["bf16_from_f32"][1:],
+                                           row["scale"][1:])))
+    return row
+
+
+def lm_one_card(cfg: lm.LMConfig, batch: int, seq: int) -> dict:
+    """One card's LM_SP_STEPS steps of ``cfg`` on the global batch in the
+    three paths :func:`mesh_gate` reads (``bf16``, ``plain``, ``f32``),
+    each :func:`timed_steps`' result."""
+    paths = {"bf16": dataclasses.replace(cfg, attn_impl="flash"),
+             "plain": dataclasses.replace(cfg, attn_impl="local"),
+             "f32": dataclasses.replace(lm_f32(cfg), attn_impl="local")}
+    out = {}
+    for name, path in paths.items():
+        out[name] = timed_steps(path, batch, seq)
         torch.cuda.empty_cache()
-        world = run["dp"] * run["sp"]
-        ranks = run_mesh("lm_sp_rank", run, world)
+    return out
+
+
+def check_lm_mesh(phase: str, runs: list, rank_fn: str, rank_keys: tuple,
+                  peak: float, known: bool) -> dict:
+    """The LM (``lm_sp_cfg``: bf16 params with an f32 master, the ring)
+    over NCCL in each of ``runs`` (the four axis sizes, n_layers, batch,
+    seq), rank processes of ``rank_fn``, counted on every rank: 2 x
+    layers ring forwards and layers ring backwards a step, the rank at
+    sp index i launching i + 1 blocks each (i of them non-causal). Its
+    losses the same on every rank and held by :func:`mesh_gate` against
+    one card's steps of the same config and batch (seeds 0 and 1,
+    :func:`lm_one_card`). Step ms, tokens/s and MFU per card against one
+    card's, peak memory per card, the witness's seconds and each rank's
+    ``rank_keys``. Every run is reported before a run that misses fails
+    the phase. Returns the launches over all ranks."""
+    total = dict.fromkeys(counters(), 0)
+    failed, ones = [], {}
+    for run in runs:
+        cfg = lm_sp_cfg(run["n_layers"])
+        key = (run["n_layers"], run["batch"], run["seq"])
+        if key not in ones:
+            ones[key] = lm_one_card(cfg, run["batch"], run["seq"])
+        one = ones[key]
+        world = math.prod(run.get(a, 1) for a in sharding.AXES)
+        ranks = run_mesh(rank_fn, run, world)
         for out in ranks:
             i, layers = out["coordinate"]["sp"], cfg.n_layers * LM_SP_STEPS
             want = causal_only(
@@ -1842,43 +1966,62 @@ def check_lm_sp(peak: float, known: bool) -> dict:
                 flash_attn_fwd_non_causal=2 * layers * i,
                 flash_attn_bwd_non_causal=layers * i)
             if out["launches"] != want:
-                raise AssertionError(f"lm_sp {run['name']} rank "
+                raise AssertionError(f"{phase} {run['name']} rank "
                                      f"{out['rank']}: launches "
                                      f"{out['launches']}, want {want}")
-            for key, count in out["launches"].items():
-                total[key] += count
-        losses = [out["losses"] for out in ranks]
-        want = one["losses"]
-        ok = all(got == losses[0] for got in losses) and all(
-            math.isfinite(g) and abs(g - w) <= (1e-3 if n == 0 else 5e-3)
-            * abs(w) for n, (g, w) in enumerate(zip(losses[0], want)))
-        if not ok or len(losses[0]) != LM_SP_STEPS:
-            raise AssertionError(f"lm_sp {run['name']}: losses {losses}, "
-                                 f"one card {want}")
+            for k, count in out["launches"].items():
+                total[k] += count
+        losses = {"bf16": ranks[0]["losses"], "f32": ranks[0]["f32_losses"]}
+        gate = mesh_gate(losses, {p: one[p]["losses"] for p in one})
+        ok = gate["ok"] and all(
+            out["losses"] == losses["bf16"]
+            and out["f32_losses"] == losses["f32"] for out in ranks)
+        if not ok:
+            failed.append(f"{run['name']}: {losses}, gate {gate}")
         ms = max(sum(out["step_ms"][1:]) / (LM_SP_STEPS - 1)
                  for out in ranks)
-        one_ms = sum(one["step_ms"][1:]) / (LM_SP_STEPS - 1)
+        one_ms = sum(one["bf16"]["step_ms"][1:]) / (LM_SP_STEPS - 1)
         ntok = run["batch"] * run["seq"]
         case = chip_bench.BenchCase(run["name"], cfg.d_model, cfg.n_layers,
                                     cfg.n_heads, cfg.d_ff, cfg.vocab,
                                     run["batch"], run["seq"])
         flops = chip_bench.train_flops_per_token(case) * ntok
-        say("lm_sp", ok=True, **run, cards=world, losses=losses[0],
-            one_card_losses=want, step_ms=ms, one_card_step_ms=one_ms,
+        say(phase, ok=ok, **run, cards=world, losses=losses["bf16"],
+            f32_losses=losses["f32"],
+            one_card_losses={p: one[p]["losses"] for p in one}, gate=gate,
+            f32_seconds=max(out["f32_seconds"] for out in ranks),
+            one_card_f32_seconds=one["f32"]["seconds"],
+            one_card_host_ms=one["bf16"]["host_ms"],
+            step_ms=ms, one_card_step_ms=one_ms,
             step_timed="steps 2-3, host clock to each loss's read, slowest "
             "rank", tokens_per_s_per_card=ntok / (ms * 1e-3) / world,
             one_card_tokens_per_s=ntok / (one_ms * 1e-3),
             mfu_per_card=flops / (ms * 1e-3) / world / peak,
             one_card_mfu=flops / (one_ms * 1e-3) / peak, peak_known=known,
-            one_card_peak_memory_gb=one["peak_memory_gb"],
+            one_card_peak_memory_gb=one["bf16"]["peak_memory_gb"],
             ranks=[{k: out[k] for k in (
                 "rank", "coordinate", "step_ms", "host_ms", "peak_memory_gb",
-                "launches", "rotation_ms", "blocks_forward_ms",
-                "ring_forward_ms", "ring_forward_host_ms",
-                "blocks_backward_ms", "ring_backward_ms", "hidden_share")}
-                for out in ranks], one_card_host_ms=one["host_ms"])
+                "launches", *rank_keys)} for out in ranks])
         torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"{phase} losses: {failed}")
     return total
+
+
+def check_lm_sp(peak: float, known: bool) -> dict:
+    """With two cards or more, the 600M LM sequence-parallel over NCCL
+    (:func:`lm_sp_runs`, rank processes of :func:`lm_sp_rank`) under
+    :func:`check_lm_mesh`, with each rank's attention and K/V rotation
+    times. With one card, a line that says it was not run. Returns the
+    launches over all ranks."""
+    if torch.cuda.device_count() < 2:
+        say("lm_sp", skipped="one card")
+        return dict.fromkeys(counters(), 0)
+    return check_lm_mesh(
+        "lm_sp", lm_sp_runs(torch.cuda.device_count()), "lm_sp_rank",
+        ("rotation_ms", "blocks_forward_ms", "ring_forward_ms",
+         "ring_forward_host_ms", "blocks_backward_ms", "ring_backward_ms",
+         "hidden_share"), peak, known)
 
 
 def lm_fsdp_tp_runs(cards: int) -> list:
@@ -1925,20 +2068,14 @@ def lm_fsdp_tp_rank(run: dict, device="cuda") -> dict:
     """One rank of an lm_fsdp_tp run (``run``: the four axis sizes,
     n_layers, batch, seq): LM_SP_STEPS bf16 train steps over the mesh
     through the kernels (:func:`timed_steps`, counted; each rank its
-    blocks of params, master and AdamW state), the same steps in f32 with
-    the ring's plain version (``ring_attention.gathered_attention``: the
-    kernels take bf16 alone), then :func:`layer_collectives_ms`."""
+    blocks of params, master and AdamW state), their f32 witness
+    (:func:`mesh_witness`), then :func:`layer_collectives_ms`."""
     cfg = lm_sp_cfg(run["n_layers"])
     sizes = {a: run[a] for a in sharding.AXES}
     mesh = sharding.make_mesh(device_type=device, **sizes)
     out = timed_steps(cfg, run["batch"], run["seq"], mesh, device)
     torch.cuda.empty_cache()
-    ring = ra.ring_of(mesh)
-    witness = timed_steps(
-        lm_f32(cfg), run["batch"], run["seq"], mesh, device,
-        lambda q, k, v: ra.gathered_attention(q, k, v, ring))
-    out.update(f32_losses=witness["losses"], f32_seconds=witness["seconds"])
-    torch.cuda.empty_cache()
+    out.update(mesh_witness(cfg, run, mesh, device))
     params, _ = lm.init_sharded(torch.Generator(device).manual_seed(0),
                                 dataclasses.replace(cfg, n_layers=1), mesh)
     out.update(layer_collectives_ms(
@@ -1949,117 +2086,20 @@ def lm_fsdp_tp_rank(run: dict, device="cuda") -> dict:
 
 
 def check_lm_fsdp_tp(peak: float, known: bool) -> dict:
-    """With two cards or more, the 600M LM (bf16 params with an f32
-    master, the ring) with params sharded over fsdp and heads and FFN
-    columns over tp, over NCCL (:func:`lm_fsdp_tp_runs`, rank processes
-    of :func:`lm_fsdp_tp_rank`), counted on every rank: 2 x layers ring
-    forwards and layers ring backwards a step, the rank at sp index i
-    launching i + 1 blocks each (i of them non-causal) at its H / tp
-    heads. Its losses the same on every rank and within 1e-3 relative of
-    one card's steps of the same config (flash attention, seeds 0 and 1)
-    at step 1, 5e-3 after, as lm_sp's. The f32 witness: the mesh's steps
-    in f32 (params and compute, ``gathered_attention``) within 1e-4
-    relative of one card's f32 steps (plain attention) at every step,
-    where a fault of the layout (a block, a gather, a tp sum, a
-    gradient's direction) shows. Beside the gates, each bf16 step's
-    distance from one card's f32 step against one card's bf16 step's (the
-    drift rule's reading), and one card's bf16 steps with plain attention
-    against its flash ones and its f32 ones: the spread of one card's own
-    bf16 rounding. Step ms, tokens/s and MFU per card, peak memory per
-    card, the collectives' ms per layer, each rank's launches and the
-    witness's seconds. Every run is reported before a run that misses
-    fails the phase. With one card, a line that says it was not run.
-    Returns the launches over all ranks."""
-    total = dict.fromkeys(counters(), 0)
-    cards = torch.cuda.device_count()
-    if cards < 2:
+    """With two cards or more, the 600M LM with params sharded over fsdp
+    and heads and FFN columns over tp, over NCCL (:func:`lm_fsdp_tp_runs`,
+    rank processes of :func:`lm_fsdp_tp_rank`) under
+    :func:`check_lm_mesh`, with each rank's collectives per layer. With
+    one card, a line that says it was not run. Returns the launches over
+    all ranks."""
+    if torch.cuda.device_count() < 2:
         say("lm_fsdp_tp", skipped="one card")
-        return total
-    one, failed = None, []
-    for run in lm_fsdp_tp_runs(cards):
-        cfg = lm_sp_cfg(run["n_layers"])
-        if one is None:  # every run's config and batch are the same
-            one = timed_steps(dataclasses.replace(cfg, attn_impl="flash"),
-                              run["batch"], run["seq"])
-            torch.cuda.empty_cache()
-            exact = timed_steps(dataclasses.replace(
-                lm_f32(cfg), attn_impl="local"), run["batch"], run["seq"])
-            torch.cuda.empty_cache()
-            plain = timed_steps(dataclasses.replace(cfg, attn_impl="local"),
-                                run["batch"], run["seq"])
-            torch.cuda.empty_cache()
-        world = math.prod(run[a] for a in sharding.AXES)
-        ranks = run_mesh("lm_fsdp_tp_rank", run, world)
-        for out in ranks:
-            i, layers = out["coordinate"]["sp"], cfg.n_layers * LM_SP_STEPS
-            want = causal_only(
-                flash_attn_fwd=2 * layers, flash_attn_bwd=layers,
-                flash_attn_fwd_non_causal=2 * layers * i,
-                flash_attn_bwd_non_causal=layers * i)
-            if out["launches"] != want:
-                raise AssertionError(f"lm_fsdp_tp {run['name']} rank "
-                                     f"{out['rank']}: launches "
-                                     f"{out['launches']}, want {want}")
-            for key, count in out["launches"].items():
-                total[key] += count
-        losses = [out["losses"] for out in ranks]
-        want = one["losses"]
-        ok = all(got == losses[0] for got in losses) and all(
-            math.isfinite(g) and abs(g - w) <= (1e-3 if n == 0 else 5e-3)
-            * abs(w) for n, (g, w) in enumerate(zip(losses[0], want)))
-        ok = ok and len(losses[0]) == LM_SP_STEPS
-        if not ok:
-            failed.append(f"{run['name']}: losses {losses}, one card {want}")
-        f32 = ranks[0]["f32_losses"]
-        f32_rel = [abs(g - w) / abs(w) for g, w in zip(f32, exact["losses"])]
-        witness_ok = (len(f32) == LM_SP_STEPS
-                      and all(out["f32_losses"] == f32 for out in ranks)
-                      and all(map(math.isfinite, f32))
-                      and all(r <= 1e-4 for r in f32_rel))
-        if not witness_ok:
-            failed.append(f"{run['name']}: f32 witness {f32}, one card's "
-                          f"f32 {exact['losses']}")
-        ms = max(sum(out["step_ms"][1:]) / (LM_SP_STEPS - 1)
-                 for out in ranks)
-        one_ms = sum(one["step_ms"][1:]) / (LM_SP_STEPS - 1)
-        ntok = run["batch"] * run["seq"]
-        case = chip_bench.BenchCase(run["name"], cfg.d_model, cfg.n_layers,
-                                    cfg.n_heads, cfg.d_ff, cfg.vocab,
-                                    run["batch"], run["seq"])
-        flops = chip_bench.train_flops_per_token(case) * ntok
-        say("lm_fsdp_tp", ok=ok and witness_ok, bf16_gate_ok=ok,
-            witness_ok=witness_ok, **run, cards=world, losses=losses[0],
-            one_card_losses=want, relative_diffs=[
-                abs(g - w) / abs(w) for g, w in zip(losses[0], want)],
-            f32_losses=f32, f32_rel=f32_rel,
-            f32_seconds=max(out["f32_seconds"] for out in ranks),
-            one_card_f32_seconds=exact["seconds"],
-            one_card_f32_losses=exact["losses"],
-            bf16_from_f32=[abs(g - w) for g, w in zip(losses[0],
-                                                      exact["losses"])],
-            one_card_bf16_from_f32=[abs(g - w) for g, w in zip(
-                want, exact["losses"])],
-            one_card_plain_bf16_losses=plain["losses"],
-            one_card_plain_bf16_from_f32=[abs(g - w) for g, w in zip(
-                plain["losses"], exact["losses"])],
-            one_card_plain_bf16_rel=[abs(g - w) / abs(w) for g, w in zip(
-                plain["losses"], want)],
-            one_card_host_ms=one["host_ms"],
-            step_ms=ms, one_card_step_ms=one_ms,
-            step_timed="steps 2-3, host clock to each loss's read, slowest "
-            "rank", tokens_per_s_per_card=ntok / (ms * 1e-3) / world,
-            one_card_tokens_per_s=ntok / (one_ms * 1e-3),
-            mfu_per_card=flops / (ms * 1e-3) / world / peak,
-            one_card_mfu=flops / (one_ms * 1e-3) / peak, peak_known=known,
-            one_card_peak_memory_gb=one["peak_memory_gb"],
-            ranks=[{k: out[k] for k in (
-                "rank", "coordinate", "step_ms", "host_ms", "peak_memory_gb",
-                "launches", "fsdp_gather_ms", "fsdp_gather_bytes",
-                "tp_allreduce_ms", "tp_allreduce_bytes")} for out in ranks])
-        torch.cuda.empty_cache()
-    if failed:
-        raise AssertionError(f"lm_fsdp_tp losses: {failed}")
-    return total
+        return dict.fromkeys(counters(), 0)
+    return check_lm_mesh(
+        "lm_fsdp_tp", lm_fsdp_tp_runs(torch.cuda.device_count()),
+        "lm_fsdp_tp_rank", ("fsdp_gather_ms", "fsdp_gather_bytes",
+                            "tp_allreduce_ms", "tp_allreduce_bytes"),
+        peak, known)
 
 
 def moe_cfg(n_layers: int) -> moe.MoEConfig:
@@ -2302,30 +2342,129 @@ def moe_ep_runs(cards: int) -> list:
     return runs
 
 
-def moe_ep_gate(losses: dict, one: dict) -> dict:
-    """The moe_ep gate of one run: ``losses`` and ``one`` hold the mesh's
-    and one card's ``bf16`` and ``f32`` losses by step. The bf16 mesh
-    within 1e-3 relative of one card's bf16 step at step 1; the f32 mesh
-    (the witness) within 1e-4 relative of one card's f32 step at every
-    step, where a fault of routing, capacity, exchange or gradient sums
-    shows; after step 1 the bf16 mesh by the drift rule
-    (``perf/gates.py``): no further from one card's f32 step than twice
-    one card's bf16 step is. Returns the numbers and ``ok``."""
-    bf, f, one_bf, one_f = (losses["bf16"], losses["f32"], one["bf16"],
-                            one["f32"])
-    row = {"step1_rel": abs(bf[0] - one_bf[0]) / abs(one_bf[0]),
-           "f32_rel": [abs(g - w) / abs(w) for g, w in zip(f, one_f)],
-           "bf16_from_f32": [abs(g - w) for g, w in zip(bf, one_f)],
-           "one_card_bf16_from_f32": [abs(g - w)
-                                      for g, w in zip(one_bf, one_f)]}
-    row["ok"] = (
-        len(bf) == len(f) == MOE_EP_STEPS
-        and all(map(math.isfinite, bf + f))
-        and row["step1_rel"] <= 1e-3
-        and all(r <= 1e-4 for r in row["f32_rel"])
-        and all(m <= 2 * o for m, o in zip(row["bf16_from_f32"][1:],
-                                           row["one_card_bf16_from_f32"][1:])))
-    return row
+def check_phi3(peak: float, known: bool) -> dict:
+    """The LM at Phi-3-mini's published widths (PHI3; head dim 96, so the
+    kernels' W-128 instances with columns 96-127 zero), random weights
+    from a seed, through the entry points a user calls. Serving:
+    ``lm.make_forward`` at full depth, bf16 params, B4 T2048, counted (one
+    causal launch a layer); its logits no further from the f32 forward
+    than the plain bf16 forward is (``perf/gates.drift``); forward ms,
+    tokens/s, MFU, peak memory. Training at PHI3_TRAIN_LAYERS (the depth
+    cut): every gradient of the kernel path under the same rule against
+    an f32 plain-attention step, then ``lm.make_train_step`` (f32 master,
+    AdamW) for PHI3_STEPS steps on one batch, the first counted (2 x
+    layers forward and layers backward launches), the loss falling; step
+    ms, tokens/s, MFU, peak memory. Returns the launches of the counted
+    forward and step."""
+    b, t = PHI3_BATCH
+    cfg = lm.LMConfig(**PHI3, param_dtype=torch.bfloat16, attn_impl="flash")
+    case = chip_bench.BenchCase("phi3-mini-t2k", cfg.d_model, cfg.n_layers,
+                                cfg.n_heads, cfg.d_ff, cfg.vocab, b, t)
+    params = lm.init_params(torch.Generator("cuda").manual_seed(0), cfg)
+    tokens = lm.synthetic_batch(torch.Generator("cuda").manual_seed(1), cfg,
+                                b, t)[:, :-1]
+    forward = lm.make_forward(cfg)
+    local = lm.make_forward(dataclasses.replace(cfg, attn_impl="local"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    logits = forward(params, tokens)
+    torch.cuda.synchronize()
+    fwd_launches = counters()
+    fwd_peak = torch.cuda.max_memory_allocated() / 1e9
+    if fwd_launches != causal_only(flash_attn_fwd=cfg.n_layers) \
+            or logits.shape != (b, t, cfg.vocab) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"phi3 forward: {tuple(logits.shape)}, "
+                             f"launches {fwd_launches}")
+    plain = local(params, tokens)
+    exact = lm.make_forward(dataclasses.replace(
+        cfg, attn_impl="local", compute_dtype=torch.float32))(params, tokens)
+    errs = {"max_abs_vs_plain": float((logits - plain).abs().max()),
+            **drift(logits, plain, exact)}
+    del plain, exact, logits
+    if not errs.pop("ok"):
+        raise AssertionError(f"phi3 forward drifts: {errs}")
+    ms = time_ms(lambda: forward(params, tokens), 5)
+    plain_ms = time_ms(lambda: local(params, tokens), 2, 1)
+    ntok = b * t
+    flops = chip_bench.forward_flops_per_token(case) * ntok
+    say("phi3_forward", ok=True, batch=b, seq=t, **PHI3,
+        head_dim=cfg.head_dim, params=chip_bench.matmul_params(case),
+        flash_launches=fwd_launches["flash_attn_fwd"], forward_ms=ms,
+        plain_attention_forward_ms=plain_ms,
+        tokens_per_s=ntok / (ms * 1e-3), mfu=flops / (ms * 1e-3) / peak,
+        peak_known=known, forward_bound_ms=flops / peak * 1e3,
+        peak_memory_gb=fwd_peak, **errs)
+    del params, forward, local
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(cfg, n_layers=PHI3_TRAIN_LAYERS)
+    case = dataclasses.replace(case, n_layers=PHI3_TRAIN_LAYERS)
+    params = lm.init_params(torch.Generator("cuda").manual_seed(0), cfg)
+    batch = lm.synthetic_batch(torch.Generator("cuda").manual_seed(1), cfg,
+                               b, t)
+    grads = {"kernel": lm.loss_and_grads(params, batch, cfg)[1],
+             "plain": lm.loss_and_grads(params, batch, dataclasses.replace(
+                 cfg, attn_impl="local"))[1]}
+    params = lm._tree_map(lambda p: p.float(), params)
+    grads["f32"] = lm.loss_and_grads(params, batch, dataclasses.replace(
+        cfg, attn_impl="local", param_dtype=torch.float32,
+        compute_dtype=torch.float32))[1]
+    del params
+    worst = {}
+    for path, g_k, g_p, g_32 in zip(
+            _paths(grads["kernel"]), *(lm._leaves(grads[p])
+                                       for p in ("kernel", "plain", "f32"))):
+        row = drift(g_k, g_p, g_32)
+        if not (row["ok"] and bool(torch.isfinite(g_k).all())):
+            raise AssertionError(f"phi3 gradient {path} drifts: {row}")
+        worst[path] = _ratio(row)
+    del grads
+    torch.cuda.empty_cache()
+    params, opt_state = lm.init_train_state(
+        torch.Generator("cuda").manual_seed(0), cfg)
+    step = lm.make_train_step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    params, opt_state, loss = step(params, opt_state, batch)
+    torch.cuda.synchronize()
+    train_launches = counters()
+    want = causal_only(flash_attn_fwd=2 * cfg.n_layers,
+                       flash_attn_bwd=cfg.n_layers)
+    if train_launches != want:
+        raise AssertionError(f"phi3 train step launches {train_launches}, "
+                             f"want {want}")
+    losses = [loss]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(1, PHI3_STEPS):
+        params, opt_state, loss = step(params, opt_state, batch)
+        losses.append(loss)
+    end.record()
+    end.synchronize()
+    step_ms = start.elapsed_time(end) / (PHI3_STEPS - 1)
+    losses = [float(x) for x in losses]
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"phi3: loss does not fall: {losses}")
+    flops = chip_bench.train_flops_per_token(case) * ntok
+    say("phi3_train", ok=True, batch=b, seq=t,
+        **dict(PHI3, n_layers=cfg.n_layers),
+        cut=f"depth {PHI3['n_layers']} -> {cfg.n_layers}",
+        params=chip_bench.matmul_params(case),
+        launches_per_step=train_launches, losses=losses, step_ms=step_ms,
+        step_timed=f"steps 2-{PHI3_STEPS}, CUDA events",
+        tokens_per_s=ntok / (step_ms * 1e-3),
+        mfu=flops / (step_ms * 1e-3) / peak, peak_known=known,
+        train_bound_ms=flops / peak * 1e3,
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        grads_max_dev_over_plain=max(worst.values()),
+        grads_worst_leaf=max(worst, key=worst.get))
+    del params, opt_state, step, batch
+    torch.cuda.empty_cache()
+    return {k: fwd_launches[k] + train_launches[k] for k in fwd_launches}
 
 
 def check_moe_ep(peak: float, known: bool) -> dict:
@@ -2334,8 +2473,9 @@ def check_moe_ep(peak: float, known: bool) -> dict:
     counted on every rank: a bf16 step makes 2 x layers ring forwards and
     layers ring backwards, the rank at sp index i launching i + 1 blocks
     each (i of them non-causal). Its losses the same on every rank and
-    held by :func:`moe_ep_gate` against one card's steps (seeds 0 and 1) in
-    bf16 and in f32 with plain attention. Step ms and tokens/s per card,
+    held by :func:`mesh_gate` against one card's steps (seeds 0 and 1)
+    through the kernels, with plain attention in bf16 and with plain
+    attention in f32. Step ms and tokens/s per card,
     peak memory per card, each rank's exchange time per layer, and the
     seconds of the f32 steps. Every run is reported before a run that
     misses fails the phase. With one card, a line that says it was not
@@ -2349,13 +2489,16 @@ def check_moe_ep(peak: float, known: bool) -> dict:
     for run in moe_ep_runs(cards):
         cfg = moe_cfg(run["n_layers"])
         if run["n_layers"] not in ones:
-            bf16 = moe_steps(cfg, run["batch"], run["seq"])
-            torch.cuda.empty_cache()
-            exact = moe_steps(f32(cfg), run["batch"], run["seq"],
-                              attention=ra.reference_attention)
-            torch.cuda.empty_cache()
-            ones[run["n_layers"]] = (bf16, exact)
-        one, exact = ones[run["n_layers"]]
+            ones[run["n_layers"]] = {}
+            for path, c, attention in (
+                    ("bf16", cfg, None),
+                    ("plain", cfg, ra.reference_attention),
+                    ("f32", f32(cfg), ra.reference_attention)):
+                ones[run["n_layers"]][path] = moe_steps(
+                    c, run["batch"], run["seq"], attention=attention)
+                torch.cuda.empty_cache()
+        paths = ones[run["n_layers"]]
+        one, exact = paths["bf16"], paths["f32"]
         world = run["dp"] * run["ep"] * run["sp"] * run["tp"]
         ranks = run_mesh("moe_ep_rank", run, world)
         for out in ranks:
@@ -2371,8 +2514,7 @@ def check_moe_ep(peak: float, known: bool) -> dict:
             for key, count in out["launches"].items():
                 total[key] += count
         losses = {"bf16": ranks[0]["losses"], "f32": ranks[0]["f32_losses"]}
-        gate = moe_ep_gate(losses, {"bf16": one["losses"],
-                                 "f32": exact["losses"]})
+        gate = mesh_gate(losses, {p: paths[p]["losses"] for p in paths})
         ok = gate["ok"] and all(
             out["losses"] == losses["bf16"]
             and out["f32_losses"] == losses["f32"] for out in ranks)
@@ -2385,8 +2527,9 @@ def check_moe_ep(peak: float, known: bool) -> dict:
         flops = chip_bench.moe_flops(cfg, run["batch"], run["seq"])
         model, executed = 3 * flops["model"], 3 * flops["executed"]
         say("moe_ep", ok=ok, **run, cards=world, losses=losses["bf16"],
-            one_card_losses=one["losses"], f32_losses=losses["f32"],
-            one_card_f32_losses=exact["losses"], gate=gate,
+            f32_losses=losses["f32"],
+            one_card_losses={p: paths[p]["losses"] for p in paths},
+            gate=gate,
             f32_seconds=max(out["f32_seconds"] for out in ranks),
             one_card_f32_seconds=exact["seconds"],
             step_ms=ms, one_card_step_ms=one_ms,
@@ -2443,16 +2586,35 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     va_rows = check_vector_add(gen, name)
     check_host_path()
-    fa_rows = check_flash(gen, name)
-    bwd_rows = check_flash_bwd(gen, name)
-    ring_fwd_rows, ring_bwd_rows = check_ring_kernels(gen, name)
-    causal_f32_rows = check_causal_f32(gen, name)
-    # The ring's block arithmetic at t8k on one card, counted inside.
-    loopback_launches = check_ring_loopback(gen)
+    # Each instance against its plain versions: causal bf16 (the LM's),
+    # non-causal f32-out (the ring's blocks before their queries), causal
+    # f32-out (the ring's diagonal blocks); each timed at its main shapes.
+    fa_rows, bwd_rows = check_instances(
+        gen, name, "flash_attn", FLASH_SHAPES, TIMED_FLASH_SHAPES, True,
+        torch.bfloat16)
+    ring_fwd_rows, ring_bwd_rows = check_instances(
+        gen, name, "ring_kernels", RING_SHAPES, RING_TIMED_SHAPES, False,
+        torch.float32)
+    causal_f32_rows = check_instances(
+        gen, name, "causal_f32", [CAUSAL_F32_SHAPE], [CAUSAL_F32_SHAPE], True,
+        torch.float32)
+    # Every instance at head dims that are no tile's width; Phi-3-mini's
+    # attention timed.
+    phi3_attn_rows = check_head_dims(gen, name)
+    # The ring's block arithmetic at t8k on one card, at head dims 128
+    # and 96, counted inside.
+    loopback_launches = check_ring_loopback(gen, LOOPBACK_SHAPE,
+                                            LOOPBACK_SPS)
+    for key, count in check_ring_loopback(gen, LOOPBACK_D96_SHAPE,
+                                          (2,)).items():
+        loopback_launches[key] += count
     check_entry()
     check_mnist()
-    # dryrun_multichip on every card, counted on every rank inside.
+    # dryrun_multichip on every card (and on three of them), then the
+    # odd-factor configs on one card, counted inside.
     dryrun_launches = check_dryrun()
+    for key, count in check_dryrun_odd().items():
+        dryrun_launches[key] += count
 
     # The main path, counted: every counter to 0 just before, read after.
     cases = [chip_bench.case(c) for c in MAIN_CASES]
@@ -2517,11 +2679,14 @@ def main() -> int:
         base, cases + [chip_bench.case(c) for c in RING_CASES], peak, known)
     check_train_grads(base)
     check_train_loop()
+    # The LM at Phi-3-mini's widths (head dim 96), counted inside.
+    phi3_launches = check_phi3(peak, known)
 
     # The TrainJob worker payload, counted inside check_trainer; then the
     # trainer's group, resume and demo paths and, with two cards, dp.
     trainer_launches = check_trainer(peak, known)
     default_lm_launches = check_trainer_default_lm()
+    trainer_d96_launches = check_trainer_lm_d96()
     world_1_losses = check_trainer_group()
     check_trainer_resume()
     check_demo()
@@ -2537,6 +2702,8 @@ def main() -> int:
     by_path = {k: {"node": node_launches[k], "forward": launches[k],
                    "train": train_launches[k], "trainer": trainer_launches[k],
                    "trainer_default_lm": default_lm_launches[k],
+                   "trainer_lm_d96": trainer_d96_launches[k],
+                   "phi3": phi3_launches[k],
                    "ring_loopback": loopback_launches[k],
                    "dryrun": dryrun_launches[k],
                    "lm_sp": lm_sp_launches[k],
@@ -2582,17 +2749,28 @@ def main() -> int:
              "source": "kubernetes_tpu_torch/csrc/flash_attn_bwd.cu",
              "replaces": "kubernetes_tpu/workloads/lm.py:193-197, 232-236",
              "at": at, **{k: bwd_row[k] for k in keys}}]
+    # Phi-3-mini's attention: head dim 96 on the W-128 instances.
+    at = "B{} H{} T{} D{} bf16, causal (Phi-3-mini)".format(*PHI3_ATTN_SHAPE)
+    kernels += [
+        {"name": "flash_attn_fwd", "route": "cuda",
+         "source": "kubernetes_tpu_torch/csrc/flash_attn_fwd.cu",
+         "replaces": "kubernetes_tpu/workloads/lm.py:163-239",
+         "at": at, **{k: phi3_attn_rows[0][k] for k in keys}},
+        {"name": "flash_attn_bwd", "route": "cuda",
+         "source": "kubernetes_tpu_torch/csrc/flash_attn_bwd.cu",
+         "replaces": "kubernetes_tpu/workloads/lm.py:193-197, 232-236",
+         "at": at, **{k: phi3_attn_rows[1][k] for k in keys}}]
     # The causal instances with f32 outputs: the ring's diagonal blocks.
     at = "B{} H{} T{} D{} bf16 in, f32 out, causal".format(*CAUSAL_F32_SHAPE)
     kernels += [
         {"name": "flash_attn_fwd", "route": "cuda",
          "source": "kubernetes_tpu_torch/csrc/flash_attn_fwd.cu",
          "replaces": "kubernetes_tpu/workloads/lm.py:163-239",
-         "at": at, **{k: causal_f32_rows[0][k] for k in keys}},
+         "at": at, **{k: causal_f32_rows[0][0][k] for k in keys}},
         {"name": "flash_attn_bwd", "route": "cuda",
          "source": "kubernetes_tpu_torch/csrc/flash_attn_bwd.cu",
          "replaces": "kubernetes_tpu/workloads/lm.py:193-197, 232-236",
-         "at": at, **{k: causal_f32_rows[1][k] for k in keys}}]
+         "at": at, **{k: causal_f32_rows[1][0][k] for k in keys}}]
     for kern in kernels:
         kern["launches"] = sum(by_path[kern["name"]].values())
         kern["launches_by_path"] = by_path[kern["name"]]

@@ -42,7 +42,7 @@
 // Design (FlashAttention-2's split into three kernels, no atomics: every
 // output element has one writer, so the result is deterministic;
 // building blocks in hopper.cuh):
-//   1. delta kernel: rowsum(do * o) in f32, D/8 threads per row.
+//   1. delta kernel: rowsum(do * o) in f32, W/8 threads per row.
 //   2. dK/dV kernel: one block per (128-key tile, head, batch). K and V
 //      stay in shared memory for the whole loop. A producer warp
 //      TMA-loads the Q and dO tiles of 64 queries into a two-stage ring
@@ -54,7 +54,7 @@
 //      then dV += P^T dO and dK += dS^T Q with A from registers (the
 //      accumulator layout of S^T is the A layout) and Q, dO as
 //      transposed B operands. dK and dV take 128 f32 registers per
-//      thread at D128; `setmaxnreg` gives the consumers 240, and at D128
+//      thread at W 128; `setmaxnreg` gives the consumers 240, and at W 128
 //      each q-tile is taken in two passes of 32 queries, so S^T, dP^T
 //      and their bf16 parts fit beside the accumulators without spills.
 //   3. dQ kernel: one block per (128-query tile, head, batch). Q and dO
@@ -66,6 +66,13 @@
 // too; their own dK and dV rows are never stored. Causal, they lie after
 // every valid query, so the causal mask hides them from dQ; non-causal,
 // a mask of their own does (with K = V = 0 they would add 0 anyway).
+//
+// Head dims, as in the forward: the tile width W (16, 32, 64 or 128) is
+// the template parameter, the head dim D (a multiple of 8 up to 128) an
+// argument, run by the smallest W >= D. Columns D..W-1 of every tile
+// arrive as zeros from TMA, so S, dP and the products are those of D
+// columns and dq, dk, dv have zero columns there, which are not stored;
+// the delta kernel reads the D columns of each row at stride D.
 #include <math.h>
 
 #include "common.cuh"
@@ -85,19 +92,20 @@ constexpr int kKeyTile = 64;    // dQ kernel: keys per ring tile
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kDeltaThreads = 128;
 
-// delta[r] = sum_d do[r, d] * o[r, d] in f32, for rows = B * H * T rows.
-template <int D>
+// delta[r] = sum_d do[r, d] * o[r, d] in f32, for rows = B * H * T rows
+// of D columns; W / 8 threads a row, of which the first D / 8 read.
+template <int W>
 __global__ void __launch_bounds__(kDeltaThreads)
 flash_bwd_delta_kernel(const uint16_t* __restrict__ o,
                        const uint16_t* __restrict__ dout,
-                       float* __restrict__ delta, int64_t rows) {
-  constexpr int kLanes = D / 8;  // threads per row, 16 bytes each
+                       float* __restrict__ delta, int64_t rows, int D) {
+  constexpr int kLanes = W / 8;  // threads per row, 16 bytes each
   constexpr int kRows = kDeltaThreads / kLanes;
   const int64_t row = static_cast<int64_t>(blockIdx.x) * kRows +
                       threadIdx.x / kLanes;
   const int part = threadIdx.x % kLanes;
   float sum = 0.f;
-  if (row < rows) {
+  if (row < rows && part * 8 < D) {
     const uint4 a = *reinterpret_cast<const uint4*>(o + row * D + part * 8);
     const uint4 b = *reinterpret_cast<const uint4*>(dout + row * D + part * 8);
     const __nv_bfloat162* pa = reinterpret_cast<const __nv_bfloat162*>(&a);
@@ -119,14 +127,14 @@ flash_bwd_delta_kernel(const uint16_t* __restrict__ o,
 
 // dK/dV kernel shared memory, from a 1024-byte aligned base: K, V, then
 // per stage Q, dO, lse, delta (padded to 1024 B), then the barriers.
-template <int D>
+template <int W>
 struct DkvSmem {
   static constexpr int kK = 0;
-  static constexpr int kV = Tile<D>::bytes(kKeyBlock);
-  static constexpr int kStage0 = 2 * Tile<D>::bytes(kKeyBlock);
+  static constexpr int kV = Tile<W>::bytes(kKeyBlock);
+  static constexpr int kStage0 = 2 * Tile<W>::bytes(kKeyBlock);
   static constexpr int kQ = 0;  // offsets within a stage
-  static constexpr int kDo = Tile<D>::bytes(kQTile);
-  static constexpr int kLse = 2 * Tile<D>::bytes(kQTile);
+  static constexpr int kDo = Tile<W>::bytes(kQTile);
+  static constexpr int kLse = 2 * Tile<W>::bytes(kQTile);
   static constexpr int kDelta = kLse + kQTile * 4;
   static constexpr int kStage = (kDelta + kQTile * 4 + 1023) / 1024 * 1024;
   static constexpr int kBar = kStage0 + kStages * kStage;
@@ -134,7 +142,7 @@ struct DkvSmem {
   static constexpr int kAlloc = kBar + 8 * (1 + 2 * kStages) + 1024;
 };
 
-template <int D, bool kCausal, typename Out>
+template <int W, bool kCausal, typename Out>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
@@ -143,8 +151,8 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta,
                       Out* __restrict__ dk, Out* __restrict__ dv,
-                      int T, float scale, float scale_log2) {
-  using L = DkvSmem<D>;
+                      int T, int D, float scale, float scale_log2) {
+  using L = DkvSmem<W>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -181,9 +189,9 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
       // rows of lse and delta.
       const int lane = threadIdx.x - kConsumers;
       if (lane == 0) {
-        mbar_arrive_expect_tx(kv_full, 2 * Tile<D>::bytes(kKeyBlock));
-        Tile<D>::load(base + L::kK, &tk, kv_full, n0, kKeyBlock, head);
-        Tile<D>::load(base + L::kV, &tv, kv_full, n0, kKeyBlock, head);
+        mbar_arrive_expect_tx(kv_full, 2 * Tile<W>::bytes(kKeyBlock));
+        Tile<W>::load(base + L::kK, &tk, kv_full, n0, kKeyBlock, head);
+        Tile<W>::load(base + L::kV, &tv, kv_full, n0, kKeyBlock, head);
       }
       const float* lseh = lse + static_cast<int64_t>(head) * T;
       const float* deltah = delta + static_cast<int64_t>(head) * T;
@@ -202,9 +210,9 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
           delta_s[r] = in ? deltah[m0 + r] : 0.f;
         }
         if (lane == 0) {
-          mbar_arrive_expect_tx(full + 8 * s, 2 * Tile<D>::bytes(kQTile));
-          Tile<D>::load(stage + L::kQ, &tq, full + 8 * s, m0, kQTile, head);
-          Tile<D>::load(stage + L::kDo, &tdo, full + 8 * s, m0, kQTile, head);
+          mbar_arrive_expect_tx(full + 8 * s, 2 * Tile<W>::bytes(kQTile));
+          Tile<W>::load(stage + L::kQ, &tq, full + 8 * s, m0, kQTile, head);
+          Tile<W>::load(stage + L::kDo, &tdo, full + 8 * s, m0, kQTile, head);
         } else {
           mbar_arrive(full + 8 * s);
         }
@@ -221,14 +229,14 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
   const int c = lane % 4;
   const int kw0 = n0 + wg * 64;            // this warpgroup's first key
   const int key0 = kw0 + warp * 16 + g;    // this thread's keys key0, key0+8
-  // Query columns per register pass: at D128 dK and dV already hold 128
+  // Query columns per register pass: at W 128 dK and dV already hold 128
   // f32 per thread, so a q-tile is taken in two passes of 32.
-  constexpr int kCols = D == 128 ? 32 : kQTile;
+  constexpr int kCols = W == 128 ? 32 : kQTile;
 
-  float dk_acc[D / 2];
-  float dv_acc[D / 2];
+  float dk_acc[W / 2];
+  float dv_acc[W / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < W / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
   mbar_wait(kv_full, 0);
   for (int it = 0; it < n_iters; ++it) {
@@ -253,14 +261,14 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
       float dpt[kCols / 2];
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wgmma_ss<kCols>(st, Tile<D>::kmajor(base + L::kK, kKeyBlock, wg * 64, kk),
-                        Tile<D>::kmajor(qs, kQTile, c0, kk), kk > 0);
+      for (int kk = 0; kk < W / 16; ++kk) {
+        wgmma_ss<kCols>(st, Tile<W>::kmajor(base + L::kK, kKeyBlock, wg * 64, kk),
+                        Tile<W>::kmajor(qs, kQTile, c0, kk), kk > 0);
       }
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wgmma_ss<kCols>(dpt, Tile<D>::kmajor(base + L::kV, kKeyBlock, wg * 64, kk),
-                        Tile<D>::kmajor(dos, kQTile, c0, kk), kk > 0);
+      for (int kk = 0; kk < W / 16; ++kk) {
+        wgmma_ss<kCols>(dpt, Tile<W>::kmajor(base + L::kV, kKeyBlock, wg * 64, kk),
+                        Tile<W>::kmajor(dos, kQTile, c0, kk), kk > 0);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -298,9 +306,9 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kCols / 16; ++kk) {
-        const uint64_t b = Tile<D>::mnmajor(dos, kQTile, c0 / 16 + kk);
-        wgmma_rs<D>(dv_acc, p_hi[kk], b, 1);
-        wgmma_rs<D>(dv_acc, p_lo[kk], b, 1);
+        const uint64_t b = Tile<W>::mnmajor(dos, kQTile, c0 / 16 + kk);
+        wgmma_rs<W>(dv_acc, p_hi[kk], b, 1);
+        wgmma_rs<W>(dv_acc, p_lo[kk], b, 1);
       }
       wgmma_commit();
       uint32_t ds_hi[kCols / 16][4], ds_lo[kCols / 16][4];
@@ -311,25 +319,26 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kCols / 16; ++kk) {
-        const uint64_t b = Tile<D>::mnmajor(qs, kQTile, c0 / 16 + kk);
-        wgmma_rs<D>(dk_acc, ds_hi[kk], b, 1);
-        wgmma_rs<D>(dk_acc, ds_lo[kk], b, 1);
+        const uint64_t b = Tile<W>::mnmajor(qs, kQTile, c0 / 16 + kk);
+        wgmma_rs<W>(dk_acc, ds_hi[kk], b, 1);
+        wgmma_rs<W>(dk_acc, ds_lo[kk], b, 1);
       }
       wgmma_commit();
       wgmma_wait<0>();
-      fence_regs<D / 2>(dv_acc);
-      fence_regs<D / 2>(dk_acc);
+      fence_regs<W / 2>(dv_acc);
+      fence_regs<W / 2>(dk_acc);
     }
     mbar_arrive(empty + 8 * s);  // this stage's Q, dO, lse, delta are read
   }
 
+  // Columns col, col + 1 of keys < T, only those < D (D is even).
   Out* dkh = dk + static_cast<int64_t>(head) * T * D;
   Out* dvh = dv + static_cast<int64_t>(head) * T * D;
 #pragma unroll
-  for (int i = 0; i < D / 2; i += 2) {
+  for (int i = 0; i < W / 2; i += 2) {
     const int key = key0 + 8 * ((i % 4) / 2);
     const int col = 8 * (i / 4) + 2 * c;
-    if (key < T) {
+    if (key < T && col < D) {
       const int64_t off = static_cast<int64_t>(key) * D + col;
       store_pair(dkh + off, dk_acc[i] * scale, dk_acc[i + 1] * scale);
       store_pair(dvh + off, dv_acc[i], dv_acc[i + 1]);
@@ -338,20 +347,20 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // dQ kernel shared memory: Q, dO, then per stage K and V, then barriers.
-template <int D>
+template <int W>
 struct DqSmem {
   static constexpr int kQ = 0;
-  static constexpr int kDo = Tile<D>::bytes(kQBlock);
-  static constexpr int kStage0 = 2 * Tile<D>::bytes(kQBlock);
+  static constexpr int kDo = Tile<W>::bytes(kQBlock);
+  static constexpr int kStage0 = 2 * Tile<W>::bytes(kQBlock);
   static constexpr int kK = 0;  // offsets within a stage
-  static constexpr int kV = Tile<D>::bytes(kKeyTile);
-  static constexpr int kStage = 2 * Tile<D>::bytes(kKeyTile);
+  static constexpr int kV = Tile<W>::bytes(kKeyTile);
+  static constexpr int kStage = 2 * Tile<W>::bytes(kKeyTile);
   static constexpr int kBar = kStage0 + kStages * kStage;
   // qdo_full, full[kStages], empty[kStages]
   static constexpr int kAlloc = kBar + 8 * (1 + 2 * kStages) + 1024;
 };
 
-template <int D, bool kCausal, typename Out>
+template <int W, bool kCausal, typename Out>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
@@ -359,9 +368,9 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tdo,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
-                    Out* __restrict__ dq, int T, float scale,
+                    Out* __restrict__ dq, int T, int D, float scale,
                     float scale_log2) {
-  using L = DqSmem<D>;
+  using L = DqSmem<W>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t qdo_full = base + L::kBar;
@@ -393,17 +402,17 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
   if (threadIdx.x >= kConsumers) {
     setmaxnreg_dec<24>();
     if (threadIdx.x == kConsumers) {
-      mbar_arrive_expect_tx(qdo_full, 2 * Tile<D>::bytes(kQBlock));
-      Tile<D>::load(base + L::kQ, &tq, qdo_full, m0, kQBlock, head);
-      Tile<D>::load(base + L::kDo, &tdo, qdo_full, m0, kQBlock, head);
+      mbar_arrive_expect_tx(qdo_full, 2 * Tile<W>::bytes(kQBlock));
+      Tile<W>::load(base + L::kQ, &tq, qdo_full, m0, kQBlock, head);
+      Tile<W>::load(base + L::kDo, &tdo, qdo_full, m0, kQBlock, head);
       for (int it = 0; it < n_iters; ++it) {
         const int s = it % kStages;
         const uint32_t stage = base + L::kStage0 + s * L::kStage;
         mbar_wait(empty + 8 * s, ((it / kStages) & 1) ^ 1);
         mbar_arrive_expect_tx(full + 8 * s, L::kStage);
-        Tile<D>::load(stage + L::kK, &tk, full + 8 * s, it * kKeyTile,
+        Tile<W>::load(stage + L::kK, &tk, full + 8 * s, it * kKeyTile,
                       kKeyTile, head);
-        Tile<D>::load(stage + L::kV, &tv, full + 8 * s, it * kKeyTile,
+        Tile<W>::load(stage + L::kV, &tv, full + 8 * s, it * kKeyTile,
                       kKeyTile, head);
       }
     }
@@ -430,9 +439,9 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
     dl[r] = row < T ? delta[at] : 0.f;
   }
 
-  float dq_acc[D / 2];
+  float dq_acc[W / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+  for (int i = 0; i < W / 2; ++i) dq_acc[i] = 0.f;
 
   mbar_wait(qdo_full, 0);
   for (int it = 0; it < n_iters; ++it) {
@@ -447,14 +456,14 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
       float dp[kKeyTile / 2];
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wgmma_ss<kKeyTile>(sc, Tile<D>::kmajor(base + L::kQ, kQBlock, wg * 64, kk),
-                           Tile<D>::kmajor(ks, kKeyTile, 0, kk), kk > 0);
+      for (int kk = 0; kk < W / 16; ++kk) {
+        wgmma_ss<kKeyTile>(sc, Tile<W>::kmajor(base + L::kQ, kQBlock, wg * 64, kk),
+                           Tile<W>::kmajor(ks, kKeyTile, 0, kk), kk > 0);
       }
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wgmma_ss<kKeyTile>(dp, Tile<D>::kmajor(base + L::kDo, kQBlock, wg * 64, kk),
-                           Tile<D>::kmajor(vs, kKeyTile, 0, kk), kk > 0);
+      for (int kk = 0; kk < W / 16; ++kk) {
+        wgmma_ss<kKeyTile>(dp, Tile<W>::kmajor(base + L::kDo, kQBlock, wg * 64, kk),
+                           Tile<W>::kmajor(vs, kKeyTile, 0, kk), kk > 0);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -482,38 +491,40 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kKeyTile / 16; ++kk) {
-        const uint64_t b = Tile<D>::mnmajor(ks, kKeyTile, kk);
-        wgmma_rs<D>(dq_acc, ds_hi[kk], b, 1);
-        wgmma_rs<D>(dq_acc, ds_lo[kk], b, 1);
+        const uint64_t b = Tile<W>::mnmajor(ks, kKeyTile, kk);
+        wgmma_rs<W>(dq_acc, ds_hi[kk], b, 1);
+        wgmma_rs<W>(dq_acc, ds_lo[kk], b, 1);
       }
       wgmma_commit();
       wgmma_wait<0>();
-      fence_regs<D / 2>(dq_acc);
+      fence_regs<W / 2>(dq_acc);
     }
     mbar_arrive(empty + 8 * s);  // this stage's K and V are read
   }
 
+  // Columns col, col + 1 of rows < T, only those < D (D is even).
   Out* dqh = dq + static_cast<int64_t>(head) * T * D;
 #pragma unroll
-  for (int i = 0; i < D / 2; i += 2) {
+  for (int i = 0; i < W / 2; i += 2) {
     const int row = r0 + 8 * ((i % 4) / 2);
     const int col = 8 * (i / 4) + 2 * c;
-    if (row < T) {
+    if (row < T && col < D) {
       store_pair(dqh + static_cast<int64_t>(row) * D + col, dq_acc[i] * scale,
                  dq_acc[i + 1] * scale);
     }
   }
 }
 
-template <int D, bool kCausal, typename Out>
+template <int W, bool kCausal, typename Out>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const void* lse, void* delta, void* dq, void* dk,
-           void* dv, int B, int H, int T, float scale, cudaStream_t stream) {
+           void* dv, int B, int H, int T, int D, float scale,
+           cudaStream_t stream) {
   CUtensorMap tq, tk, tv, tdo;
-  int err = make_tile_map<D>(&tq, q, B * H, T);
-  if (err == 0) err = make_tile_map<D>(&tk, k, B * H, T);
-  if (err == 0) err = make_tile_map<D>(&tv, v, B * H, T);
-  if (err == 0) err = make_tile_map<D>(&tdo, dout, B * H, T);
+  int err = make_tile_map<W>(&tq, q, B * H, T, D);
+  if (err == 0) err = make_tile_map<W>(&tk, k, B * H, T, D);
+  if (err == 0) err = make_tile_map<W>(&tv, v, B * H, T, D);
+  if (err == 0) err = make_tile_map<W>(&tdo, dout, B * H, T, D);
   // The shared-memory limits are properties of the kernels on a device:
   // set once per device, not on every launch.
   static PerDevice smem_set;
@@ -522,13 +533,13 @@ int launch(const void* q, const void* k, const void* v, const void* o,
     err = smem_set.get(&done, [](int, int* set) {
       *set = 1;
       cudaError_t e = cudaFuncSetAttribute(
-          flash_bwd_dkdv_kernel<D, kCausal, Out>,
+          flash_bwd_dkdv_kernel<W, kCausal, Out>,
           cudaFuncAttributeMaxDynamicSharedMemorySize,
-          DkvSmem<D>::kAlloc);
+          DkvSmem<W>::kAlloc);
       if (e == cudaSuccess) {
-        e = cudaFuncSetAttribute(flash_bwd_dq_kernel<D, kCausal, Out>,
+        e = cudaFuncSetAttribute(flash_bwd_dq_kernel<W, kCausal, Out>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 DqSmem<D>::kAlloc);
+                                 DqSmem<W>::kAlloc);
       }
       return e;
     });
@@ -540,7 +551,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   const float scale_log2 = scale * kLog2e;
 
   const int64_t rows = static_cast<int64_t>(B) * H * T;
-  constexpr int kRowsPerBlock = kDeltaThreads / (D / 8);
+  constexpr int kRowsPerBlock = kDeltaThreads / (W / 8);
   const int64_t delta_blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
   // One block per (128-row tile, head) in both the dK/dV and dQ grids.
   static_assert(kKeyBlock == kQBlock, "one grid size for both kernels");
@@ -549,49 +560,49 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   if (delta_blocks > 0x7fffffff || blocks > 0x7fffffff) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  flash_bwd_delta_kernel<D><<<static_cast<unsigned>(delta_blocks),
+  flash_bwd_delta_kernel<W><<<static_cast<unsigned>(delta_blocks),
                               kDeltaThreads, 0, stream>>>(
       static_cast<const uint16_t*>(o), static_cast<const uint16_t*>(dout),
-      delta32, rows);
+      delta32, rows, D);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
 
-  flash_bwd_dkdv_kernel<D, kCausal, Out><<<static_cast<unsigned>(blocks),
-                                           kThreads, DkvSmem<D>::kAlloc,
+  flash_bwd_dkdv_kernel<W, kCausal, Out><<<static_cast<unsigned>(blocks),
+                                           kThreads, DkvSmem<W>::kAlloc,
                                            stream>>>(
       tq, tk, tv, tdo, lse32, delta32, static_cast<Out*>(dk),
-      static_cast<Out*>(dv), T, scale, scale_log2);
+      static_cast<Out*>(dv), T, D, scale, scale_log2);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
 
-  flash_bwd_dq_kernel<D, kCausal, Out><<<static_cast<unsigned>(blocks),
-                                         kThreads, DqSmem<D>::kAlloc, stream>>>(
-      tq, tk, tv, tdo, lse32, delta32, static_cast<Out*>(dq), T, scale,
+  flash_bwd_dq_kernel<W, kCausal, Out><<<static_cast<unsigned>(blocks),
+                                         kThreads, DqSmem<W>::kAlloc, stream>>>(
+      tq, tk, tv, tdo, lse32, delta32, static_cast<Out*>(dq), T, D, scale,
       scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The smallest tile width that holds head dim D (a multiple of 8, at
+// most 128; the entry point checks).
 template <bool kCausal, typename Out>
 int launch_d(const void* q, const void* k, const void* v, const void* o,
              const void* dout, const void* lse, void* delta, void* dq,
              void* dk, void* dv, int B, int H, int T, int D, float scale,
              cudaStream_t s) {
-  switch (D) {
-    case 16:
-      return launch<16, kCausal, Out>(q, k, v, o, dout, lse, delta, dq, dk,
-                                      dv, B, H, T, scale, s);
-    case 32:
-      return launch<32, kCausal, Out>(q, k, v, o, dout, lse, delta, dq, dk,
-                                      dv, B, H, T, scale, s);
-    case 64:
-      return launch<64, kCausal, Out>(q, k, v, o, dout, lse, delta, dq, dk,
-                                      dv, B, H, T, scale, s);
-    case 128:
-      return launch<128, kCausal, Out>(q, k, v, o, dout, lse, delta, dq, dk,
-                                       dv, B, H, T, scale, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (D <= 16) {
+    return launch<16, kCausal, Out>(q, k, v, o, dout, lse, delta, dq, dk, dv,
+                                    B, H, T, D, scale, s);
   }
+  if (D <= 32) {
+    return launch<32, kCausal, Out>(q, k, v, o, dout, lse, delta, dq, dk, dv,
+                                    B, H, T, D, scale, s);
+  }
+  if (D <= 64) {
+    return launch<64, kCausal, Out>(q, k, v, o, dout, lse, delta, dq, dk, dv,
+                                    B, H, T, D, scale, s);
+  }
+  return launch<128, kCausal, Out>(q, k, v, o, dout, lse, delta, dq, dk, dv,
+                                   B, H, T, D, scale, s);
 }
 
 template <typename Out>
@@ -607,19 +618,22 @@ int launch_c(const void* q, const void* k, const void* v, const void* o,
 
 }  // namespace
 
-// q, k, v, o, dout: contiguous [B, H, T, D] bf16; dq, dk, dv: the same,
+// q, k, v, o, dout: contiguous [B, H, T, D] bf16, D a multiple of 8 up to
+// 128; dq, dk, dv: the same,
 // bf16, or f32 when f32_out is 1; lse: [B, H, T] f32 (natural log, as
 // flash_attn_fwd_bf16 writes it); delta: [B, H, T] f32 scratch; all on
 // `device`. causal: 1 masks key j > query i, 0 masks nothing (but keys
-// past T). scale = 1/sqrt(D). Three launches on `stream`, one of that
-// device's streams.
+// past T). scale = 1/sqrt(D) of the caller's head dim (which may be less
+// than D, when the caller padded it). Three launches on `stream`, one of
+// that device's streams.
 extern "C" int flash_attn_bwd_bf16(const void* q, const void* k, const void* v,
                                    const void* o, const void* dout,
                                    const void* lse, void* delta, void* dq,
                                    void* dk, void* dv, int B, int H, int T,
                                    int D, int causal, int f32_out,
                                    float scale, int device, void* stream) {
-  if (B <= 0 || H <= 0 || T <= 0 || H > 65535 || B > 65535) {
+  if (B <= 0 || H <= 0 || T <= 0 || H > 65535 || B > 65535 || D <= 0 ||
+      D > 128 || D % 8 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   DeviceGuard guard(device);

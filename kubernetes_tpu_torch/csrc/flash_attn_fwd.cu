@@ -51,8 +51,16 @@
 // stored. Keys past T arrive as zeros too, and lie only in that last
 // tile: causal, after every valid row, so the causal mask hides them;
 // non-causal, a mask of its own hides them, since a zero score would add
-// exp(0 - m) to every row's sum. D (16, 32, 64 or 128) and causality are
-// template parameters.
+// exp(0 - m) to every row's sum.
+//
+// Head dims. The tile width W (16, 32, 64 or 128) and causality are
+// template parameters; the head dim D is an argument, any multiple of 8
+// up to 128, run by the smallest W >= D. TMA fills columns D..W-1 of
+// every tile with zeros (hopper.cuh), which leaves S = Q K^T as it is
+// and gives zero columns of O, and only columns < D are stored, at the
+// tensor's own row stride D. So a head dim of 96 (Phi-3-mini's) runs the
+// W-128 instance at the work of D 128; the wrapper pads any other D to a
+// multiple of 8.
 #include <math.h>
 
 #include "common.cuh"
@@ -71,11 +79,11 @@ static_assert(kRows == kKeys, "the key tile counts assume square tiles");
 
 // Shared memory, from a 1024-byte aligned base (the 128-byte swizzle's
 // period): Q, then the K stages, the V stages, then the barriers.
-template <int D>
+template <int W>
 struct Smem {
-  static constexpr int kTile = Tile<D>::bytes(kKeys);
+  static constexpr int kTile = Tile<W>::bytes(kKeys);
   static constexpr int kQ = 0;
-  static constexpr int kK = Tile<D>::bytes(kRows);
+  static constexpr int kK = Tile<W>::bytes(kRows);
   static constexpr int kV = kK + kStages * kTile;
   static constexpr int kBar = kV + kStages * kTile;
   // q_full, k_full[kStages], v_full[kStages], empty[kStages]
@@ -83,14 +91,14 @@ struct Smem {
   static constexpr int kAlloc = kBytes + 1024;  // slack for the alignment
 };
 
-template <int D, bool kCausal, typename Out>
+template <int W, bool kCausal, typename Out>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv,
-                 Out* __restrict__ o, float* __restrict__ lse, int T,
+                 Out* __restrict__ o, float* __restrict__ lse, int T, int D,
                  float scale_log2) {
-  using L = Smem<D>;
+  using L = Smem<W>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t q_full = base + L::kBar;
@@ -123,17 +131,17 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
     // Producer warpgroup: one thread issues every copy.
     setmaxnreg_dec<24>();
     if (threadIdx.x == kConsumers) {
-      mbar_arrive_expect_tx(q_full, Tile<D>::bytes(kRows));
-      Tile<D>::load(base + L::kQ, &tq, q_full, m0, kRows, head);
+      mbar_arrive_expect_tx(q_full, Tile<W>::bytes(kRows));
+      Tile<W>::load(base + L::kQ, &tq, q_full, m0, kRows, head);
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % kStages;
         const int n0 = (n_tiles - 1 - it) * kKeys;
         mbar_wait(empty + 8 * s, ((it / kStages) & 1) ^ 1);
         mbar_arrive_expect_tx(k_full + 8 * s, L::kTile);
-        Tile<D>::load(base + L::kK + s * L::kTile, &tk, k_full + 8 * s, n0,
+        Tile<W>::load(base + L::kK + s * L::kTile, &tk, k_full + 8 * s, n0,
                       kKeys, head);
         mbar_arrive_expect_tx(v_full + 8 * s, L::kTile);
-        Tile<D>::load(base + L::kV + s * L::kTile, &tv, v_full + 8 * s, n0,
+        Tile<W>::load(base + L::kV + s * L::kTile, &tv, v_full + 8 * s, n0,
                       kKeys, head);
       }
     }
@@ -149,9 +157,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
   const int c = lane % 4;  // accumulator column pair
   const int r0 = m0 + wg * 64 + warp * 16 + g;  // this thread's rows r0, r0+8
 
-  float acc[D / 2];
+  float acc[W / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < W / 2; ++i) acc[i] = 0.f;
   // Running max (log2-scaled score domain) and this thread's share of
   // the running sum, for rows r0 and r0 + 8.
   float m_run[2] = {-INFINITY, -INFINITY};
@@ -170,9 +178,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
     mbar_wait(k_full + 8 * s, parity);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      wgmma_ss<kKeys>(sc, Tile<D>::kmajor(base + L::kQ, kRows, wg * 64, kk),
-                      Tile<D>::kmajor(ks, kKeys, 0, kk), kk > 0);
+    for (int kk = 0; kk < W / 16; ++kk) {
+      wgmma_ss<kKeys>(sc, Tile<W>::kmajor(base + L::kQ, kRows, wg * 64, kk),
+                      Tile<W>::kmajor(ks, kKeys, 0, kk), kk > 0);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -215,7 +223,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * corr[r] + rowsum[r];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i % 4) / 2];
+    for (int i = 0; i < W / 2; ++i) acc[i] *= corr[(i % 4) / 2];
 
     // O += P V: P's k-slice kk is S's entries 8kk..8kk+7.
     uint32_t pf[kKeys / 16][4];
@@ -225,11 +233,11 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kKeys / 16; ++kk) {
-      wgmma_rs<D>(acc, pf[kk], Tile<D>::mnmajor(vs, kKeys, kk), 1);
+      wgmma_rs<W>(acc, pf[kk], Tile<W>::mnmajor(vs, kKeys, kk), 1);
     }
     wgmma_commit();
     wgmma_wait<0>();
-    fence_regs<D / 2>(acc);
+    fence_regs<W / 2>(acc);
     mbar_arrive(empty + 8 * s);  // this stage's K and V are read
   }
 
@@ -241,13 +249,15 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
     inv[r] = 1.f / l_run[r];
   }
+  // Columns col, col + 1 of rows < T; D is even, so a pair is stored
+  // whole or not at all.
   Out* oh = o + static_cast<int64_t>(head) * T * D;
 #pragma unroll
-  for (int i = 0; i < D / 2; i += 2) {
+  for (int i = 0; i < W / 2; i += 2) {
     const int r = (i % 4) / 2;
     const int row = r0 + 8 * r;
     const int col = 8 * (i / 4) + 2 * c;
-    if (row < T) {
+    if (row < T && col < D) {
       store_pair(oh + static_cast<int64_t>(row) * D + col, acc[i] * inv[r],
                  acc[i + 1] * inv[r]);
     }
@@ -260,13 +270,13 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-template <int D, bool kCausal, typename Out>
+template <int W, bool kCausal, typename Out>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int B, int H, int T, float scale_log2, cudaStream_t stream) {
+           int B, int H, int T, int D, float scale_log2, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  int err = make_tile_map<D>(&tq, q, B * H, T);
-  if (err == 0) err = make_tile_map<D>(&tk, k, B * H, T);
-  if (err == 0) err = make_tile_map<D>(&tv, v, B * H, T);
+  int err = make_tile_map<W>(&tq, q, B * H, T, D);
+  if (err == 0) err = make_tile_map<W>(&tk, k, B * H, T, D);
+  if (err == 0) err = make_tile_map<W>(&tv, v, B * H, T, D);
   // The shared-memory limit is a property of the kernel on a device: set
   // once per device, not on every launch.
   static PerDevice smem_set;
@@ -274,36 +284,40 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   if (err == 0) {
     err = smem_set.get(&done, [](int, int* set) {
       *set = 1;
-      return cudaFuncSetAttribute(flash_fwd_kernel<D, kCausal, Out>,
+      return cudaFuncSetAttribute(flash_fwd_kernel<W, kCausal, Out>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  Smem<D>::kAlloc);
+                                  Smem<W>::kAlloc);
     });
   }
   if (err != 0) return err;
   const int64_t blocks = static_cast<int64_t>((T + kRows - 1) / kRows) * B * H;
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  flash_fwd_kernel<D, kCausal, Out><<<static_cast<unsigned>(blocks),
-                                      kThreads, Smem<D>::kAlloc, stream>>>(
-      tq, tk, tv, static_cast<Out*>(o), static_cast<float*>(lse), T,
+  flash_fwd_kernel<W, kCausal, Out><<<static_cast<unsigned>(blocks),
+                                      kThreads, Smem<W>::kAlloc, stream>>>(
+      tq, tk, tv, static_cast<Out*>(o), static_cast<float*>(lse), T, D,
       scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The smallest tile width that holds head dim D (a multiple of 8, at
+// most 128; the entry point checks).
 template <bool kCausal, typename Out>
 int launch_d(const void* q, const void* k, const void* v, void* o, void* lse,
              int B, int H, int T, int D, float scale_log2, cudaStream_t s) {
-  switch (D) {
-    case 16:
-      return launch<16, kCausal, Out>(q, k, v, o, lse, B, H, T, scale_log2, s);
-    case 32:
-      return launch<32, kCausal, Out>(q, k, v, o, lse, B, H, T, scale_log2, s);
-    case 64:
-      return launch<64, kCausal, Out>(q, k, v, o, lse, B, H, T, scale_log2, s);
-    case 128:
-      return launch<128, kCausal, Out>(q, k, v, o, lse, B, H, T, scale_log2,
-                                       s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if (D <= 16) {
+    return launch<16, kCausal, Out>(q, k, v, o, lse, B, H, T, D, scale_log2,
+                                    s);
   }
+  if (D <= 32) {
+    return launch<32, kCausal, Out>(q, k, v, o, lse, B, H, T, D, scale_log2,
+                                    s);
+  }
+  if (D <= 64) {
+    return launch<64, kCausal, Out>(q, k, v, o, lse, B, H, T, D, scale_log2,
+                                    s);
+  }
+  return launch<128, kCausal, Out>(q, k, v, o, lse, B, H, T, D, scale_log2,
+                                   s);
 }
 
 template <typename Out>
@@ -317,16 +331,18 @@ int launch_c(const void* q, const void* k, const void* v, void* o, void* lse,
 
 }  // namespace
 
-// q, k, v: contiguous [B, H, T, D] bf16; o: the same, bf16, or f32 when
-// f32_out is 1; lse: [B, H, T] f32; all on `device`, and `stream` one of
-// its streams. causal: 1 masks key j > query i, 0 masks nothing (but
-// keys past T). scale_log2 = sm_scale * log2(e).
+// q, k, v: contiguous [B, H, T, D] bf16, D a multiple of 8 up to 128; o:
+// the same, bf16, or f32 when f32_out is 1; lse: [B, H, T] f32; all on
+// `device`, and `stream` one of its streams. causal: 1 masks key j >
+// query i, 0 masks nothing (but keys past T). scale_log2 = sm_scale *
+// log2(e).
 extern "C" int flash_attn_fwd_bf16(const void* q, const void* k, const void* v,
                                    void* o, void* lse, int B, int H, int T,
                                    int D, int causal, int f32_out,
                                    float scale_log2, int device,
                                    void* stream) {
-  if (B <= 0 || H <= 0 || T <= 0 || H > 65535 || B > 65535) {
+  if (B <= 0 || H <= 0 || T <= 0 || H > 65535 || B > 65535 || D <= 0 ||
+      D > 128 || D % 8 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   DeviceGuard guard(device);

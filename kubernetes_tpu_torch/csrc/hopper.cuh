@@ -5,23 +5,31 @@
 // `setmaxnreg`. `wgmma` and `setmaxnreg` exist only for sm_90a
 // (kernels/build.py compiles with `-gencode arch=compute_90a,code=sm_90a`).
 //
-// Tiles. Every operand tile is a [rows, D] slice of a contiguous
+// Tiles. Every operand tile is a [rows, W] slice of a contiguous
 // [B*H, T, D] bf16 tensor, copied by TMA through a 3-D tensor map
 // (D, T, B*H): a tile never reads into the next head, and rows past T
-// arrive as zeros. TMA writes each tile as D / kBoxCols column boxes,
-// one after the other, each [rows][kRowBytes] with the hardware swizzle
-// of its row length: 128 B (64 columns) at D 64 and 128, 64 B (32
-// columns) at D 32, 32 B (16 columns) at D 16. The wgmma descriptors
-// below name the same swizzle, so the tensor cores read the tiles as TMA
-// left them.
+// arrive as zeros. W, the tile width, is the template parameter: 16,
+// 32, 64 or 128, the smallest that holds the head dim D (any multiple of
+// 8 up to 128). The map has the tensor's true width D and row stride,
+// so columns D..W-1 of a tile arrive as zeros too, which is exact: a
+// zero column of Q and K adds nothing to Q K^T, and one of V or dO gives
+// a zero column of the product, which the kernels never store. TMA
+// writes each tile as W / kBoxCols column boxes, one after the other,
+// each [rows][kRowBytes] with the hardware swizzle of its row length:
+// 128 B (64 columns) at W 64 and 128, 64 B (32 columns) at W 32, 32 B
+// (16 columns) at W 16. A box that lies partly past D still lands whole
+// (zero-filled) and counts its full bytes toward the barrier's
+// transaction count, as a box past T does. The wgmma descriptors below
+// name the same swizzle, so the tensor cores read the tiles as TMA left
+// them.
 //
 // Products. A K-major operand (the contraction runs along a row: Q, K,
 // dO or V as the left factor, or K, Q, dO, V as B in X Y^T) takes
-// `Tile<D>::kmajor`; an MN-major B (the contraction runs down the rows:
+// `Tile<W>::kmajor`; an MN-major B (the contraction runs down the rows:
 // V in P V, dO in P^T dO, Q in dS^T Q, K in dS K) takes
-// `Tile<D>::mnmajor` and the transposed-B bit. At D 16 the products
-// that contract over D are one k16 step, and those whose N is D are
-// m64n16k16. The accumulator of
+// `Tile<W>::mnmajor` and the transposed-B bit. At W 16 the products
+// that contract over the head dim are one k16 step, and those whose N
+// is the head dim are m64n16k16. The accumulator of
 // m64nN (N/2 f32 per thread) holds, for warp w of the warpgroup, lane
 // (g = lane/4, c = lane%4), entry 4i+e at row 16w + g + 8(e/2) and
 // column 8i + 2c + (e%2). That is also the layout of the A fragments of
@@ -103,15 +111,15 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
 // Rows the tensor maps of make_tile_map copy per box.
 constexpr int kTmaRows = 64;
 
-// Geometry of a [rows, D] bf16 tile as TMA leaves it in shared memory,
+// Geometry of a [rows, W] bf16 tile as TMA leaves it in shared memory,
 // and the wgmma descriptors that read it.
-template <int D>
+template <int W>
 struct Tile {
-  static_assert(D == 16 || D == 32 || D == 64 || D == 128,
-                "head dim 16, 32, 64 or 128");
-  static constexpr int kRowBytes = D * 2 < 128 ? D * 2 : 128;  // per box
+  static_assert(W == 16 || W == 32 || W == 64 || W == 128,
+                "tile width 16, 32, 64 or 128");
+  static constexpr int kRowBytes = W * 2 < 128 ? W * 2 : 128;  // per box
   static constexpr int kBoxCols = kRowBytes / 2;
-  static constexpr int kBoxes = D / kBoxCols;
+  static constexpr int kBoxes = W / kBoxCols;
   // Descriptor layout type: 1 = 128-byte swizzle, 2 = 64-byte, 3 =
   // 32-byte.
   static constexpr uint64_t kLayout =
@@ -121,8 +129,9 @@ struct Tile {
       kRowBytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
       : kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                         : CU_TENSOR_MAP_SWIZZLE_32B;
+  // Bytes of a `rows`-row tile, zero-filled columns included.
   static constexpr __host__ __device__ int bytes(int rows) {
-    return rows * D * 2;
+    return rows * W * 2;
   }
 
   // rows (a multiple of kTmaRows) starting at row0 of head `head`.
@@ -159,9 +168,9 @@ struct Tile {
     return desc(addr, 16, 8 * kRowBytes);
   }
 
-  // MN-major B operand: rows 16kk..16kk+15 of a `rows`-row tile, all D
+  // MN-major B operand: rows 16kk..16kk+15 of a `rows`-row tile, all W
   // columns. Under every swizzle the leading byte offset steps to the
-  // next box of columns, `rows * kRowBytes` further on (unread at D 16,
+  // next box of columns, `rows * kRowBytes` further on (unread at W 16,
   // whose N of 16 is one 32-byte swizzle row), and the stride byte
   // offset to the next 8 rows of the contraction.
   static __device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int rows,
@@ -402,10 +411,13 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // The 3-D map (D, T, heads) of a contiguous [heads, T, D] bf16 tensor,
-// boxes of Tile<D>::kBoxCols columns x kTmaRows rows, swizzled as Tile<D>
-// expects; rows past T read as zeros. Returns a CUDA error code.
-template <int D>
-int make_tile_map(CUtensorMap* map, const void* ptr, int heads, int T) {
+// D a multiple of 8 (TMA takes row strides of 16 bytes) and at most W,
+// boxes of Tile<W>::kBoxCols columns x kTmaRows rows, swizzled as Tile<W>
+// expects; rows past T and columns past D read as zeros. Returns a CUDA
+// error code.
+template <int W>
+int make_tile_map(CUtensorMap* map, const void* ptr, int heads, int T,
+                  int D) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
@@ -413,13 +425,13 @@ int make_tile_map(CUtensorMap* map, const void* ptr, int heads, int T) {
                               static_cast<cuuint64_t>(heads)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
                                  static_cast<cuuint64_t>(T) * D * 2};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(Tile<D>::kBoxCols),
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(Tile<W>::kBoxCols),
                              static_cast<cuuint32_t>(kTmaRows), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      Tile<D>::kSwizzle,
+      Tile<W>::kSwizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }

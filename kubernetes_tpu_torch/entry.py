@@ -11,10 +11,11 @@ Counterparts of ``__graft_entry__``:
   AdamW) of the dense LM over an ``n``-device mesh with the reference's
   ``dp``/``fsdp``/``sp``/``tp`` sizes (``sharding.default_axis_sizes``;
   sequence parallelism is the ring over ``sp``, each rank running its
-  ``H / tp`` heads through the flash kernels at head dim 16), then one
-  MoE step over an expert-parallel mesh: the token/expert exchange over
-  ``ep``. Every rank is a process of its own, over the port's
-  rendezvous (NCCL on ``n`` cards, or gloo on the CPU).
+  ``H / tp`` heads through the flash kernels at head dim 16, or 48 at
+  n = 3, 24 at 6, up to 128), then one MoE step over an expert-parallel
+  mesh: the token/expert exchange over ``ep``. Every rank is a process
+  of its own, over the port's rendezvous (NCCL on ``n`` cards, or gloo
+  on the CPU).
 """
 from __future__ import annotations
 
@@ -60,9 +61,11 @@ class Dryrun:
 
 def dryrun_config(n_devices: int) -> Dryrun:
     """The dense LM at ``default_axis_sizes(n)``: ``d_model = 32 *
-    max(sizes)``, ``2 * tp`` heads (head dim 16), ``d_ff = 64 * max``,
-    batch ``2 * dp * fsdp``, seq ``16 * sp``; the MoE at ``ep = 2`` when
-    ``n`` is even, ``sp = 2`` when ``4 | n``, dp the rest, tp 1."""
+    max(sizes)``, ``2 * tp`` heads (head dim 16 at a power of 2; 48 at
+    n = 3, 24 at 6, over 128 at an odd n >= 9, which the kernels do not
+    take), ``d_ff = 64 * max``, batch ``2 * dp * fsdp``, seq ``16 *
+    sp``; the MoE at ``ep = 2`` when ``n`` is even, ``sp = 2`` when
+    ``4 | n``, dp the rest, tp 1."""
     sizes = sharding.default_axis_sizes(n_devices)
     width = max(sizes.values())
     cfg = lm.LMConfig(vocab=64, d_model=32 * width, n_layers=2,

@@ -16,6 +16,13 @@ non-causal instances, which mask nothing, and ``out_dtype=torch.float32``
 their instances that write the output (or the gradients) in f32: the ring
 (:mod:`.ring_attention`) runs both, non-causal on a block of keys wholly
 before its queries, and sums its blocks in f32 before it rounds.
+
+Head dims: the kernels take any head dim up to :data:`MAX_HEAD_DIM`. A
+multiple of 8 launches as it is (the smallest of their tile widths 16,
+32, 64, 128 that holds it runs, its extra columns zeros that TMA fills
+in); any other is copied into a zero-padded ``[B, H, T, ceil8(D)]``
+buffer first, the result sliced back to D, with ``1/sqrt(D)`` of the
+true D. A head dim over 128 raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
 from ..kernels import build
 from .ring_attention import causal_mask, reference_attention_with_lse
@@ -47,10 +55,27 @@ def counts() -> dict:
             "flash_attn_fwd_non_causal": non_causal_launches,
             "flash_attn_bwd_non_causal": non_causal_bwd_launches}
 
-#: Head dims the kernels take, each a template instance of both: 16 (the
-#: trainer's default LM, 2 heads of a 32-wide model) to 128 (the 600M
-#: LM's).
-HEAD_DIMS = (16, 32, 64, 128)
+#: The widest head dim the kernels take: their widest tile (the 600M
+#: LM's 128). From 1 (the trainer's default LM has 16) to this one, every
+#: head dim launches them.
+MAX_HEAD_DIM = 128
+
+
+def takes_head_dim(d: int) -> bool:
+    """Whether the kernels take head dim ``d``: 1 to :data:`MAX_HEAD_DIM`."""
+    return 0 < d <= MAX_HEAD_DIM
+
+
+def _padded(d: int) -> int:
+    """The width a head dim ``d`` launches at: ``d`` rounded up to a
+    multiple of 8 (TMA takes row strides of 16 bytes)."""
+    return -(-d // 8) * 8
+
+
+def _pad(x: torch.Tensor, width: int) -> torch.Tensor:
+    """``x`` [..., d] as a contiguous [..., width], zeros after column d;
+    ``x`` itself when it is that wide already."""
+    return x if x.shape[-1] == width else F.pad(x, (0, width - x.shape[-1]))
 
 _FWD = build.Kernel(
     "flash_attn_fwd", "flash_attn_fwd_bf16",
@@ -72,8 +97,9 @@ def _check_kernel_inputs(what: str, **tensors) -> None:
                    if t.dtype is not torch.bfloat16}
             raise TypeError(f"{what} kernel takes bfloat16, got {bad}")
     b, h, _, d = next(iter(tensors.values())).shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{what} kernel takes head dim {HEAD_DIMS}, not {d}")
+    if not takes_head_dim(d):
+        raise ValueError(f"{what} kernel takes head dim 1 to {MAX_HEAD_DIM}, "
+                         f"not {d}")
     for name, x in tensors.items():
         if not x.is_contiguous():
             raise ValueError(f"{what} kernel takes contiguous tensors; "
@@ -121,20 +147,33 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Returns ``(o, lse)``: ``o`` [B, H, T, D] in ``out_dtype`` (default
     ``q.dtype``; or f32, unrounded) and the natural-log row sums of the
-    scaled scores, ``lse`` [B, H, T] f32."""
+    scaled scores, ``lse`` [B, H, T] f32. CUDA tensors launch the kernel
+    (bf16, contiguous, D up to :data:`MAX_HEAD_DIM`; one not a multiple
+    of 8 through a zero-padded copy); CPU tensors take
+    :func:`~.ring_attention.reference_attention_with_lse`."""
     out_dtype = _out_dtype(q, out_dtype)
     if _check_shapes(q=q, k=k, v=v).type == "cpu":
         return reference_attention_with_lse(q, k, v, causal, out_dtype)
     _check_kernel_inputs("flash attention", q=q, k=k, v=v)
+    return _kernel_fwd(q, k, v, causal, out_dtype)
+
+
+def _kernel_fwd(q, k, v, causal: bool, out_dtype):
+    """The forward kernel's launch on checked inputs: at the head dim
+    padded to a multiple of 8, with the scale of the true one, ``o``
+    sliced back to it."""
     b, h, t, d = q.shape
+    w = _padded(d)
+    if q.numel() == 0:
+        return (torch.empty_like(q, dtype=out_dtype),
+                torch.empty((b, h, t), dtype=torch.float32, device=q.device))
+    q, k, v = (_pad(x, w) for x in (q, k, v))
     o = torch.empty_like(q, dtype=out_dtype)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-    if q.numel() == 0:
-        return o, lse
     scale_log2 = (1.0 / math.sqrt(d)) * math.log2(math.e)
     device = q.get_device()
     rc = _FWD.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                     lse.data_ptr(), b, h, t, d, int(causal),
+                     lse.data_ptr(), b, h, t, w, int(causal),
                      int(out_dtype == torch.float32), scale_log2, device,
                      build.current_stream(device))
     if rc:
@@ -142,7 +181,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     global launches, non_causal_launches
     launches += 1
     non_causal_launches += not causal
-    return o, lse
+    return (o if w == d else o[..., :d].contiguous()), lse
 
 
 def flash_attention(q, k, v) -> torch.Tensor:
@@ -181,7 +220,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
     ``o`` and ``lse`` and the output gradient ``do``, all [B, H, T, D]
     but ``lse`` [B, H, T] f32; the gradients in ``out_dtype`` (default
     ``q.dtype``; or f32, unrounded). CUDA tensors launch the kernel
-    (bf16, contiguous, a head dim of :data:`HEAD_DIMS`); CPU tensors take
+    (bf16, contiguous, D up to :data:`MAX_HEAD_DIM`; one not a multiple
+    of 8 through zero-padded copies); CPU tensors take
     :func:`flash_attention_bwd_plain`."""
     out_dtype = _out_dtype(q, out_dtype)
     dev = _check_shapes(q=q, k=k, v=v, o=o, do=do)
@@ -195,15 +235,24 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
                          do=do)
     if lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError("lse must be contiguous float32")
+    return _kernel_bwd(q, k, v, o, lse, do, causal, out_dtype)
+
+
+def _kernel_bwd(q, k, v, o, lse, do, causal: bool, out_dtype):
+    """The backward kernel's launch on checked inputs, as
+    :func:`_kernel_fwd`: padded, the true scale, the gradients sliced
+    back."""
     b, h, t, d = q.shape
-    dq, dk, dv = (torch.empty_like(q, dtype=out_dtype) for _ in range(3))
+    w = _padded(d)
     if q.numel() == 0:
-        return dq, dk, dv
-    delta = torch.empty((b, h, t), dtype=torch.float32, device=dev)
+        return tuple(torch.empty_like(q, dtype=out_dtype) for _ in range(3))
+    q, k, v, o, do = (_pad(x, w) for x in (q, k, v, o, do))
+    dq, dk, dv = (torch.empty_like(q, dtype=out_dtype) for _ in range(3))
+    delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     device = q.get_device()
     rc = _BWD.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                      do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                     dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, t, d,
+                     dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, t, w,
                      int(causal), int(out_dtype == torch.float32),
                      1.0 / math.sqrt(d), device, build.current_stream(device))
     if rc:
@@ -211,7 +260,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
     global bwd_launches, non_causal_bwd_launches
     bwd_launches += 1
     non_causal_bwd_launches += not causal
-    return dq, dk, dv
+    if w == d:
+        return dq, dk, dv
+    return tuple(g[..., :d].contiguous() for g in (dq, dk, dv))
 
 
 class FlashAttention(torch.autograd.Function):

@@ -25,6 +25,11 @@ at every head dim (16, 32, 64, 128); many heads and a batch (the grid's
 y and z axes); the trainer's default LM (B4 H2 T16 D16); and the main
 path's t2k and t8k shapes.
 
+Every instance, forward and backward, at head dims that are no tile's
+width (8, 24, 25, 40, 48, 80, 96, 112, at T 1, 127, 129 and 257) and at
+Phi-3-mini's attention (B4 H32 T2048 D96), under the same tolerances and
+drift rule; a head dim over 128 raises.
+
 The non-causal instances, which the ring (``workloads/ring_attention.py``)
 runs for a block of keys before its queries, are held to the same
 tolerances and the same drift rule at every head dim and T at the tile
@@ -80,6 +85,12 @@ NON_CAUSAL_SHAPES = ([(1, 2, t, d) for d in (16, 32, 64, 128)
                       for t in (1, 100, 127, 128, 129, 1000)]
                      + [(8, 32, 129, 64), (1, 16, 2048, 128),
                         (1, 16, 4096, 128)])
+#: Head dims that are no tile's width, each run by the smallest tile
+#: that holds it (25 through a zero-padded copy), at T over the tile and
+#: TMA edges; then Phi-3-mini's attention (32 heads of 96) at B4 T2048.
+ODD_HEAD_DIM_SHAPES = ([(1, 2, t, d) for d in (8, 24, 25, 40, 48, 80, 96, 112)
+                        for t in (1, 127, 129, 257)]
+                       + [(4, 32, 2048, 96)])
 #: Vector-add lengths: around one 16-byte vector and its ragged tail,
 #: the payload's 2^16 and its neighbours, and the timed 2^26.
 VECTOR_ADD_NS = [1, 3, 4, 5, 1000, 65535, 65536, 65537, (1 << 20) + 3,
@@ -234,8 +245,8 @@ def test_flash_kernel_rejects_what_it_does_not_take(gen):
     q = torch.zeros((1, 1, 8, 32), device="cuda", dtype=torch.bfloat16)
     with pytest.raises(TypeError):
         fa.flash_attention_fwd(q.float(), q.float(), q.float())
-    bad_d = torch.zeros((1, 1, 8, 48), device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head dim"):
+    bad_d = torch.zeros((1, 1, 8, 136), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim 1 to 128, not 136"):
         fa.flash_attention_fwd(bad_d, bad_d, bad_d)
     t = torch.zeros((1, 8, 2, 32), device="cuda",
                     dtype=torch.bfloat16).transpose(1, 2)
@@ -292,8 +303,8 @@ def test_flash_bwd_kernel_rejects_what_it_does_not_take(gen):
     q, k, v, o, lse, do = _bwd_inputs(gen, (1, 2, 8, 32))
     with pytest.raises(TypeError):
         fa.flash_attention_bwd(q, k, v, o, lse, do.float())
-    bad_d = torch.zeros((1, 1, 8, 48), device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head dim"):
+    bad_d = torch.zeros((1, 1, 8, 136), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim 1 to 128, not 136"):
         fa.flash_attention_bwd(bad_d, bad_d, bad_d, bad_d,
                                torch.zeros((1, 1, 8), device="cuda"), bad_d)
     strided = torch.zeros((1, 8, 2, 32), device="cuda",
@@ -431,6 +442,49 @@ def test_flash_kernels_f32_output_is_the_unrounded_output(gen, shape, causal):
     for name, g, g32 in zip(("dq", "dk", "dv"), grads, grads32):
         assert g32.dtype == torch.float32, name
         assert torch.equal(g32.to(torch.bfloat16), g), name
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", ODD_HEAD_DIM_SHAPES)
+def test_flash_kernels_at_any_head_dim(gen, shape, causal, out_dtype):
+    """Every instance (causal or not, bf16 or f32 out) at a head dim that
+    is no tile's width, counted: the forward within 1e-2 + 2^-6 |o| and
+    1e-3 on lse of the plain version, each gradient's deviation from the
+    f32 gradient within 2x the largest and 1.5x the mean deviation of the
+    plain backward's; at T = 1, dq and dk (0 in exact arithmetic) within
+    1e-2. Columns past D are never written: the outputs are [B, H, T,
+    D]."""
+    x32 = [torch.randn(shape, generator=gen, device="cuda") for _ in range(4)]
+    q, k, v, do = (x.to(torch.bfloat16) for x in x32)
+    before = fa.counts()
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, out_dtype)
+    got = fa.flash_attention_bwd(q, k, v, o.to(q.dtype), lse, do, causal,
+                                 out_dtype)
+    suffix = "" if causal else "_non_causal"
+    assert {n: c - before[n] for n, c in fa.counts().items()} == {
+        **dict.fromkeys(before, 0), f"flash_attn_fwd{suffix}": 1,
+        f"flash_attn_bwd{suffix}": 1}
+    o_ref, lse_ref = reference_attention_with_lse(q, k, v, causal, out_dtype)
+    assert o.shape == shape and o.dtype == out_dtype
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=1e-2,
+                               rtol=2 ** -6)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0)
+    o = o.to(q.dtype)
+    plain = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal,
+                                         out_dtype)
+    o32, lse32 = reference_attention_with_lse(*x32[:3], causal)
+    exact = fa.flash_attention_bwd_plain(*x32[:3], o32, lse32, x32[3],
+                                         causal)
+    for name, g, p, e in zip(("dq", "dk", "dv"), got, plain, exact):
+        assert g.shape == shape and g.dtype == out_dtype, name
+        assert bool(torch.isfinite(g).all()), name
+        dev, dev_plain = (g.float() - e).abs(), (p.float() - e).abs()
+        if name in ("dq", "dk") and shape[2] == 1:
+            assert float(dev.max()) <= 1e-2, name  # as in the causal test
+            continue
+        assert float(dev.max()) <= 2 * float(dev_plain.max()), name
+        assert float(dev.mean()) <= 1.5 * float(dev_plain.mean()), name
 
 
 @pytest.mark.parametrize("sp", [2, 4])
