@@ -48,11 +48,13 @@ back:
    ring's diagonal blocks) at B1 H16 T4096 D128, timed;
    head_dims: every instance (causal or not, bf16 or f32 out), forward
    and backward, at head dims that are no tile's width (8, 24, 25, 40,
-   48, 80, 96, 112; 25 through the padded copy) and T 1, 127, 129, 257,
-   under the same tolerances and drift gate, each launch counted; head
-   dim 136 raises; the padded copy of D 25 timed against D 32; then
-   Phi-3-mini's attention (B4 H32 T2048 D96, causal) gated and timed
-   beside SDPA, its bound at the true head dim;
+   48, 80, 96, 112, 136, 144, 200, 250; 25 and 250 through the padded
+   copy) and at the W-256 tile's 256, T 1, 127, 129, 257, under the same
+   tolerances and drift gate, each launch counted; head dim 264 raises;
+   the padded copy of D 25 timed against D 32; then Phi-3-mini's
+   attention (B4 H32 T2048 D96, causal) and GPT-J-6B's (B4 H16 T2048
+   D256, causal) gated and timed beside SDPA, the bounds at the true
+   head dim;
    ring_loopback: the 600M LM's attention at t8k (B1 H16 T8192 D128)
    split into sp = 2 and 4 blocks, and the same shape at head dim 96
    split in two, forward and backward through the ring's block code and
@@ -69,9 +71,9 @@ back:
    cards or more, on the first three (head dim 48; each rank a process
    over NCCL): one dense step over ``default_axis_sizes(n)`` and one MoE
    step, every rank counted, the losses finite, positive and the same on
-   every rank; dryrun_odd: the dense configs of 3 and 6 devices (head
-   dims 48 and 24) at a 1-device layout on the card, one counted step
-   each within 1e-3 of the CPU's;
+   every rank; dryrun_odd: the dense configs of 3, 6, 9 and 15 devices
+   (head dims 48, 24, 144 and 240) at a 1-device layout on the card, one
+   counted step each within 1e-3 of the CPU's;
 8. main path (serving): the payload ``smoke_test`` and the 600M-config
    LM forward (d_model 2048, 8 layers, 16 heads of 128, d_ff 8192, vocab
    32768, bf16 params, random weights from a seed) at the t2k and t8k
@@ -98,6 +100,10 @@ back:
    gradient under the drift gate, then 3 train steps (f32 master,
    AdamW), the first counted, the loss falling, step ms, tokens/s, MFU
    and peak memory;
+   gptj: the same at GPT-J-6B's published widths (d_model 4096, 16
+   heads of 256, d_ff 16384, vocab 50400) in the reference LM's block:
+   the forward at 28 layers, the gradients and 3 train steps at 6 (the
+   depth cut), on the kernels' W-256 instances;
 12. trainer (the TrainJob worker payload): ``trainer.main()`` in this
    process as a one-rank gang, ``MODEL=lm`` at the 600M width and depth
    (f32 params, as the reference trainer's), B4 T2048, 3 steps, every
@@ -268,11 +274,14 @@ CAUSAL_F32_SHAPE = RING_TIMED_SHAPES[0]
 LOOPBACK_SHAPE = (1, 16, 8192, 128)
 LOOPBACK_SPS = (2, 4)
 LOOPBACK_D96_SHAPE = (1, 16, 8192, 96)
-#: Head dims that are no tile's width (8 to 112; 25 not a multiple of 8,
-#: so through the padded copy) at T over the tile and TMA edges: every
-#: instance of both kernels against its plain version.
-HEAD_DIMS = (8, 24, 25, 40, 48, 80, 96, 112)
+#: Head dims that are no tile's width (8 to 250; 25 and 250 not
+#: multiples of 8, so through the padded copy), and the W-256 tile's own
+#: 256, at T over the tile and TMA edges: every instance of both kernels
+#: against its plain version.
+HEAD_DIMS = (8, 24, 25, 40, 48, 80, 96, 112, 136, 144, 200, 250, 256)
 HEAD_DIM_TS = (1, 127, 129, 257)
+#: The narrowest head dim the kernels refuse.
+REFUSED_HEAD_DIM = 264
 #: Phi-3-mini's attention at its serving and training shape (B4 T2048,
 #: 32 heads of 96): the kernels line's D-96 rows.
 PHI3_ATTN_SHAPE = (4, 32, 2048, 96)
@@ -280,15 +289,30 @@ PHI3_ATTN_SHAPE = (4, 32, 2048, 96)
 #: config.json: hidden_size 3072, 32 attention and 32 KV heads,
 #: intermediate_size 8192, vocab_size 32064, 32 layers, rope_theta 10000,
 #: SwiGLU, RMSNorm), inheriting the reference LM's tied unembed and RoPE
-#: on interleaved pairs; served at full depth at PHI3_BATCH (B, T) and
-#: trained at PHI3_TRAIN_LAYERS, PHI3_STEPS steps.
+#: on interleaved pairs; served at full depth and trained at
+#: PHI3_TRAIN_LAYERS.
 PHI3 = dict(vocab=32064, d_model=3072, n_layers=32, n_heads=32, d_ff=8192)
-PHI3_BATCH = (4, 2048)
 PHI3_TRAIN_LAYERS = 16
-PHI3_STEPS = 3
+#: The published-width phases (phi3, gptj): served and trained at
+#: PUBLISHED_BATCH (B, T), PUBLISHED_STEPS train steps on one batch.
+PUBLISHED_BATCH = (4, 2048)
+PUBLISHED_STEPS = 3
+#: GPT-J-6B's attention at its serving and training shape (B4 T2048, 16
+#: heads of 256): the kernels line's D-256 rows.
+GPTJ_ATTN_SHAPE = (4, 16, 2048, 256)
+#: GPT-J-6B's published widths (EleutherAI/gpt-j-6b, config.json: n_embd
+#: 4096, n_head 16, n_layer 28, n_inner null so 4 x 4096, vocab_size
+#: 50400, n_positions 2048) in the reference LM's block: RMSNorm, SwiGLU,
+#: tied unembed, RoPE on interleaved pairs over the whole head (not
+#: GPT-J's rotary_dim 64, parallel residual, GELU and untied head).
+#: Served at full depth, trained at GPTJ_TRAIN_LAYERS (the f32 master
+#: and AdamW moments of its 1.82 G params take ~22 GB).
+GPTJ = dict(vocab=50400, d_model=4096, n_layers=28, n_heads=16, d_ff=16384)
+GPTJ_TRAIN_LAYERS = 6
 #: Device counts with an odd factor whose dense dryrun config steps on
-#: one card at a 1-device layout: head dim 48 at 3, 24 at 6.
-DRYRUN_ODD = (3, 6)
+#: one card at a 1-device layout: head dim 48 at 3, 24 at 6, 144 at 9 and
+#: 240 at 15 (dp = n alone, d_model 32 n over 2 heads).
+DRYRUN_ODD = (3, 6, 9, 15)
 #: Train steps of each lm_sp run.
 LM_SP_STEPS = 3
 #: o against the plain version: both round o to bf16 and the kernel also
@@ -922,15 +946,16 @@ def check_instances(gen, name: str, phase: str, shapes: list,
             [bwd[shape] for shape in timed_shapes])
 
 
-def check_head_dims(gen, name: str) -> tuple[dict, dict]:
-    """The kernels at head dims that are no tile's width: every instance
-    (causal or not, bf16 or f32 out), forward and backward, at
-    HEAD_DIMS x HEAD_DIM_TS under :func:`gate_instance`; head dim 136
-    raises and launches nothing; the padded copy of head dim 25 timed
-    against the D-32 launch it pads to; then Phi-3-mini's attention
-    (PHI3_ATTN_SHAPE, causal, bf16) gated and timed beside SDPA, its
-    bound at the true head dim. Returns the timed forward and backward
-    rows."""
+def check_head_dims(gen, name: str) -> dict:
+    """The kernels at head dims that are no tile's width, and at the
+    W-256 tile's: every instance (causal or not, bf16 or f32 out),
+    forward and backward, at HEAD_DIMS x HEAD_DIM_TS under
+    :func:`gate_instance`; REFUSED_HEAD_DIM raises and launches nothing;
+    the padded copy of head dim 25 timed against the D-32 launch it pads
+    to; then Phi-3-mini's and GPT-J-6B's attention (PHI3_ATTN_SHAPE,
+    GPTJ_ATTN_SHAPE; causal, bf16) gated and timed beside SDPA, the
+    bounds at the true head dim. Returns ``{shape: (forward row,
+    backward row)}`` of the timed shapes."""
     cases = []
     for d in HEAD_DIMS:
         for t in HEAD_DIM_TS:
@@ -946,15 +971,16 @@ def check_head_dims(gen, name: str) -> tuple[dict, dict]:
                                   *(_ratio(brow[g]) for g in ("dq", "dk",
                                                               "dv"))])
     before = counters()
-    wide = torch.zeros((1, 2, 8, 136), device="cuda", dtype=torch.bfloat16)
+    wide = torch.zeros((1, 2, 8, REFUSED_HEAD_DIM), device="cuda",
+                       dtype=torch.bfloat16)
     try:
         fa.flash_attention_fwd(wide, wide, wide)
     except ValueError as err:
         refused = str(err)
     else:
-        raise AssertionError("head dim 136 launched")
+        raise AssertionError(f"head dim {REFUSED_HEAD_DIM} launched")
     if counters() != before:
-        raise AssertionError("head dim 136 counted a launch")
+        raise AssertionError(f"head dim {REFUSED_HEAD_DIM} counted a launch")
     padded = {}
     for d in (25, 32):
         shape = PHI3_ATTN_SHAPE[:3] + (d,)
@@ -972,22 +998,27 @@ def check_head_dims(gen, name: str) -> tuple[dict, dict]:
         del q, k, v, do, o, lse
     torch.cuda.empty_cache()
 
-    x32 = [torch.randn(PHI3_ATTN_SHAPE, generator=gen, device="cuda")
-           for _ in range(4)]
-    row, brow = gate_instance(x32, True, torch.bfloat16)
-    time_instance(row, brow, x32, True, torch.bfloat16, name)
-    del x32
-    torch.cuda.empty_cache()
+    rows = {}
+    for shape in (PHI3_ATTN_SHAPE, GPTJ_ATTN_SHAPE):
+        x32 = [torch.randn(shape, generator=gen, device="cuda")
+               for _ in range(4)]
+        rows[shape] = gate_instance(x32, True, torch.bfloat16)
+        time_instance(*rows[shape], x32, True, torch.bfloat16, name)
+        del x32
+        torch.cuda.empty_cache()
     say("head_dims", ok=True, head_dims=list(HEAD_DIMS),
         ts=list(HEAD_DIM_TS), o_atol=O_ATOL, o_rtol=O_RTOL,
         lse_atol=LSE_ATOL,
         cases_fields=["d", "t", "causal", "out_dtype", "o_max_abs_err",
                       "lse_max_abs_err", "dq_max_dev_over_plain",
                       "dk_max_dev_over_plain", "dv_max_dev_over_plain"],
-        cases=cases, d136=refused,
+        cases=cases, refused=refused,
         padded_d25_vs_d32={f"d{d}": v for d, v in padded.items()},
-        phi3_forward=row, phi3_backward=brow)
-    return row, brow
+        phi3_forward=rows[PHI3_ATTN_SHAPE][0],
+        phi3_backward=rows[PHI3_ATTN_SHAPE][1],
+        gptj_forward=rows[GPTJ_ATTN_SHAPE][0],
+        gptj_backward=rows[GPTJ_ATTN_SHAPE][1])
+    return rows
 
 
 def check_entry() -> None:
@@ -2342,23 +2373,27 @@ def moe_ep_runs(cards: int) -> list:
     return runs
 
 
-def check_phi3(peak: float, known: bool) -> dict:
-    """The LM at Phi-3-mini's published widths (PHI3; head dim 96, so the
-    kernels' W-128 instances with columns 96-127 zero), random weights
-    from a seed, through the entry points a user calls. Serving:
-    ``lm.make_forward`` at full depth, bf16 params, B4 T2048, counted (one
-    causal launch a layer); its logits no further from the f32 forward
-    than the plain bf16 forward is (``perf/gates.drift``); forward ms,
-    tokens/s, MFU, peak memory. Training at PHI3_TRAIN_LAYERS (the depth
-    cut): every gradient of the kernel path under the same rule against
-    an f32 plain-attention step, then ``lm.make_train_step`` (f32 master,
-    AdamW) for PHI3_STEPS steps on one batch, the first counted (2 x
-    layers forward and layers backward launches), the loss falling; step
-    ms, tokens/s, MFU, peak memory. Returns the launches of the counted
-    forward and step."""
-    b, t = PHI3_BATCH
-    cfg = lm.LMConfig(**PHI3, param_dtype=torch.bfloat16, attn_impl="flash")
-    case = chip_bench.BenchCase("phi3-mini-t2k", cfg.d_model, cfg.n_layers,
+def check_published(name: str, widths: dict, train_layers: int,
+                    peak: float, known: bool) -> dict:
+    """The LM at a published model's widths (``widths``: PHI3, head dim
+    96 on the kernels' W-128 instances with columns 96-127 zero; GPTJ,
+    head dim 256 on the W-256 instances), random weights from a seed,
+    through the entry points a user calls. Serving: ``lm.make_forward`` at
+    full depth, bf16 params, PUBLISHED_BATCH, counted (one causal launch a
+    layer); its logits no further from the f32 forward than the plain
+    bf16 forward is (``perf/gates.drift``); forward ms, tokens/s, MFU,
+    peak memory. Training at ``train_layers`` (the depth cut): every
+    gradient of the kernel path under the same rule against an f32
+    plain-attention step, then ``lm.make_train_step`` (f32 master, AdamW)
+    for PUBLISHED_STEPS steps on one batch, the first counted (2 x layers
+    forward and layers backward launches), the loss falling; step ms,
+    tokens/s, MFU, peak memory. Says ``<name>_forward`` and
+    ``<name>_train``; returns the launches of the counted forward and
+    step."""
+    b, t = PUBLISHED_BATCH
+    cfg = lm.LMConfig(**widths, param_dtype=torch.bfloat16,
+                      attn_impl="flash")
+    case = chip_bench.BenchCase(f"{name}-t2k", cfg.d_model, cfg.n_layers,
                                 cfg.n_heads, cfg.d_ff, cfg.vocab, b, t)
     params = lm.init_params(torch.Generator("cuda").manual_seed(0), cfg)
     tokens = lm.synthetic_batch(torch.Generator("cuda").manual_seed(1), cfg,
@@ -2375,7 +2410,7 @@ def check_phi3(peak: float, known: bool) -> dict:
     if fwd_launches != causal_only(flash_attn_fwd=cfg.n_layers) \
             or logits.shape != (b, t, cfg.vocab) \
             or not bool(torch.isfinite(logits).all()):
-        raise AssertionError(f"phi3 forward: {tuple(logits.shape)}, "
+        raise AssertionError(f"{name} forward: {tuple(logits.shape)}, "
                              f"launches {fwd_launches}")
     plain = local(params, tokens)
     exact = lm.make_forward(dataclasses.replace(
@@ -2384,12 +2419,12 @@ def check_phi3(peak: float, known: bool) -> dict:
             **drift(logits, plain, exact)}
     del plain, exact, logits
     if not errs.pop("ok"):
-        raise AssertionError(f"phi3 forward drifts: {errs}")
+        raise AssertionError(f"{name} forward drifts: {errs}")
     ms = time_ms(lambda: forward(params, tokens), 5)
     plain_ms = time_ms(lambda: local(params, tokens), 2, 1)
     ntok = b * t
     flops = chip_bench.forward_flops_per_token(case) * ntok
-    say("phi3_forward", ok=True, batch=b, seq=t, **PHI3,
+    say(f"{name}_forward", ok=True, batch=b, seq=t, **widths,
         head_dim=cfg.head_dim, params=chip_bench.matmul_params(case),
         flash_launches=fwd_launches["flash_attn_fwd"], forward_ms=ms,
         plain_attention_forward_ms=plain_ms,
@@ -2399,8 +2434,8 @@ def check_phi3(peak: float, known: bool) -> dict:
     del params, forward, local
     torch.cuda.empty_cache()
 
-    cfg = dataclasses.replace(cfg, n_layers=PHI3_TRAIN_LAYERS)
-    case = dataclasses.replace(case, n_layers=PHI3_TRAIN_LAYERS)
+    cfg = dataclasses.replace(cfg, n_layers=train_layers)
+    case = dataclasses.replace(case, n_layers=train_layers)
     params = lm.init_params(torch.Generator("cuda").manual_seed(0), cfg)
     batch = lm.synthetic_batch(torch.Generator("cuda").manual_seed(1), cfg,
                                b, t)
@@ -2418,7 +2453,7 @@ def check_phi3(peak: float, known: bool) -> dict:
                                        for p in ("kernel", "plain", "f32"))):
         row = drift(g_k, g_p, g_32)
         if not (row["ok"] and bool(torch.isfinite(g_k).all())):
-            raise AssertionError(f"phi3 gradient {path} drifts: {row}")
+            raise AssertionError(f"{name} gradient {path} drifts: {row}")
         worst[path] = _ratio(row)
     del grads
     torch.cuda.empty_cache()
@@ -2434,28 +2469,28 @@ def check_phi3(peak: float, known: bool) -> dict:
     want = causal_only(flash_attn_fwd=2 * cfg.n_layers,
                        flash_attn_bwd=cfg.n_layers)
     if train_launches != want:
-        raise AssertionError(f"phi3 train step launches {train_launches}, "
+        raise AssertionError(f"{name} train step launches {train_launches}, "
                              f"want {want}")
     losses = [loss]
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(1, PHI3_STEPS):
+    for _ in range(1, PUBLISHED_STEPS):
         params, opt_state, loss = step(params, opt_state, batch)
         losses.append(loss)
     end.record()
     end.synchronize()
-    step_ms = start.elapsed_time(end) / (PHI3_STEPS - 1)
+    step_ms = start.elapsed_time(end) / (PUBLISHED_STEPS - 1)
     losses = [float(x) for x in losses]
     if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
-        raise AssertionError(f"phi3: loss does not fall: {losses}")
+        raise AssertionError(f"{name}: loss does not fall: {losses}")
     flops = chip_bench.train_flops_per_token(case) * ntok
-    say("phi3_train", ok=True, batch=b, seq=t,
-        **dict(PHI3, n_layers=cfg.n_layers),
-        cut=f"depth {PHI3['n_layers']} -> {cfg.n_layers}",
+    say(f"{name}_train", ok=True, batch=b, seq=t,
+        **dict(widths, n_layers=cfg.n_layers),
+        cut=f"depth {widths['n_layers']} -> {cfg.n_layers}",
         params=chip_bench.matmul_params(case),
         launches_per_step=train_launches, losses=losses, step_ms=step_ms,
-        step_timed=f"steps 2-{PHI3_STEPS}, CUDA events",
+        step_timed=f"steps 2-{PUBLISHED_STEPS}, CUDA events",
         tokens_per_s=ntok / (step_ms * 1e-3),
         mfu=flops / (step_ms * 1e-3) / peak, peak_known=known,
         train_bound_ms=flops / peak * 1e3,
@@ -2598,9 +2633,9 @@ def main() -> int:
     causal_f32_rows = check_instances(
         gen, name, "causal_f32", [CAUSAL_F32_SHAPE], [CAUSAL_F32_SHAPE], True,
         torch.float32)
-    # Every instance at head dims that are no tile's width; Phi-3-mini's
-    # attention timed.
-    phi3_attn_rows = check_head_dims(gen, name)
+    # Every instance at head dims that are no tile's width and at the
+    # W-256 tile's; Phi-3-mini's and GPT-J-6B's attention timed.
+    head_dim_rows = check_head_dims(gen, name)
     # The ring's block arithmetic at t8k on one card, at head dims 128
     # and 96, counted inside.
     loopback_launches = check_ring_loopback(gen, LOOPBACK_SHAPE,
@@ -2679,8 +2714,12 @@ def main() -> int:
         base, cases + [chip_bench.case(c) for c in RING_CASES], peak, known)
     check_train_grads(base)
     check_train_loop()
-    # The LM at Phi-3-mini's widths (head dim 96), counted inside.
-    phi3_launches = check_phi3(peak, known)
+    # The LM at Phi-3-mini's widths (head dim 96) and at GPT-J-6B's (head
+    # dim 256), counted inside.
+    phi3_launches = check_published("phi3", PHI3, PHI3_TRAIN_LAYERS, peak,
+                                    known)
+    gptj_launches = check_published("gptj", GPTJ, GPTJ_TRAIN_LAYERS, peak,
+                                    known)
 
     # The TrainJob worker payload, counted inside check_trainer; then the
     # trainer's group, resume and demo paths and, with two cards, dp.
@@ -2703,7 +2742,7 @@ def main() -> int:
                    "train": train_launches[k], "trainer": trainer_launches[k],
                    "trainer_default_lm": default_lm_launches[k],
                    "trainer_lm_d96": trainer_d96_launches[k],
-                   "phi3": phi3_launches[k],
+                   "phi3": phi3_launches[k], "gptj": gptj_launches[k],
                    "ring_loopback": loopback_launches[k],
                    "dryrun": dryrun_launches[k],
                    "lm_sp": lm_sp_launches[k],
@@ -2749,17 +2788,21 @@ def main() -> int:
              "source": "kubernetes_tpu_torch/csrc/flash_attn_bwd.cu",
              "replaces": "kubernetes_tpu/workloads/lm.py:193-197, 232-236",
              "at": at, **{k: bwd_row[k] for k in keys}}]
-    # Phi-3-mini's attention: head dim 96 on the W-128 instances.
-    at = "B{} H{} T{} D{} bf16, causal (Phi-3-mini)".format(*PHI3_ATTN_SHAPE)
-    kernels += [
-        {"name": "flash_attn_fwd", "route": "cuda",
-         "source": "kubernetes_tpu_torch/csrc/flash_attn_fwd.cu",
-         "replaces": "kubernetes_tpu/workloads/lm.py:163-239",
-         "at": at, **{k: phi3_attn_rows[0][k] for k in keys}},
-        {"name": "flash_attn_bwd", "route": "cuda",
-         "source": "kubernetes_tpu_torch/csrc/flash_attn_bwd.cu",
-         "replaces": "kubernetes_tpu/workloads/lm.py:193-197, 232-236",
-         "at": at, **{k: phi3_attn_rows[1][k] for k in keys}}]
+    # Phi-3-mini's attention: head dim 96 on the W-128 instances;
+    # GPT-J-6B's: head dim 256 on the W-256 instances.
+    for shape, model in ((PHI3_ATTN_SHAPE, "Phi-3-mini"),
+                         (GPTJ_ATTN_SHAPE, "GPT-J-6B")):
+        at = "B{} H{} T{} D{} bf16, causal".format(*shape) + f" ({model})"
+        fa_row, bwd_row = head_dim_rows[shape]
+        kernels += [
+            {"name": "flash_attn_fwd", "route": "cuda",
+             "source": "kubernetes_tpu_torch/csrc/flash_attn_fwd.cu",
+             "replaces": "kubernetes_tpu/workloads/lm.py:163-239",
+             "at": at, **{k: fa_row[k] for k in keys}},
+            {"name": "flash_attn_bwd", "route": "cuda",
+             "source": "kubernetes_tpu_torch/csrc/flash_attn_bwd.cu",
+             "replaces": "kubernetes_tpu/workloads/lm.py:193-197, 232-236",
+             "at": at, **{k: bwd_row[k] for k in keys}}]
     # The causal instances with f32 outputs: the ring's diagonal blocks.
     at = "B{} H{} T{} D{} bf16 in, f32 out, causal".format(*CAUSAL_F32_SHAPE)
     kernels += [

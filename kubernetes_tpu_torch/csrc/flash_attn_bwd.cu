@@ -67,12 +67,27 @@
 // every valid query, so the causal mask hides them from dQ; non-causal,
 // a mask of their own does (with K = V = 0 they would add 0 anyway).
 //
-// Head dims, as in the forward: the tile width W (16, 32, 64 or 128) is
-// the template parameter, the head dim D (a multiple of 8 up to 128) an
-// argument, run by the smallest W >= D. Columns D..W-1 of every tile
-// arrive as zeros from TMA, so S, dP and the products are those of D
-// columns and dq, dk, dv have zero columns there, which are not stored;
-// the delta kernel reads the D columns of each row at stride D.
+// Head dims, as in the forward: the tile width W (16, 32, 64, 128 or
+// 256) is the template parameter, the head dim D (a multiple of 8 up to
+// 256) an argument, run by the smallest W >= D. Columns D..W-1 of every
+// tile arrive as zeros from TMA, so S, dP and the products are those of
+// D columns and dq, dk, dv have zero columns there, which are not
+// stored; the delta kernel reads the D columns of each row at stride D.
+//
+// W 256 (head dims 129-256). At 128 rows a block, K and V resident for
+// 128 keys beside two Q/dO stages would take 128 KB + 2 x 65 KB, and Q
+// and dO for 128 queries beside two K/V stages 128 KB + 128 KB, both
+// over a block's 227 KB; and dK plus dV would take 256 f32 registers a
+// thread. So each block of either kernel takes 64 rows (keys, or
+// queries), and both consumer warpgroups work on all 64 of them, each
+// owning one half of the head dim's columns (`Split<W>`): each computes
+// S and dP (S^T and dP^T) over all 256 columns, then its half of dK and
+// dV (64 + 64 registers a thread) or of dQ (64) with m64n128k16
+// products on its half of Q, dO or K (`Tile<W>::box`). Shared memory:
+// dK/dV K + V 64 KB + 2 x 65 KB stages, dQ Q + dO 64 KB + 2 x 64 KB
+// stages, ~194 KB each. The price is S and dP computed twice: a third
+// more products than the useful ones in the dK/dV kernel, half more in
+// the dQ kernel.
 #include <math.h>
 
 #include "common.cuh"
@@ -85,10 +100,26 @@ using namespace hopper;
 constexpr int kStages = 2;
 constexpr int kConsumers = 256;             // two warpgroups of 64 rows
 constexpr int kThreads = kConsumers + 128;  // + the producer warpgroup
-constexpr int kKeyBlock = 128;  // dK/dV kernel: keys per block
 constexpr int kQTile = 64;      // dK/dV kernel: queries per ring tile
-constexpr int kQBlock = 128;    // dQ kernel: queries per block
 constexpr int kKeyTile = 64;    // dQ kernel: keys per ring tile
+
+// How the two consumer warpgroups share a block of either kernel. Up to
+// W 128: 128 rows a block (keys for dK/dV, queries for dQ), 64 a
+// warpgroup, each over all W columns. At W 256: 64 rows a block, all of
+// them in both warpgroups, each over its half of the columns.
+template <int W>
+struct Split {
+  static constexpr bool kSplit = W == 256;  // the warpgroups split columns
+  static constexpr int kRows = kSplit ? 64 : 128;  // rows per block
+  static constexpr int kN = kSplit ? W / 2 : W;    // columns per warpgroup
+  // A warpgroup's first row within the block, and its first column.
+  static __device__ __forceinline__ int row0(int wg) {
+    return kSplit ? 0 : wg * 64;
+  }
+  static __device__ __forceinline__ int col0(int wg) {
+    return kSplit ? wg * kN : 0;
+  }
+};
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kDeltaThreads = 128;
 
@@ -129,6 +160,7 @@ flash_bwd_delta_kernel(const uint16_t* __restrict__ o,
 // per stage Q, dO, lse, delta (padded to 1024 B), then the barriers.
 template <int W>
 struct DkvSmem {
+  static constexpr int kKeyBlock = Split<W>::kRows;  // keys per block
   static constexpr int kK = 0;
   static constexpr int kV = Tile<W>::bytes(kKeyBlock);
   static constexpr int kStage0 = 2 * Tile<W>::bytes(kKeyBlock);
@@ -153,6 +185,8 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
                       Out* __restrict__ dk, Out* __restrict__ dv,
                       int T, int D, float scale, float scale_log2) {
   using L = DkvSmem<W>;
+  using P = Split<W>;
+  constexpr int kKeyBlock = L::kKeyBlock;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -227,16 +261,19 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;
   const int c = lane % 4;
-  const int kw0 = n0 + wg * 64;            // this warpgroup's first key
+  const int kw0 = n0 + P::row0(wg);        // this warpgroup's first key
   const int key0 = kw0 + warp * 16 + g;    // this thread's keys key0, key0+8
-  // Query columns per register pass: at W 128 dK and dV already hold 128
-  // f32 per thread, so a q-tile is taken in two passes of 32.
-  constexpr int kCols = W == 128 ? 32 : kQTile;
+  constexpr int kN = P::kN;                // its columns of dK and dV
+  const int col0 = P::col0(wg);
+  // Query columns per register pass: at 128 columns a warpgroup dK and
+  // dV already hold 128 f32 per thread, so a q-tile is taken in two
+  // passes of 32.
+  constexpr int kCols = kN == 128 ? 32 : kQTile;
 
-  float dk_acc[W / 2];
-  float dv_acc[W / 2];
+  float dk_acc[kN / 2];
+  float dv_acc[kN / 2];
 #pragma unroll
-  for (int i = 0; i < W / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < kN / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
   mbar_wait(kv_full, 0);
   for (int it = 0; it < n_iters; ++it) {
@@ -262,12 +299,12 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < W / 16; ++kk) {
-        wgmma_ss<kCols>(st, Tile<W>::kmajor(base + L::kK, kKeyBlock, wg * 64, kk),
+        wgmma_ss<kCols>(st, Tile<W>::kmajor(base + L::kK, kKeyBlock, P::row0(wg), kk),
                         Tile<W>::kmajor(qs, kQTile, c0, kk), kk > 0);
       }
 #pragma unroll
       for (int kk = 0; kk < W / 16; ++kk) {
-        wgmma_ss<kCols>(dpt, Tile<W>::kmajor(base + L::kV, kKeyBlock, wg * 64, kk),
+        wgmma_ss<kCols>(dpt, Tile<W>::kmajor(base + L::kV, kKeyBlock, P::row0(wg), kk),
                         Tile<W>::kmajor(dos, kQTile, c0, kk), kk > 0);
       }
       wgmma_commit();
@@ -297,7 +334,11 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
       }
 
       // dV += P^T dO, then dK += dS^T Q, contracting over the pass's
-      // queries (k-slices c0/16.. of the q-tile).
+      // queries (k-slices c0/16.. of the q-tile), on this warpgroup's
+      // columns of dO and Q.
+      const uint32_t dos_n =
+          Tile<W>::box(dos, kQTile, col0 / Tile<W>::kBoxCols);
+      const uint32_t qs_n = Tile<W>::box(qs, kQTile, col0 / Tile<W>::kBoxCols);
       uint32_t p_hi[kCols / 16][4], p_lo[kCols / 16][4];
 #pragma unroll
       for (int kk = 0; kk < kCols / 16; ++kk) {
@@ -306,9 +347,9 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kCols / 16; ++kk) {
-        const uint64_t b = Tile<W>::mnmajor(dos, kQTile, c0 / 16 + kk);
-        wgmma_rs<W>(dv_acc, p_hi[kk], b, 1);
-        wgmma_rs<W>(dv_acc, p_lo[kk], b, 1);
+        const uint64_t b = Tile<W>::mnmajor(dos_n, kQTile, c0 / 16 + kk);
+        wgmma_rs<kN>(dv_acc, p_hi[kk], b, 1);
+        wgmma_rs<kN>(dv_acc, p_lo[kk], b, 1);
       }
       wgmma_commit();
       uint32_t ds_hi[kCols / 16][4], ds_lo[kCols / 16][4];
@@ -319,14 +360,14 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kCols / 16; ++kk) {
-        const uint64_t b = Tile<W>::mnmajor(qs, kQTile, c0 / 16 + kk);
-        wgmma_rs<W>(dk_acc, ds_hi[kk], b, 1);
-        wgmma_rs<W>(dk_acc, ds_lo[kk], b, 1);
+        const uint64_t b = Tile<W>::mnmajor(qs_n, kQTile, c0 / 16 + kk);
+        wgmma_rs<kN>(dk_acc, ds_hi[kk], b, 1);
+        wgmma_rs<kN>(dk_acc, ds_lo[kk], b, 1);
       }
       wgmma_commit();
       wgmma_wait<0>();
-      fence_regs<W / 2>(dv_acc);
-      fence_regs<W / 2>(dk_acc);
+      fence_regs<kN / 2>(dv_acc);
+      fence_regs<kN / 2>(dk_acc);
     }
     mbar_arrive(empty + 8 * s);  // this stage's Q, dO, lse, delta are read
   }
@@ -335,9 +376,9 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
   Out* dkh = dk + static_cast<int64_t>(head) * T * D;
   Out* dvh = dv + static_cast<int64_t>(head) * T * D;
 #pragma unroll
-  for (int i = 0; i < W / 2; i += 2) {
+  for (int i = 0; i < kN / 2; i += 2) {
     const int key = key0 + 8 * ((i % 4) / 2);
-    const int col = 8 * (i / 4) + 2 * c;
+    const int col = col0 + 8 * (i / 4) + 2 * c;
     if (key < T && col < D) {
       const int64_t off = static_cast<int64_t>(key) * D + col;
       store_pair(dkh + off, dk_acc[i] * scale, dk_acc[i + 1] * scale);
@@ -349,6 +390,7 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
 // dQ kernel shared memory: Q, dO, then per stage K and V, then barriers.
 template <int W>
 struct DqSmem {
+  static constexpr int kQBlock = Split<W>::kRows;  // queries per block
   static constexpr int kQ = 0;
   static constexpr int kDo = Tile<W>::bytes(kQBlock);
   static constexpr int kStage0 = 2 * Tile<W>::bytes(kQBlock);
@@ -371,14 +413,17 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
                     Out* __restrict__ dq, int T, int D, float scale,
                     float scale_log2) {
   using L = DqSmem<W>;
+  using P = Split<W>;
+  constexpr int kQBlock = L::kQBlock;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t qdo_full = base + L::kBar;
   const uint32_t full = qdo_full + 8;
   const uint32_t empty = full + 8 * kStages;
 
-  // Causal, query tile i loops over key tiles 0..2i+1, else over all;
-  // the tile-major index walks every head's longest q-tile first.
+  // Causal, query tile i loops over key tiles 0..2i+1 (0..i at 64
+  // queries a block), else over all; the tile-major index walks every
+  // head's longest q-tile first.
   const int q_blocks = (T + kQBlock - 1) / kQBlock;
   const int heads = gridDim.x / q_blocks;
   const int tile = q_blocks - 1 - static_cast<int>(blockIdx.x) / heads;
@@ -425,9 +470,13 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;
   const int c = lane % 4;
-  const int r0 = m0 + wg * 64 + warp * 16 + g;  // this thread's rows r0, r0+8
+  // This thread's rows r0, r0+8.
+  const int r0 = m0 + P::row0(wg) + warp * 16 + g;
+  constexpr int kN = P::kN;  // this warpgroup's columns of dQ
+  const int col0 = P::col0(wg);
   // This warpgroup's last key tile: causal, its diagonal one.
-  const int last = kCausal ? diag + wg : key_tiles - 1;
+  const int last =
+      kCausal ? diag + (P::kSplit ? 0 : wg) : key_tiles - 1;
 
   // lse in the log2 domain; +inf past T makes P 0 there.
   float lse2[2], dl[2];
@@ -439,9 +488,9 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
     dl[r] = row < T ? delta[at] : 0.f;
   }
 
-  float dq_acc[W / 2];
+  float dq_acc[kN / 2];
 #pragma unroll
-  for (int i = 0; i < W / 2; ++i) dq_acc[i] = 0.f;
+  for (int i = 0; i < kN / 2; ++i) dq_acc[i] = 0.f;
 
   mbar_wait(qdo_full, 0);
   for (int it = 0; it < n_iters; ++it) {
@@ -457,12 +506,12 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < W / 16; ++kk) {
-        wgmma_ss<kKeyTile>(sc, Tile<W>::kmajor(base + L::kQ, kQBlock, wg * 64, kk),
+        wgmma_ss<kKeyTile>(sc, Tile<W>::kmajor(base + L::kQ, kQBlock, P::row0(wg), kk),
                            Tile<W>::kmajor(ks, kKeyTile, 0, kk), kk > 0);
       }
 #pragma unroll
       for (int kk = 0; kk < W / 16; ++kk) {
-        wgmma_ss<kKeyTile>(dp, Tile<W>::kmajor(base + L::kDo, kQBlock, wg * 64, kk),
+        wgmma_ss<kKeyTile>(dp, Tile<W>::kmajor(base + L::kDo, kQBlock, P::row0(wg), kk),
                            Tile<W>::kmajor(vs, kKeyTile, 0, kk), kk > 0);
       }
       wgmma_commit();
@@ -482,7 +531,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
         if (edge && (kCausal ? key > row : key >= T)) p = 0.f;
         dp[i] = p * (dp[i] - dl[r]);
       }
-      // dQ += dS K (scaled once, at the store).
+      // dQ += dS K (scaled once, at the store), on this warpgroup's
+      // columns of K.
       uint32_t ds_hi[kKeyTile / 16][4], ds_lo[kKeyTile / 16][4];
 #pragma unroll
       for (int kk = 0; kk < kKeyTile / 16; ++kk) {
@@ -491,13 +541,14 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kKeyTile / 16; ++kk) {
-        const uint64_t b = Tile<W>::mnmajor(ks, kKeyTile, kk);
-        wgmma_rs<W>(dq_acc, ds_hi[kk], b, 1);
-        wgmma_rs<W>(dq_acc, ds_lo[kk], b, 1);
+        const uint64_t b = Tile<W>::mnmajor(
+            Tile<W>::box(ks, kKeyTile, col0 / Tile<W>::kBoxCols), kKeyTile, kk);
+        wgmma_rs<kN>(dq_acc, ds_hi[kk], b, 1);
+        wgmma_rs<kN>(dq_acc, ds_lo[kk], b, 1);
       }
       wgmma_commit();
       wgmma_wait<0>();
-      fence_regs<W / 2>(dq_acc);
+      fence_regs<kN / 2>(dq_acc);
     }
     mbar_arrive(empty + 8 * s);  // this stage's K and V are read
   }
@@ -505,9 +556,9 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
   // Columns col, col + 1 of rows < T, only those < D (D is even).
   Out* dqh = dq + static_cast<int64_t>(head) * T * D;
 #pragma unroll
-  for (int i = 0; i < W / 2; i += 2) {
+  for (int i = 0; i < kN / 2; i += 2) {
     const int row = r0 + 8 * ((i % 4) / 2);
-    const int col = 8 * (i / 4) + 2 * c;
+    const int col = col0 + 8 * (i / 4) + 2 * c;
     if (row < T && col < D) {
       store_pair(dqh + static_cast<int64_t>(row) * D + col, dq_acc[i] * scale,
                  dq_acc[i + 1] * scale);
@@ -553,10 +604,10 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   const int64_t rows = static_cast<int64_t>(B) * H * T;
   constexpr int kRowsPerBlock = kDeltaThreads / (W / 8);
   const int64_t delta_blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  // One block per (128-row tile, head) in both the dK/dV and dQ grids.
-  static_assert(kKeyBlock == kQBlock, "one grid size for both kernels");
-  const int64_t blocks =
-      static_cast<int64_t>((T + kQBlock - 1) / kQBlock) * B * H;
+  // One block per (row tile, head) in both the dK/dV and dQ grids: 128
+  // rows a tile, 64 at W 256.
+  constexpr int kRows = Split<W>::kRows;
+  const int64_t blocks = static_cast<int64_t>((T + kRows - 1) / kRows) * B * H;
   if (delta_blocks > 0x7fffffff || blocks > 0x7fffffff) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -583,7 +634,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 }
 
 // The smallest tile width that holds head dim D (a multiple of 8, at
-// most 128; the entry point checks).
+// most 256; the entry point checks).
 template <bool kCausal, typename Out>
 int launch_d(const void* q, const void* k, const void* v, const void* o,
              const void* dout, const void* lse, void* delta, void* dq,
@@ -601,7 +652,11 @@ int launch_d(const void* q, const void* k, const void* v, const void* o,
     return launch<64, kCausal, Out>(q, k, v, o, dout, lse, delta, dq, dk, dv,
                                     B, H, T, D, scale, s);
   }
-  return launch<128, kCausal, Out>(q, k, v, o, dout, lse, delta, dq, dk, dv,
+  if (D <= 128) {
+    return launch<128, kCausal, Out>(q, k, v, o, dout, lse, delta, dq, dk,
+                                     dv, B, H, T, D, scale, s);
+  }
+  return launch<256, kCausal, Out>(q, k, v, o, dout, lse, delta, dq, dk, dv,
                                    B, H, T, D, scale, s);
 }
 
@@ -619,7 +674,7 @@ int launch_c(const void* q, const void* k, const void* v, const void* o,
 }  // namespace
 
 // q, k, v, o, dout: contiguous [B, H, T, D] bf16, D a multiple of 8 up to
-// 128; dq, dk, dv: the same,
+// 256; dq, dk, dv: the same,
 // bf16, or f32 when f32_out is 1; lse: [B, H, T] f32 (natural log, as
 // flash_attn_fwd_bf16 writes it); delta: [B, H, T] f32 scratch; all on
 // `device`. causal: 1 masks key j > query i, 0 masks nothing (but keys
@@ -633,7 +688,7 @@ extern "C" int flash_attn_bwd_bf16(const void* q, const void* k, const void* v,
                                    int D, int causal, int f32_out,
                                    float scale, int device, void* stream) {
   if (B <= 0 || H <= 0 || T <= 0 || H > 65535 || B > 65535 || D <= 0 ||
-      D > 128 || D % 8 != 0) {
+      D > 256 || D % 8 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   DeviceGuard guard(device);

@@ -33,9 +33,9 @@
 // pingpong; building blocks in hopper.cuh). One block of three
 // warpgroups per (128-query tile, head, batch):
 //   - a producer warp TMA-loads the Q tile once, then the K and V tiles
-//     of 128 keys into a two-stage ring, each stage guarded by "full"
-//     barriers (K and V apart, so S can start before V lands) and an
-//     "empty" barrier that the consumers release;
+//     of 128 keys (64 at W 256) into a two-stage ring, each stage
+//     guarded by "full" barriers (K and V apart, so S can start before
+//     V lands) and an "empty" barrier that the consumers release;
 //   - two consumer warpgroups of 64 query rows each compute, per key
 //     tile, S = Q K^T (wgmma, both operands in shared memory), the
 //     online softmax in f32 registers (exp2, in the log2 domain), and
@@ -53,14 +53,24 @@
 // non-causal, a mask of its own hides them, since a zero score would add
 // exp(0 - m) to every row's sum.
 //
-// Head dims. The tile width W (16, 32, 64 or 128) and causality are
-// template parameters; the head dim D is an argument, any multiple of 8
-// up to 128, run by the smallest W >= D. TMA fills columns D..W-1 of
-// every tile with zeros (hopper.cuh), which leaves S = Q K^T as it is
+// Head dims. The tile width W (16, 32, 64, 128 or 256) and causality
+// are template parameters; the head dim D is an argument, any multiple
+// of 8 up to 256, run by the smallest W >= D. TMA fills columns D..W-1
+// of every tile with zeros (hopper.cuh), which leaves S = Q K^T as it is
 // and gives zero columns of O, and only columns < D are stored, at the
 // tensor's own row stride D. So a head dim of 96 (Phi-3-mini's) runs the
 // W-128 instance at the work of D 128; the wrapper pads any other D to a
 // multiple of 8.
+//
+// W 256 (head dims 129-256; GPT-J's 256). Two 128-key stages of K and V
+// beside the 128-row Q tile would take 64 KB + 4 x 64 KB = 320 KB, over
+// the 227 KB a block may have, and S's 64 registers a thread would not
+// fit beside O's 128 under the consumers' 240. So its K/V tiles hold 64
+// keys: Q 64 KB + 4 x 32 KB = 192 KB, and per thread O 128, S 32 and
+// P's fragments 16 registers. O += P V is one m64n256k16 per 16 keys.
+// A 128-row q-tile's diagonal then spans two key tiles, the first two
+// taken, both masked; in the first, warpgroup 0's rows see no key at
+// all, and their running max and sum stay -inf and 0 until the second.
 #include <math.h>
 
 #include "common.cuh"
@@ -71,16 +81,16 @@ namespace {
 using namespace hopper;
 
 constexpr int kRows = 128;  // query rows per block: two warpgroups of 64
-constexpr int kKeys = 128;  // keys per K/V tile of the ring
 constexpr int kStages = 2;
 constexpr int kConsumers = 256;
 constexpr int kThreads = kConsumers + 128;  // + the producer warpgroup
-static_assert(kRows == kKeys, "the key tile counts assume square tiles");
 
 // Shared memory, from a 1024-byte aligned base (the 128-byte swizzle's
 // period): Q, then the K stages, the V stages, then the barriers.
 template <int W>
 struct Smem {
+  // Keys per K/V tile of the ring: 128 (square tiles), 64 at W 256.
+  static constexpr int kKeys = W == 256 ? 64 : 128;
   static constexpr int kTile = Tile<W>::bytes(kKeys);
   static constexpr int kQ = 0;
   static constexpr int kK = Tile<W>::bytes(kRows);
@@ -99,6 +109,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
                  Out* __restrict__ o, float* __restrict__ lse, int T, int D,
                  float scale_log2) {
   using L = Smem<W>;
+  constexpr int kKeys = L::kKeys;
+  // Square tiles: a q-tile takes the key tiles up to its own index, and
+  // only the first taken (the diagonal, or T's last keys) is masked.
+  constexpr bool kSquare = kKeys == kRows;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t q_full = base + L::kBar;
@@ -113,8 +127,12 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
   const int tile = q_tiles - 1 - static_cast<int>(blockIdx.x) / heads;
   const int head = blockIdx.x % heads;
   const int m0 = tile * kRows;
-  // Key tiles n_tiles-1, ..., 0: causal, from the diagonal tile.
-  const int n_tiles = kCausal ? tile + 1 : q_tiles;
+  // Key tiles n_tiles-1, ..., 0: causal, from the diagonal tile (at 64
+  // keys, the one holding the block's last row, or T's last key).
+  const int key_tiles = kSquare ? q_tiles : (T + kKeys - 1) / kKeys;
+  const int n_tiles =
+      kCausal ? (kSquare ? tile + 1 : min((m0 + kRows) / kKeys, key_tiles))
+              : key_tiles;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -173,7 +191,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
     const uint32_t ks = base + L::kK + s * L::kTile;
     const uint32_t vs = base + L::kV + s * L::kTile;
 
-    // S = Q K^T: this warpgroup's 64 rows x 128 keys.
+    // S = Q K^T: this warpgroup's 64 rows x kKeys keys.
     float sc[kKeys / 2];
     mbar_wait(k_full + 8 * s, parity);
     wgmma_fence();
@@ -186,10 +204,13 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_wait<0>();
     fence_regs<kKeys / 2>(sc);
 
-    // Scale into the log2 domain; on the first tile taken mask keys
-    // after the row (causal) or past T (non-causal).
+    // Scale into the log2 domain; mask keys after the row (causal) on
+    // the tiles that cross the block's diagonal (the first taken at
+    // square tiles, the first two at 64 keys) or past T (non-causal: in
+    // the first tile taken).
     float mx[2] = {m_run[0], m_run[1]};
-    const bool edge = it == 0;
+    const bool edge =
+        kSquare || !kCausal ? it == 0 : n0 + kKeys - 1 > m0;
 #pragma unroll
     for (int i = 0; i < kKeys / 2; ++i) {
       const int row = r0 + 8 * ((i % 4) / 2);
@@ -199,17 +220,19 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
       sc[i] = x;
       mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], x);
     }
-    // The four lanes sharing a row hold its 128 columns between them.
+    // The four lanes sharing a row hold its kKeys columns between them.
     float corr[2];
     float base_max[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      // Every row sees a valid key in the first tile taken (key 0 on the
-      // diagonal; key n0 < T in the last, partial tile), so its max is
-      // finite after it; the guard keeps exp2 of (-inf - -inf) from
-      // making a NaN.
+      // At square tiles every row sees a valid key in the first tile
+      // taken (key 0 on the diagonal; key n0 < T in the last, partial
+      // tile), so its max is finite after it; at 64-key tiles, causal,
+      // warpgroup 0's rows see none in the first. The guard keeps exp2
+      // of (-inf - -inf) from making a NaN: while a row's max is -inf,
+      // its corr and P are 0, so its sum and O stay 0.
       base_max[r] = mx[r] == -INFINITY ? 0.f : mx[r];
       corr[r] = exp2f(m_run[r] - base_max[r]);
       m_run[r] = mx[r];
@@ -300,7 +323,7 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
 }
 
 // The smallest tile width that holds head dim D (a multiple of 8, at
-// most 128; the entry point checks).
+// most 256; the entry point checks).
 template <bool kCausal, typename Out>
 int launch_d(const void* q, const void* k, const void* v, void* o, void* lse,
              int B, int H, int T, int D, float scale_log2, cudaStream_t s) {
@@ -316,7 +339,11 @@ int launch_d(const void* q, const void* k, const void* v, void* o, void* lse,
     return launch<64, kCausal, Out>(q, k, v, o, lse, B, H, T, D, scale_log2,
                                     s);
   }
-  return launch<128, kCausal, Out>(q, k, v, o, lse, B, H, T, D, scale_log2,
+  if (D <= 128) {
+    return launch<128, kCausal, Out>(q, k, v, o, lse, B, H, T, D, scale_log2,
+                                     s);
+  }
+  return launch<256, kCausal, Out>(q, k, v, o, lse, B, H, T, D, scale_log2,
                                    s);
 }
 
@@ -331,7 +358,7 @@ int launch_c(const void* q, const void* k, const void* v, void* o, void* lse,
 
 }  // namespace
 
-// q, k, v: contiguous [B, H, T, D] bf16, D a multiple of 8 up to 128; o:
+// q, k, v: contiguous [B, H, T, D] bf16, D a multiple of 8 up to 256; o:
 // the same, bf16, or f32 when f32_out is 1; lse: [B, H, T] f32; all on
 // `device`, and `stream` one of its streams. causal: 1 masks key j >
 // query i, 0 masks nothing (but keys past T). scale_log2 = sm_scale *
@@ -342,7 +369,7 @@ extern "C" int flash_attn_fwd_bf16(const void* q, const void* k, const void* v,
                                    float scale_log2, int device,
                                    void* stream) {
   if (B <= 0 || H <= 0 || T <= 0 || H > 65535 || B > 65535 || D <= 0 ||
-      D > 128 || D % 8 != 0) {
+      D > 256 || D % 8 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   DeviceGuard guard(device);

@@ -12,10 +12,10 @@ Counterparts of ``__graft_entry__``:
   ``dp``/``fsdp``/``sp``/``tp`` sizes (``sharding.default_axis_sizes``;
   sequence parallelism is the ring over ``sp``, each rank running its
   ``H / tp`` heads through the flash kernels at head dim 16, or 48 at
-  n = 3, 24 at 6, up to 128), then one MoE step over an expert-parallel
-  mesh: the token/expert exchange over ``ep``. Every rank is a process
-  of its own, over the port's rendezvous (NCCL on ``n`` cards, or gloo
-  on the CPU).
+  n = 3, 24 at 6, 144 at 9, up to 240 at 15), then one MoE step over an
+  expert-parallel mesh: the token/expert exchange over ``ep``. Every
+  rank is a process of its own, over the port's rendezvous (NCCL on
+  ``n`` cards, or gloo on the CPU).
 """
 from __future__ import annotations
 
@@ -62,8 +62,8 @@ class Dryrun:
 def dryrun_config(n_devices: int) -> Dryrun:
     """The dense LM at ``default_axis_sizes(n)``: ``d_model = 32 *
     max(sizes)``, ``2 * tp`` heads (head dim 16 at a power of 2; 48 at
-    n = 3, 24 at 6, over 128 at an odd n >= 9, which the kernels do not
-    take), ``d_ff = 64 * max``, batch ``2 * dp * fsdp``, seq ``16 *
+    n = 3, 24 at 6, 144 to 240 at an odd n from 9 to 15, on the kernels'
+    W-256 tiles), ``d_ff = 64 * max``, batch ``2 * dp * fsdp``, seq ``16 *
     sp``; the MoE at ``ep = 2`` when ``n`` is even, ``sp = 2`` when
     ``4 | n``, dp the rest, tp 1."""
     sizes = sharding.default_axis_sizes(n_devices)

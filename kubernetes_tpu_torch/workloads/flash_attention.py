@@ -19,10 +19,10 @@ before its queries, and sums its blocks in f32 before it rounds.
 
 Head dims: the kernels take any head dim up to :data:`MAX_HEAD_DIM`. A
 multiple of 8 launches as it is (the smallest of their tile widths 16,
-32, 64, 128 that holds it runs, its extra columns zeros that TMA fills
-in); any other is copied into a zero-padded ``[B, H, T, ceil8(D)]``
-buffer first, the result sliced back to D, with ``1/sqrt(D)`` of the
-true D. A head dim over 128 raises ``ValueError``.
+32, 64, 128, 256 that holds it runs, its extra columns zeros that TMA
+fills in); any other is copied into a zero-padded ``[B, H, T,
+ceil8(D)]`` buffer first, the result sliced back to D, with
+``1/sqrt(D)`` of the true D. A head dim over 256 raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -55,10 +55,10 @@ def counts() -> dict:
             "flash_attn_fwd_non_causal": non_causal_launches,
             "flash_attn_bwd_non_causal": non_causal_bwd_launches}
 
-#: The widest head dim the kernels take: their widest tile (the 600M
-#: LM's 128). From 1 (the trainer's default LM has 16) to this one, every
+#: The widest head dim the kernels take: their widest tile (GPT-J-6B's
+#: 256). From 1 (the trainer's default LM has 16) to this one, every
 #: head dim launches them.
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 
 
 def takes_head_dim(d: int) -> bool:

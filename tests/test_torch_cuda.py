@@ -26,9 +26,10 @@ y and z axes); the trainer's default LM (B4 H2 T16 D16); and the main
 path's t2k and t8k shapes.
 
 Every instance, forward and backward, at head dims that are no tile's
-width (8, 24, 25, 40, 48, 80, 96, 112, at T 1, 127, 129 and 257) and at
-Phi-3-mini's attention (B4 H32 T2048 D96), under the same tolerances and
-drift rule; a head dim over 128 raises.
+width (8, 24, 25, 40, 48, 80, 96, 112, 136, 144, 200, 250, at T 1, 127,
+129 and 257), at the W-256 tile's own 256, at Phi-3-mini's attention (B4
+H32 T2048 D96) and at GPT-J-6B's (B4 H16 T2048 D256), under the same
+tolerances and drift rule; a head dim over 256 raises.
 
 The non-causal instances, which the ring (``workloads/ring_attention.py``)
 runs for a block of keys before its queries, are held to the same
@@ -86,11 +87,15 @@ NON_CAUSAL_SHAPES = ([(1, 2, t, d) for d in (16, 32, 64, 128)
                      + [(8, 32, 129, 64), (1, 16, 2048, 128),
                         (1, 16, 4096, 128)])
 #: Head dims that are no tile's width, each run by the smallest tile
-#: that holds it (25 through a zero-padded copy), at T over the tile and
-#: TMA edges; then Phi-3-mini's attention (32 heads of 96) at B4 T2048.
-ODD_HEAD_DIM_SHAPES = ([(1, 2, t, d) for d in (8, 24, 25, 40, 48, 80, 96, 112)
+#: that holds it (25 and 250 through a zero-padded copy), and the W-256
+#: tile's 256, at T over the tile and TMA edges; then Phi-3-mini's
+#: attention (32 heads of 96) and GPT-J-6B's (16 heads of 256) at B4
+#: T2048.
+ODD_HEAD_DIM_SHAPES = ([(1, 2, t, d)
+                        for d in (8, 24, 25, 40, 48, 80, 96, 112, 136, 144,
+                                  200, 250, 256)
                         for t in (1, 127, 129, 257)]
-                       + [(4, 32, 2048, 96)])
+                       + [(4, 32, 2048, 96), (4, 16, 2048, 256)])
 #: Vector-add lengths: around one 16-byte vector and its ragged tail,
 #: the payload's 2^16 and its neighbours, and the timed 2^26.
 VECTOR_ADD_NS = [1, 3, 4, 5, 1000, 65535, 65536, 65537, (1 << 20) + 3,
@@ -245,8 +250,8 @@ def test_flash_kernel_rejects_what_it_does_not_take(gen):
     q = torch.zeros((1, 1, 8, 32), device="cuda", dtype=torch.bfloat16)
     with pytest.raises(TypeError):
         fa.flash_attention_fwd(q.float(), q.float(), q.float())
-    bad_d = torch.zeros((1, 1, 8, 136), device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head dim 1 to 128, not 136"):
+    bad_d = torch.zeros((1, 1, 8, 264), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim 1 to 256, not 264"):
         fa.flash_attention_fwd(bad_d, bad_d, bad_d)
     t = torch.zeros((1, 8, 2, 32), device="cuda",
                     dtype=torch.bfloat16).transpose(1, 2)
@@ -303,8 +308,8 @@ def test_flash_bwd_kernel_rejects_what_it_does_not_take(gen):
     q, k, v, o, lse, do = _bwd_inputs(gen, (1, 2, 8, 32))
     with pytest.raises(TypeError):
         fa.flash_attention_bwd(q, k, v, o, lse, do.float())
-    bad_d = torch.zeros((1, 1, 8, 136), device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head dim 1 to 128, not 136"):
+    bad_d = torch.zeros((1, 1, 8, 264), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim 1 to 256, not 264"):
         fa.flash_attention_bwd(bad_d, bad_d, bad_d, bad_d,
                                torch.zeros((1, 1, 8), device="cuda"), bad_d)
     strided = torch.zeros((1, 8, 2, 32), device="cuda",

@@ -3,8 +3,9 @@ against the reference.
 
 ``dryrun_multichip(n, device="cpu")`` at n = 3 (dense ``dp 3`` at head
 dim 48; MoE ``dp 3``), n = 4 (dense ``tp 2 x sp 2``; MoE ``ep 2 x sp
-2``) and n = 8 (dense ``fsdp 2 x sp 2 x tp 2``; MoE ``dp 2 x ep 2 x sp
-2``), each rank a process of its own: both losses
+2``), n = 8 (dense ``fsdp 2 x sp 2 x tp 2``; MoE ``dp 2 x ep 2 x sp
+2``) and n = 9 (dense ``dp 9`` at head dim 144, the kernels' W-256
+tiles on the card; MoE ``dp 9``), each rank a process of its own: both losses
 finite, positive and the same on every rank, every mesh coordinate
 taken once, and each loss against the reference's one-device
 ``loss_fn`` on the same params and batch (``entry.dryrun_inputs``
@@ -30,7 +31,7 @@ from kubernetes_tpu.workloads.sharding import (default_axis_sizes,
 from kubernetes_tpu_torch import entry
 from kubernetes_tpu_torch.workloads import lm as tlm
 
-COUNTS = (3, 4, 8)
+COUNTS = (3, 4, 8, 9)
 #: Losses in bf16 compute against the reference's, absolute.
 BF16_ATOL = 1e-2
 
@@ -48,7 +49,7 @@ def _numpy(tree):
     return tlm._tree_map(lambda x: x.numpy(), tree)
 
 
-@pytest.mark.parametrize("n", [1, 2, 3, 4, 6, 8, 16])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 6, 8, 9, 15, 16])
 def test_configs_are_the_reference(n):
     run = entry.dryrun_config(n)
     sizes = default_axis_sizes(n)
@@ -60,8 +61,8 @@ def test_configs_are_the_reference(n):
     assert cfg.attn_impl == "ring"
     if n & (n - 1) == 0:  # up to 16 devices: every axis 1 or 2
         assert cfg.head_dim == 16
-    else:  # an odd factor: 48 at 3, 24 at 6
-        assert cfg.head_dim == {3: 48, 6: 24}[n]
+    else:  # an odd factor: 48 at 3, 24 at 6, dp = n alone at 9 and 15
+        assert cfg.head_dim == {3: 48, 6: 24, 9: 144, 15: 240}[n]
     assert (run.batch, run.seq) == (2 * sizes["dp"] * sizes["fsdp"],
                                     16 * sizes["sp"])
     ep = 2 if n % 2 == 0 else 1

@@ -1,16 +1,16 @@
 """Head dims on the CPU: the configs that send them, the wrapper at every
-head dim up to 128 against the reference, and the LM and the MoE at head
-dims that are not powers of 2.
+head dim up to 256 against the reference, and the LM and the MoE at head
+dims that are not powers of 2, and the LM at head dim 256.
 
-The flash kernels take any head dim from 1 to 128
+The flash kernels take any head dim from 1 to 256
 (``flash_attention.takes_head_dim``): a multiple of 8 launches as it is,
-any other through a zero-padded copy, and 136 raises. The reference's
+any other through a zero-padded copy, and 264 raises. The reference's
 TrainJob controller sets no ``LM_*`` env, so the trainer's default LM (2
 heads of a 32-wide model, head dim 16) is what a plain ``MODEL=lm``
 TrainJob trains; ``__graft_entry__.dryrun_multichip``'s dense config has
 head dim ``32 * max(sizes) / (2 * tp)``: 16 at a power of 2, 48 at 3, 80
-at 5, 24 at 6, 112 at 7, but 144 to 240 at 9, 11, 13 and 15. Each must
-be a head dim the kernels take, but those four. The
+at 5, 24 at 6, 112 at 7, and 144 to 240 at 9, 11, 13 and 15. Each is a
+head dim the kernels take. The
 kernels themselves run only on the card (``tests/test_torch_cuda.py``);
 here the wrapper's plain versions are held to the reference, and the
 Python around a launch (the padded copy, the scale of the true head dim,
@@ -21,8 +21,8 @@ Tolerances: f32 throughout. The forward and its LSE within 1e-5 of the
 reference's ``reference_attention`` (float64 for the LSE); the plain
 backward within 1e-5 of ``jax.grad`` of it; the stand-in launches
 within 1e-5 of the plain version (the same sums with zero columns
-added); the LM at head dim 96 and the MoE at head dim 48 under the
-bounds of ``tests/test_torch_train.py`` and ``tests/test_torch_moe.py``
+added); the LM at head dims 96 and 256 and the MoE at head dim 48 under
+the bounds of ``tests/test_torch_train.py`` and ``tests/test_torch_moe.py``
 (1e-4 on f32 logits, losses and gradients; an AdamW step within 2 * lr
 and a mean of 1e-6).
 """
@@ -52,8 +52,13 @@ from kubernetes_tpu_torch.workloads.ring_attention import (
 #: padded copy), 40 (10 devices), 80 (Phi-2), 96 (Phi-3-mini), 112 (7
 #: devices).
 ODD_HEAD_DIMS = (8, 24, 25, 40, 48, 80, 96, 112)
+#: Head dims of the kernels' W-256 tiles: 144 (dryrun at 9 devices), 250
+#: (not a multiple of 8: the padded copy to 256), 256 (GPT-J-6B).
+WIDE_HEAD_DIMS = (144, 250, 256)
 #: The LM at head dim 96: Phi-3-mini's head dim, narrow and shallow.
 LM96 = dict(vocab=128, d_model=192, n_layers=2, n_heads=2, d_ff=256)
+#: The LM at head dim 256: GPT-J-6B's head dim, narrow and shallow.
+LM256 = dict(vocab=128, d_model=512, n_layers=2, n_heads=2, d_ff=512)
 LR = 3e-3
 
 
@@ -66,23 +71,16 @@ def test_trainer_default_lm_has_a_kernel_head_dim(monkeypatch):
     assert cfg.head_dim == 16 and fa.takes_head_dim(cfg.head_dim)
 
 
-#: Device counts to 16 whose dense dryrun config has a head dim over 128:
-#: an odd n >= 9 is dp = n alone, so d_model = 32 n over 2 heads (144,
-#: 176, 208, 240). They wait for the kernels' head dims 129-256 (ROADMAP
-#: queue 1).
-OVER_128 = (9, 11, 13, 15)
-
-
 @pytest.mark.parametrize("n_devices", range(1, 17))
 def test_graft_entry_dense_config_has_a_kernel_head_dim(n_devices):
     """``__graft_entry__.dryrun_multichip``'s dense LM: d_model
     32 * max(sizes), 2 * tp heads, at every device count to 16: a head
-    dim the kernels take but at :data:`OVER_128`."""
+    dim the kernels take. An odd n >= 9 is dp = n alone, so d_model =
+    32 n over 2 heads: 144, 176, 208, 240, on the W-256 tiles."""
     sizes = default_axis_sizes(n_devices)
     head_dim = 32 * max(sizes.values()) // (2 * sizes["tp"])
-    assert fa.takes_head_dim(head_dim) is (n_devices not in OVER_128), \
-        head_dim
-    assert (head_dim > 128) is (n_devices in OVER_128)
+    assert fa.takes_head_dim(head_dim), head_dim
+    assert (head_dim > 128) is (n_devices in (9, 11, 13, 15)), head_dim
 
 
 def test_graft_entry_moe_config_has_a_kernel_head_dim():
@@ -93,7 +91,8 @@ def test_graft_entry_moe_config_has_a_kernel_head_dim():
 
 @pytest.mark.parametrize("d,ok", [(0, False), (1, True), (8, True),
                                   (25, True), (96, True), (128, True),
-                                  (129, False), (136, False), (256, False)])
+                                  (129, True), (136, True), (256, True),
+                                  (257, False), (264, False)])
 def test_the_head_dim_rule(d, ok):
     assert fa.takes_head_dim(d) is ok
     if ok:
@@ -133,7 +132,7 @@ def _inputs(shape, n=3, seed=0):
     return [rng.standard_normal(shape).astype(np.float32) for _ in range(n)]
 
 
-@pytest.mark.parametrize("d", ODD_HEAD_DIMS)
+@pytest.mark.parametrize("d", ODD_HEAD_DIMS + WIDE_HEAD_DIMS)
 def test_wrapper_cpu_path_matches_reference_at_head_dim(d):
     """Forward and LSE of the wrapper's plain path at each head dim
     against ``reference_attention`` (f32, 1e-5) and float64."""
@@ -146,7 +145,7 @@ def test_wrapper_cpu_path_matches_reference_at_head_dim(d):
     np.testing.assert_allclose(lse.numpy(), _lse64(q, k), atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("d", ODD_HEAD_DIMS)
+@pytest.mark.parametrize("d", ODD_HEAD_DIMS + WIDE_HEAD_DIMS)
 def test_wrapper_cpu_backward_matches_jax_grad_at_head_dim(d):
     """The plain backward (``flash_attention_bwd`` on CPU tensors, from
     the forward's o and LSE) against ``jax.grad`` of the reference's
@@ -239,7 +238,7 @@ def stand_in(monkeypatch):
     return launches
 
 
-@pytest.mark.parametrize("d", ODD_HEAD_DIMS)
+@pytest.mark.parametrize("d", ODD_HEAD_DIMS + (250, 256))
 @pytest.mark.parametrize("causal", [True, False])
 def test_kernel_route_pads_and_slices_at_head_dim(stand_in, d, causal):
     """At each head dim the kernel route hands the kernels a width that
@@ -283,21 +282,22 @@ def test_kernel_route_pads_and_slices_at_head_dim(stand_in, d, causal):
         torch.testing.assert_close(g, wnt, atol=1e-5, rtol=0, msg=name)
 
 
-def test_kernel_checks_refuse_a_head_dim_over_128():
-    """The checks a CUDA tensor passes before a launch refuse D 136 (and
-    take 25 and 128); the plain version on the CPU takes any head dim."""
-    for d in (25, 128):
+def test_kernel_checks_refuse_a_head_dim_over_256():
+    """The checks a CUDA tensor passes before a launch refuse D 264 (and
+    take 25, 128, 136 and 256); the plain version on the CPU takes any
+    head dim."""
+    for d in (25, 128, 136, 256):
         x = torch.zeros((1, 1, 8, d), dtype=torch.bfloat16)
         fa._check_kernel_inputs("flash attention", q=x, k=x, v=x)
-    x = torch.zeros((1, 1, 8, 136), dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head dim 1 to 128, not 136"):
+    x = torch.zeros((1, 1, 8, 264), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim 1 to 256, not 264"):
         fa._check_kernel_inputs("flash attention", q=x, k=x, v=x)
     o, _ = fa.flash_attention_fwd(x.float(), x.float(), x.float())
-    assert o.shape == (1, 1, 8, 136)
+    assert o.shape == (1, 1, 8, 264)
 
 
-# -- The LM at head dim 96 and the MoE at head dim 48 against the
-#    reference, f32 compute. --
+# -- The LM at head dims 96 and 256 and the MoE at head dim 48 against
+#    the reference, f32 compute. --
 
 @pytest.fixture(scope="module")
 def mesh():
@@ -309,6 +309,18 @@ def _lm96():
     tcfg = tlm.LMConfig(**LM96, compute_dtype=torch.float32,
                         attn_impl="flash")
     assert jcfg.head_dim == tcfg.head_dim == 96
+    return jcfg, tcfg
+
+
+def _lm256():
+    """The reference's LM at head dim 256 with its plain attention
+    (``attn_impl="local"``), and the port's through its flash route (the
+    plain versions on the CPU), f32 compute."""
+    jcfg = jlm.LMConfig(**LM256, compute_dtype=jnp.float32,
+                        attn_impl="local")
+    tcfg = tlm.LMConfig(**LM256, compute_dtype=torch.float32,
+                        attn_impl="flash")
+    assert jcfg.head_dim == tcfg.head_dim == 256
     return jcfg, tcfg
 
 
@@ -328,25 +340,27 @@ def _path_leaf(tree, path):
     return tree
 
 
-def test_lm_at_head_dim_96_forward_and_loss_match_jax(mesh):
-    jcfg, tcfg = _lm96()
-    jp = jlm.init_params(jax.random.PRNGKey(0), jcfg)
+def _forward_and_loss_match(mesh, jcfg, tcfg, seed):
+    """The forward's logits and the loss on the same params and tokens,
+    port against reference (1e-4)."""
+    jp = jlm.init_params(jax.random.PRNGKey(seed), jcfg)
     tp = _carry_lm(jp, tcfg)
-    toks = _tokens((2, 33), 0, LM96["vocab"])
+    toks = _tokens((2, 33), seed, jcfg.vocab)
     want = np.asarray(jlm.make_forward(jcfg, mesh)(jp, jnp.asarray(toks)))
     got = tlm.make_forward(tcfg, "cpu")(tp, torch.from_numpy(toks))
-    assert got.shape == (2, 33, LM96["vocab"])
+    assert got.shape == (2, 33, jcfg.vocab)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
-    batch = _tokens((2, 34), 1, LM96["vocab"])
+    batch = _tokens((2, 34), seed + 1, jcfg.vocab)
     want_loss = float(jlm.loss_fn(jp, jnp.asarray(batch), jcfg, mesh))
     assert abs(float(tlm.loss_fn(tp, torch.from_numpy(batch), tcfg))
                - want_loss) < 1e-4
 
 
-def test_lm_at_head_dim_96_grads_match_jax(mesh):
-    jcfg, tcfg = _lm96()
-    jp = jlm.init_params(jax.random.PRNGKey(1), jcfg)
-    batch = _tokens((2, 34), 2, LM96["vocab"])
+def _grads_match(mesh, jcfg, tcfg, seed):
+    """The loss and every gradient, port against ``jax.value_and_grad``
+    of the reference's loss (1e-4)."""
+    jp = jlm.init_params(jax.random.PRNGKey(seed), jcfg)
+    batch = _tokens((2, 34), seed + 1, jcfg.vocab)
     want_loss, want = jax.value_and_grad(jlm.loss_fn)(
         jp, jnp.asarray(batch), jcfg, mesh)
     loss, grads = tlm.loss_and_grads(_carry_lm(jp, tcfg),
@@ -360,12 +374,13 @@ def test_lm_at_head_dim_96_grads_match_jax(mesh):
                                    rtol=0, err_msg=str(path))
 
 
-def test_lm_at_head_dim_96_adamw_step_matches_jax(mesh):
-    jcfg, tcfg = _lm96()
-    jp, jst = jlm.init_sharded(jax.random.PRNGKey(2), jcfg, mesh)
+def _adamw_step_matches(mesh, jcfg, tcfg, seed):
+    """One AdamW train step from the same state: the loss within 1e-4,
+    every param within 2 * lr and a mean of 1e-6."""
+    jp, jst = jlm.init_sharded(jax.random.PRNGKey(seed), jcfg, mesh)
     tp = _carry_lm(jp, tcfg)
     tst = tlm.init_opt_state(tp, tcfg)
-    batch = _tokens((4, 33), 3, LM96["vocab"])
+    batch = _tokens((4, 33), seed + 1, jcfg.vocab)
     jp, jst, jloss = jlm.make_train_step(jcfg, mesh)(jp, jst,
                                                      jnp.asarray(batch))
     tp, tst, tloss = tlm.make_train_step(tcfg, device="cpu")(
@@ -374,6 +389,30 @@ def test_lm_at_head_dim_96_adamw_step_matches_jax(mesh):
     for path, w in jax.tree_util.tree_flatten_with_path(jp)[0]:
         diff = np.abs(_path_leaf(tp, path).detach().numpy() - np.asarray(w))
         assert diff.max() <= 2 * LR * 1.01 and diff.mean() <= 1e-6, path
+
+
+def test_lm_at_head_dim_96_forward_and_loss_match_jax(mesh):
+    _forward_and_loss_match(mesh, *_lm96(), seed=0)
+
+
+def test_lm_at_head_dim_96_grads_match_jax(mesh):
+    _grads_match(mesh, *_lm96(), seed=1)
+
+
+def test_lm_at_head_dim_96_adamw_step_matches_jax(mesh):
+    _adamw_step_matches(mesh, *_lm96(), seed=2)
+
+
+def test_lm_at_head_dim_256_forward_and_loss_match_jax(mesh):
+    _forward_and_loss_match(mesh, *_lm256(), seed=3)
+
+
+def test_lm_at_head_dim_256_grads_match_jax(mesh):
+    _grads_match(mesh, *_lm256(), seed=4)
+
+
+def test_lm_at_head_dim_256_adamw_step_matches_jax(mesh):
+    _adamw_step_matches(mesh, *_lm256(), seed=5)
 
 
 @pytest.fixture
