@@ -5,7 +5,8 @@
 
 Run from the root of the repository on a machine with a CUDA card and
 nvcc. Phases, in order; any failure exits non-zero and nothing falls
-back:
+back (a mesh run whose losses miss is reported at once and fails the
+run after the kernels line, so the phases after it still run):
 
 1. device: the card as ``nvidia-smi`` reports it (name, power limit);
 2. build: every kernel of ``kubernetes_tpu_torch/csrc`` with nvcc;
@@ -55,6 +56,15 @@ back:
    attention (B4 H32 T2048 D96, causal) and GPT-J-6B's (B4 H16 T2048
    D256, causal) gated and timed beside SDPA, the bounds at the true
    head dim;
+   attn_f32: the f32 instances (q, k, v, dO in f32), forward and
+   backward, causal and not, at head dims 16, 24, 48, 96, 128 and T 127,
+   1000, each output against an f64 plain version within 1/16 of the
+   bf16 instance's deviation on the bf16 rounding of the same inputs,
+   each launch counted; head dim 136 in f32 raises ``ValueError``, f64,
+   f16 and mixed dtypes ``TypeError``; then the 600M LM's attention in
+   f32 (B4 H16 T2048 D128, causal) and its t8k ring block (B1 H16 T4096,
+   non-causal) gated the same way and timed beside SDPA with TF32 off,
+   bound at the TF32 tensor rate;
    ring_loopback: the 600M LM's attention at t8k (B1 H16 T8192 D128)
    split into sp = 2 and 4 blocks, and the same shape at head dim 96
    split in two, forward and backward through the ring's block code and
@@ -62,6 +72,9 @@ back:
    sp(sp-1)/2 non-causal); o, lse, dq, dk, dv under the drift gate
    against f32 attention of the whole sequence; the whole ring's time
    and each rank's share;
+   ring_loopback_f32: the same t8k attention in f32 at sp = 2 and 4
+   through the f32 instances, counted, each output against f64 attention
+   of the whole sequence within 1/16 of the bf16 ring's deviation;
 7. entry: the tiny entry-point forward (the reference's default
    attention, the ring, at sp = 1) on the card against the CPU;
    mnist: the MNIST payload (plain PyTorch ops) on the card, 40 Adam
@@ -88,10 +101,23 @@ back:
    and the loss over 10 steps, which must fall;
 10. train_grads: at full width but 2 layers (t2k), every gradient of the
    kernel path against an f32 plain-attention step, no further from it
-   than the plain bf16 step's gradients are;
+   than the plain bf16 step's gradients are; then the f32 kernel path
+   (f32 params and compute, the ring at sp = 1): its logits and every
+   gradient within 1/16 of the bf16 kernel path's largest deviation from
+   that f32 step;
 11. train_loop: ``lm.train`` on the card at the entry config with
    checkpoints every 2 steps, 4 steps then a resume to 6, the marker and
    the metrics report;
+   lm_f32: the 600M LM in f32 params and compute (TF32 off), B4 T2048:
+   the forward with the default ring (sp = 1) and with ``"flash"``, each
+   counted (8 f32 launches) and its loss within 1e-4 of plain f32
+   attention's; 3 train steps through the ring, counted (16 forward and 8
+   backward f32 launches a step), step 1 within 1e-4 of the plain f32
+   step, every step within 1e-4 of the same steps with plain attention
+   in f64, or within twice the plain f32 steps' distance from them where
+   that is more (``f32_steps_rule``); the same steps with one-pass TF32
+   attention must fail that rule (its power); forward and step ms,
+   tokens/s, MFU against the bf16 peak, peak memory;
    phi3: the LM at Phi-3-mini's published widths (d_model 3072, 32 heads
    of 96, d_ff 8192, vocab 32064; random weights from a seed): the
    forward at 32 layers, bf16 params, B4 T2048, counted, its logits
@@ -146,15 +172,19 @@ back:
    of one card's f32 steps at every step; after step 1 the bf16 mesh no
    further from one card's f32 step than twice the larger distance from
    it of one card's two bf16 paths (the flash kernels, plain attention);
-   step ms, tokens/s, MFU and peak memory per card; each
-   rank's attention time and one K/V rotation's, and how much of the
-   rotations the kernels hide. With one card, a line that says it was
+   beside the gate, the mesh's f32 steps through the real ring (the f32
+   instances), counted, within 1e-4 of one card's f32 steps at every
+   step and within ``f32_steps_rule`` (lm_f32's rule); step ms,
+   tokens/s, MFU and peak memory per card; each rank's attention time
+   and one K/V rotation's, and how much of the rotations the kernels
+   hide. With one card, a line that says it was
    not run: ring_loopback has held the ring's arithmetic on that card;
    lm_fsdp_tp: with two cards or more, the 600M LM at full width and
    depth, B4 T2048, params sharded over fsdp and heads and FFN columns
    over tp: fsdp = 2 and tp = 2; with four cards also fsdp = 2 x tp = 2
    and sp = 2 x tp = 2. Every rank counted; the losses under the mesh
-   gate; step ms, tokens/s and MFU per card, peak memory per card and
+   gate and the f32 steps through the ring beside it, as lm_sp's; step
+   ms, tokens/s and MFU per card, peak memory per card and
    each rank's collectives per layer (the fsdp gather, the tp pair's
    all-reduces). With one card, a line that says it was not run;
    moe (the MoE, ``workloads/moe.py``, on one card): the reference's
@@ -170,11 +200,17 @@ back:
    batch, the first counted (16 forward and 8 backward launches), the
    loss falling; step ms, tokens/s, the einsums' FLOPs and TFLOP/s, peak
    memory;
+   moe_f32: ``MoEConfig()`` in f32 compute (head dim 32) at B4 T512: the
+   forward counted (one f32 launch a layer), each layer's output and
+   attention through the f32 instances within 1/16 of the bf16 kernel
+   path's deviation from plain f32 attention (the layer gate), the loss
+   and one counted step's loss within 1e-4 of plain f32 attention's;
    moe_ep: with two cards or more, that MoE expert-parallel over NCCL,
    one rank process per card: ep = 2 at full depth; with four cards also
    ep = 2 x sp = 2, dp = 2 x ep = 2 and ep = 2 x tp = 2 at 2 layers.
    Every rank counted; the losses the same on every rank and under the
-   mesh gate. Step ms and peak memory per card, each rank's exchange
+   mesh gate, the f32 steps through the ring beside it, as lm_sp's. Step
+   ms and peak memory per card, each rank's exchange
    time per layer and the f32 steps' seconds. With one card, a line that
    says it was not run;
 17. vector_add_device_us: ``device_us`` of K1 and of ``torch.add`` at
@@ -216,7 +252,9 @@ from kubernetes_tpu_torch.deviceplugin import gpu_plugin
 from kubernetes_tpu_torch.kernels import build
 from kubernetes_tpu_torch.node import runtimehook
 from kubernetes_tpu_torch.perf import chip_bench
-from kubernetes_tpu_torch.perf.gates import drift, moe_layer_gate
+from kubernetes_tpu_torch.perf.gates import (F32_RULE, attention_f64,
+                                             attention_tf32, drift, f32_rule,
+                                             moe_layer_gate, plain64)
 from kubernetes_tpu_torch.perf.launch_cost import host_us
 from kubernetes_tpu_torch.entry import (dryrun_config, dryrun_inputs,
                                          dryrun_multichip, entry)
@@ -323,6 +361,23 @@ O_ATOL, O_RTOL = 1e-2, 2 ** -6
 LSE_ATOL = 1e-3
 #: f32 arithmetic outside the tensor cores, H100 SXM (the vector add).
 F32_FLOPS = 67e12
+#: Dense TF32 on the tensor cores, H100 SXM (NVIDIA's data sheet): the
+#: bound of the f32 attention instances, the rate a user who asks for f32
+#: attention would otherwise get from the tensor cores.
+TF32_FLOPS = 494.7e12
+#: attn_f32: every f32 instance at these head dims and T (not multiples
+#: of the tiles), then at ATTN_F32_TIMED, gated and timed: the 600M LM's
+#: t2k attention in f32 (causal) and its t8k ring block at sp = 2
+#: (non-causal).
+ATTN_F32_DIMS = (16, 24, 48, 96, 128)
+ATTN_F32_TS = (127, 1000)
+ATTN_F32_TIMED = (((4, 16, 2048, 128), True), ((1, 16, 4096, 128), False))
+#: The head dim the f32 instances refuse first.
+REFUSED_F32_HEAD_DIM = 136
+#: The f32 LM's and f32 MoE's losses against plain f32 attention's,
+#: relative: the forward's and the first step's. After the first step
+#: the f32 LM's train steps are held by :func:`f32_steps_rule`.
+F32_LOSS_RTOL = 1e-4
 #: K1 checked bit for bit at (n, x offset, y offset): lengths around one
 #: 16-byte vector and its ragged tail, the payload's 2^16 and its
 #: neighbours, 2^20 + 3, 2^26; then views at an odd offset, also at two
@@ -830,6 +885,68 @@ def check_ring_loopback(gen, shape: tuple, sps: tuple) -> dict:
     return total
 
 
+def loopback(qs, ks, vs, dos) -> dict:
+    """The ring's forward and backward over every rank's blocks in one
+    process (``ring_attention.loopback_*``), each output whole again:
+    o, lse, dq, dk, dv."""
+    out = ra.loopback_forward(qs, ks, vs)
+    os_, lses = [o for o, _ in out], [lse for _, lse in out]
+    grads = ra.loopback_backward(qs, ks, vs, os_, lses, dos)
+    return {"o": torch.cat(os_, dim=2), "lse": torch.cat(lses, dim=2),
+            **{g: torch.cat([r[i] for r in grads], dim=2)
+               for i, g in enumerate(("dq", "dk", "dv"))}}
+
+
+def check_ring_loopback_f32(gen, shape: tuple, sps: tuple) -> dict:
+    """The ring's block arithmetic in f32 on one card: attention at
+    ``shape`` (f32) split into each of ``sps`` blocks, forward and
+    backward through ``ring_attention.loopback_*``, counted (sp(sp+1)/2
+    f32 launches each way, sp(sp-1)/2 of them non-causal); o, lse, dq,
+    dk, dv against f64 attention of the whole sequence under
+    ``gates.f32_rule``, the bf16 ring on the bf16 rounding of the same
+    inputs its yardstick. Times the f32 loopback. Returns the
+    launches."""
+    x32 = [torch.randn(shape, generator=gen, device="cuda")
+           for _ in range(4)]
+    exact = plain64(*x32)
+    total = dict.fromkeys(counters(), 0)
+    runs = []
+    for sp in sps:
+        blocks = [[blk.contiguous() for blk in x.chunk(sp, dim=2)]
+                  for x in x32]
+        torch.cuda.synchronize()
+        zero_counters()
+        got = loopback(*blocks)
+        torch.cuda.synchronize()
+        launches = counters()
+        n = sp * (sp + 1) // 2
+        want = causal_only(flash_attn_fwd_f32=sp, flash_attn_bwd_f32=sp,
+                           flash_attn_fwd_f32_non_causal=n - sp,
+                           flash_attn_bwd_f32_non_causal=n - sp)
+        if launches != want:
+            raise AssertionError(f"ring_loopback_f32 sp={sp}: launches "
+                                 f"{launches}, want {want}")
+        for key, count in launches.items():
+            total[key] += count
+        bf16 = loopback(*([b.to(torch.bfloat16) for b in bl]
+                          for bl in blocks))
+        rule = f32_rule(got, bf16, exact)
+        del got, bf16
+        if not rule.pop("ok"):
+            raise AssertionError(f"ring_loopback_f32 sp={sp}: {rule}")
+        runs.append({"sp": sp, "block": [shape[0], shape[1],
+                                         shape[2] // sp, shape[3]],
+                     "launches": launches,
+                     "ms": time_ms(lambda: loopback(*blocks), 3), **rule})
+        del blocks
+        torch.cuda.empty_cache()
+    say("ring_loopback_f32", ok=True, shape=list(shape), rule="each output's "
+        f"largest deviation from f64 <= {F32_RULE} of the bf16 ring's on the "
+        "bf16 rounding of the same inputs", runs=runs)
+    del exact, x32
+    torch.cuda.empty_cache()
+    return total
+
 def gate_instance(x32: list, causal: bool, out_dtype) -> tuple[dict, dict]:
     """One launch of each kernel's instance (causal or not, bf16 or f32
     out) on the bf16 rounding of ``x32`` ([q, k, v, do], f32), counted,
@@ -889,18 +1006,21 @@ def _ratio(row: dict) -> float:
 
 
 def time_instance(row: dict, brow: dict, x32: list, causal: bool, out_dtype,
-                  name: str) -> None:
+                  name: str, dtype=torch.bfloat16,
+                  peak_ops: float | None = None) -> None:
     """Times the instance's forward and backward (from its forward's o
-    and lse) at the bf16 rounding of ``x32`` beside SDPA of the same
-    causality, into ``row`` and ``brow``: ms (CUDA events, in turns with
-    each library call), plain_ms, library_ms, the bound at these shapes
-    (q, k, v, dO in bf16; o, dq, dk, dv in ``out_dtype``; lse f32),
-    host_us and TFLOP/s."""
-    q, k, v, do = (x.to(torch.bfloat16) for x in x32)
+    and lse) at ``x32`` in ``dtype`` (its bf16 rounding by default)
+    beside SDPA of the same causality, into ``row`` and ``brow``: ms
+    (CUDA events, in turns with each library call), plain_ms, library_ms,
+    the bound at these shapes (q, k, v, dO in ``dtype``; o, dq, dk, dv in
+    ``out_dtype``; lse f32; operations over ``peak_ops``, default the
+    bf16 peak), host_us and TFLOP/s."""
+    q, k, v, do = (x.to(dtype) for x in x32)
     b, h, t, d = q.shape
     o, lse = fa.flash_attention_fwd(q, k, v, causal, out_dtype)
     o = o.to(q.dtype)
     n, out = b * h * t * d, torch.finfo(out_dtype).bits // 8
+    size = torch.finfo(dtype).bits // 8
     flops = 4.0 * b * h * d * t * ((t + 1) / 2 if causal else t)
 
     def kernel():
@@ -910,14 +1030,15 @@ def time_instance(row: dict, brow: dict, x32: list, causal: bool, out_dtype,
         return fa.flash_attention_bwd(q, k, v, o, lse, do, causal, out_dtype)
     row.update(timed(kernel, lambda: reference_attention_with_lse(
         q, k, v, causal, out_dtype), sdpa_forwards(q, k, v, causal), 20))
-    add_bound(row, flops, 3 * n * 2 + n * out + b * h * t * 4, name)
+    add_bound(row, flops, 3 * n * size + n * out + b * h * t * 4, name,
+              peak_ops)
     row["host_us"] = host_us(kernel, ATTN_HOST_CALLS)
     row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
     brow.update(timed(kernel_bwd, lambda: fa.flash_attention_bwd_plain(
         q, k, v, o, lse, do, causal, out_dtype),
         sdpa_backwards(q, k, v, do, causal), 20))
-    add_bound(brow, 2.5 * flops, 5 * n * 2 + 3 * n * out + b * h * t * 4,
-              name)
+    add_bound(brow, 2.5 * flops, 5 * n * size + 3 * n * out + b * h * t * 4,
+              name, peak_ops)
     brow["host_us"] = host_us(kernel_bwd, ATTN_HOST_CALLS)
     brow["tflops"] = 2.5 * flops / (brow["ms"] * 1e-3) / 1e12
 
@@ -1019,6 +1140,118 @@ def check_head_dims(gen, name: str) -> dict:
         gptj_forward=rows[GPTJ_ATTN_SHAPE][0],
         gptj_backward=rows[GPTJ_ATTN_SHAPE][1])
     return rows
+
+
+def attention_run(q, k, v, do, causal: bool, out_dtype=None) -> dict:
+    """One forward and one backward launch (the backward from the
+    forward's o in ``q.dtype``): o, lse, dq, dk, dv."""
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, out_dtype)
+    grads = fa.flash_attention_bwd(q, k, v, o.to(q.dtype), lse, do, causal,
+                                   out_dtype)
+    return {"o": o, "lse": lse, **dict(zip(("dq", "dk", "dv"), grads))}
+
+
+def gate_f32(x32: list, causal: bool) -> tuple[dict, dict]:
+    """One launch of the f32 instance (causal or not) forward and
+    backward on ``x32`` ([q, k, v, do], f32), counted, and of the bf16
+    instance (f32 out) on its bf16 rounding, each against
+    ``gates.plain64`` of ``x32`` under ``gates.f32_rule``. Returns the
+    forward and backward rows (``max_abs_err``: the largest deviation
+    from f64); raises on a miss."""
+    suffix = "" if causal else "_non_causal"
+    before = counters()
+    got = attention_run(*x32, causal)
+    torch.cuda.synchronize()
+    after = counters()
+    counted = {key: after[key] - before[key] for key in after}
+    if counted != causal_only(**{f"flash_attn_fwd_f32{suffix}": 1,
+                                 f"flash_attn_bwd_f32{suffix}": 1}):
+        raise AssertionError(f"f32 launches counted {counted}")
+    outputs = [(g.dtype, tuple(g.shape)) for g in got.values()]
+    if any(dt != torch.float32 or shape != x32[0].shape[:len(shape)]
+           for dt, shape in outputs):
+        raise AssertionError(f"f32 outputs: {outputs}")
+    bf16 = attention_run(*(x.to(torch.bfloat16) for x in x32), causal,
+                         torch.float32)
+    rule = f32_rule(got, bf16, plain64(*x32, causal))
+    what = {"shape": list(x32[0].shape), "causal": causal, "dtype": "f32"}
+    row = {**what, "max_abs_err": rule["o"]["max_abs_vs_exact"],
+           "lse_max_abs_err": rule["lse"]["max_abs_vs_exact"],
+           "o": rule["o"], "lse": rule["lse"]}
+    brow = {**what, "max_abs_err": max(rule[g]["max_abs_vs_exact"]
+                                       for g in ("dq", "dk", "dv")),
+            **{g: rule[g] for g in ("dq", "dk", "dv")}}
+    if not rule["ok"]:
+        raise AssertionError(f"f32 instance breaks the rule: {rule}")
+    return row, brow
+
+
+def check_attn_f32(gen, name: str) -> list:
+    """The f32 instances (q, k, v, dO in f32; head dims up to 128):
+    forward and backward, causal and not, at ATTN_F32_DIMS x ATTN_F32_TS
+    under :func:`gate_f32`; REFUSED_F32_HEAD_DIM raises ``ValueError``,
+    f64, f16 and mixed dtypes ``TypeError``, none counting a launch; then
+    ATTN_F32_TIMED gated and timed (:func:`time_instance` in f32, bound
+    at TF32_FLOPS, SDPA with TF32 off as the yardstick). Returns
+    ``[(shape, causal, forward row, backward row)]`` of the timed ones."""
+    cases = []
+    for d in ATTN_F32_DIMS:
+        for t in ATTN_F32_TS:
+            for causal in (True, False):
+                x32 = [torch.randn((1, 2, t, d), generator=gen,
+                                   device="cuda") for _ in range(4)]
+                row, brow = gate_f32(x32, causal)
+                cases.append([d, t, causal,
+                              *(row[key]["ratio"] for key in ("o", "lse")),
+                              *(brow[key]["ratio"]
+                                for key in ("dq", "dk", "dv"))])
+    refused = {}
+    before = counters()
+    x = torch.zeros((1, 2, 8, 32), device="cuda")
+    wide = torch.zeros((1, 2, 8, REFUSED_F32_HEAD_DIM), device="cuda")
+    for what, args, error in (
+            (f"f32 D{REFUSED_F32_HEAD_DIM}", (wide,) * 3, ValueError),
+            ("f64", (x.double(),) * 3, TypeError),
+            ("f16", (x.half(),) * 3, TypeError),
+            ("f32 q, bf16 k v", (x, x.bfloat16(), x.bfloat16()), TypeError)):
+        try:
+            fa.flash_attention_fwd(*args)
+        except error as err:
+            refused[what] = str(err)
+        else:
+            raise AssertionError(f"{what} launched")
+    try:
+        fa.flash_attention_bwd(x, x, x, x,
+                               torch.zeros((1, 2, 8), device="cuda"),
+                               x.double())
+    except TypeError as err:
+        refused["backward, f32 with f64 dO"] = str(err)
+    else:
+        raise AssertionError("the backward took f64 dO")
+    if counters() != before:
+        raise AssertionError("a refused input counted a launch")
+    timed = []
+    for shape, causal in ATTN_F32_TIMED:
+        x32 = [torch.randn(shape, generator=gen, device="cuda")
+               for _ in range(4)]
+        row, brow = gate_f32(x32, causal)
+        time_instance(row, brow, x32, causal, torch.float32, name,
+                      torch.float32, TF32_FLOPS)
+        row["bound_rate"] = brow["bound_rate"] = "tf32"
+        timed.append((shape, causal, row, brow))
+        del x32
+        torch.cuda.empty_cache()
+    say("attn_f32", ok=True, rule=f"each output's largest deviation from "
+        f"f64 <= {F32_RULE} of the bf16 instance's (f32 out) on the bf16 "
+        "rounding of the same inputs", head_dims=list(ATTN_F32_DIMS),
+        ts=list(ATTN_F32_TS),
+        cases_fields=["d", "t", "causal", "o_ratio", "lse_ratio",
+                      "dq_ratio", "dk_ratio", "dv_ratio"],
+        cases=cases, worst_ratio=max(max(c[3:]) for c in cases),
+        refused=refused,
+        timed=[{"forward": row, "backward": brow}
+               for _, _, row, brow in timed])
+    return timed
 
 
 def check_entry() -> None:
@@ -1149,14 +1382,14 @@ def check_dryrun_odd() -> dict:
 
 
 def counters() -> dict:
-    """Launches by kernel instance: the attention kernels' causal and
-    non-causal instances apart."""
+    """Launches by kernel instance: the attention kernels' bf16 and f32,
+    causal and non-causal instances apart."""
     return {"vector_add": va.launches, **fa.counts()}
 
 
 def zero_counters() -> None:
-    va.launches = fa.launches = fa.bwd_launches = 0
-    fa.non_causal_launches = fa.non_causal_bwd_launches = 0
+    va.launches = 0
+    fa.zero_counts()
 
 
 def causal_only(**launches) -> dict:
@@ -1226,7 +1459,11 @@ def check_train_grads(base: lm.LMConfig) -> None:
     """Every gradient of the kernel path, at full width but 2 layers and
     the t2k shape, against an f32 plain-attention step, under the same
     rule as the forward's logits: within 2x the largest and 1.5x the
-    mean deviation of the plain bf16 step's gradients."""
+    mean deviation of the plain bf16 step's gradients. Then the f32
+    kernel path (f32 params and compute, the default ring at sp = 1: the
+    kernels' f32 instances): its logits and every gradient no further
+    from the f32 plain-attention step's than F32_RULE of the bf16 kernel
+    path's largest deviation."""
     cfg = dataclasses.replace(base, n_layers=2)
     case = chip_bench.case(MAIN_CASES[0])
     params = lm.init_params(torch.Generator("cuda").manual_seed(0), cfg)
@@ -1238,8 +1475,8 @@ def check_train_grads(base: lm.LMConfig) -> None:
     cfg32 = dataclasses.replace(cfg, attn_impl="local",
                                 param_dtype=torch.float32,
                                 compute_dtype=torch.float32)
-    loss_32, grads_32 = lm.loss_and_grads(
-        lm._tree_map(lambda p: p.float(), params), batch, cfg32)
+    params32 = lm._tree_map(lambda p: p.float(), params)
+    loss_32, grads_32 = lm.loss_and_grads(params32, batch, cfg32)
     rows = {}
     for path, g_k, g_p, g_32 in zip(_paths(grads_k), lm._leaves(grads_k),
                                     lm._leaves(grads_p),
@@ -1247,11 +1484,164 @@ def check_train_grads(base: lm.LMConfig) -> None:
         rows[path] = drift(g_k, g_p, g_32)
         if not (rows[path]["ok"] and bool(torch.isfinite(g_k).all())):
             raise AssertionError(f"gradient {path} drifts: {rows[path]}")
+    del grads_p
+    ring32 = dataclasses.replace(cfg32, attn_impl="ring")
+    loss_f, grads_f = lm.loss_and_grads(params32, batch, ring32)
+    tokens = batch[:, :-1]
+    logits = {"kernel": lm.make_forward(cfg)(params, tokens),
+              "f32_kernel": lm.make_forward(ring32)(params32, tokens),
+              "f32": lm.make_forward(cfg32)(params32, tokens)}
+    f32_rows = {"logits": logits["f32_kernel"], **dict(zip(
+        _paths(grads_f), lm._leaves(grads_f)))}
+    bf16_rows = {"logits": logits["kernel"], **dict(zip(
+        _paths(grads_k), lm._leaves(grads_k)))}
+    exact_rows = {"logits": logits["f32"], **dict(zip(
+        _paths(grads_32), lm._leaves(grads_32)))}
+    f32_kernels = f32_rule(f32_rows, bf16_rows, exact_rows)
+    if not f32_kernels.pop("ok"):
+        raise AssertionError(f"f32 kernel path: {f32_kernels}")
     say("train_grads", ok=True, n_layers=cfg.n_layers, case=case.name,
         loss=float(loss_k), plain_loss=float(loss_p), f32_loss=float(loss_32),
-        grads=rows)
-    del grads_k, grads_p, grads_32
+        grads=rows, f32_kernel_loss=float(loss_f),
+        f32_kernel_rule=f"largest deviation from the f32 plain-attention "
+        f"step <= {F32_RULE} of the bf16 kernel path's",
+        f32_kernel_worst=max(r["ratio"] for r in f32_kernels.values()),
+        f32_kernels=f32_kernels)
+    del grads_k, grads_32, grads_f, logits, f32_rows, bf16_rows, exact_rows
     torch.cuda.empty_cache()
+
+
+def f32_steps_rule(kernels: list, plain: list, exact: list) -> dict:
+    """An f32 path's train-step losses (``kernels``: one card's through
+    the kernels, or a mesh's through the ring) against one card's with
+    plain f32 attention (``plain``) and with plain attention in f64
+    (``exact``), the three from the same params and batch.
+
+    - Step 1: within F32_LOSS_RTOL of ``plain``.
+    - Every step: no further from ``exact`` than F32_LOSS_RTOL or, where
+      ``plain`` itself is further from it, twice ``plain``'s distance.
+
+    A loss a few steps on is no finer than f32 attention's own rounding
+    carried through AdamW: where ``plain`` is more than F32_LOSS_RTOL
+    from ``exact``, an attention as exact as f64 fails F32_LOSS_RTOL
+    against ``plain``; ``lm_f32`` reads the distances on the card, and
+    shows the rule rejects one-pass TF32 attention. Returns the
+    distances and ``ok``."""
+    def rel(a, b):
+        return [abs(x - y) / abs(y) for x, y in zip(a, b)]
+    row = {"kernels_vs_plain": rel(kernels, plain),
+           "kernels_vs_exact": rel(kernels, exact),
+           "plain_vs_exact": rel(plain, exact)}
+    row["bound"] = [max(F32_LOSS_RTOL, 2 * p) for p in row["plain_vs_exact"]]
+    row["ok"] = (len(kernels) == len(plain) == len(exact)
+                 and all(map(math.isfinite, kernels))
+                 and row["kernels_vs_plain"][0] <= F32_LOSS_RTOL
+                 and all(d <= b for d, b in zip(row["kernels_vs_exact"],
+                                                row["bound"])))
+    return row
+
+
+def check_lm_f32(peak: float, known: bool) -> dict:
+    """The 600M LM in f32 (``lm_f32(lm_sp_cfg(8))``: f32 params and
+    compute, the default ring at sp = 1) at PUBLISHED_BATCH on one card,
+    through the kernels' f32 instances. The forward counted (one causal
+    f32 launch a layer) and its loss within F32_LOSS_RTOL of the same
+    forward with ``attn_impl="local"``; the forward once with ``"flash"``,
+    counted, held the same way; then LM_SP_STEPS train steps
+    (:func:`timed_steps`, counted: 2 x layers f32 forward and layers f32
+    backward launches a step) against the same steps with plain f32
+    attention (``attn_impl="local"``) and with plain attention in f64
+    (``gates.attention_f64``) under :func:`f32_steps_rule`; the rule's
+    power: the same steps with one-pass TF32 attention
+    (``gates.attention_tf32``) must fail it. Forward ms, step ms,
+    tokens/s, MFU against the bf16 peak, peak memory. Returns the
+    launches of the counted runs."""
+    cfg = lm_f32(lm_sp_cfg(8))
+    b, t = PUBLISHED_BATCH
+    case = chip_bench.BenchCase("lm-600m-f32-t2k", cfg.d_model, cfg.n_layers,
+                                cfg.n_heads, cfg.d_ff, cfg.vocab, b, t)
+    params = lm.init_params(torch.Generator("cuda").manual_seed(0), cfg)
+    batch = lm.synthetic_batch(torch.Generator("cuda").manual_seed(1), cfg,
+                               b, t)
+    tokens = batch[:, :-1]
+    total = dict.fromkeys(counters(), 0)
+    losses, forward_ms = {}, {}
+    for impl in ("ring", "flash", "local"):
+        c = dataclasses.replace(cfg, attn_impl=impl)
+        forward = lm.make_forward(c)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counters()
+        logits = forward(params, tokens)
+        torch.cuda.synchronize()
+        launches = counters()
+        want = causal_only(flash_attn_fwd_f32=0 if impl == "local"
+                           else cfg.n_layers)
+        if launches != want or logits.shape != (b, t, cfg.vocab) or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"lm_f32 {impl} forward: "
+                                 f"{tuple(logits.shape)}, launches "
+                                 f"{launches}, want {want}")
+        for key, count in launches.items():
+            total[key] += count
+        del logits
+        if impl == "ring":
+            fwd_peak = torch.cuda.max_memory_allocated() / 1e9
+        with torch.inference_mode():
+            losses[impl] = float(lm.loss_fn(params, batch, c))
+        forward_ms[impl] = time_ms(lambda: forward(params, tokens), 3, 1)
+        torch.cuda.empty_cache()
+    rel = {impl: abs(losses[impl] - losses["local"]) / abs(losses["local"])
+           for impl in ("ring", "flash")}
+    if not all(r <= F32_LOSS_RTOL for r in rel.values()):
+        raise AssertionError(f"lm_f32 forward losses {losses}")
+    del params
+    torch.cuda.empty_cache()
+    steps = {impl: timed_steps(dataclasses.replace(cfg, attn_impl=impl), b,
+                               t) for impl in ("ring", "local")}
+    for name, attention in (("f64", attention_f64),
+                            ("tf32", attention_tf32)):
+        steps[name] = timed_steps(cfg, b, t, attention=attention)
+        torch.cuda.empty_cache()
+    layers = cfg.n_layers * LM_SP_STEPS
+    want = causal_only(flash_attn_fwd_f32=2 * layers,
+                       flash_attn_bwd_f32=layers)
+    ring, local = steps["ring"], steps["local"]
+    rule, control = (f32_steps_rule(steps[p]["losses"], local["losses"],
+                                    steps["f64"]["losses"])
+                     for p in ("ring", "tf32"))
+    if ring["launches"] != want or not rule["ok"] or control["ok"]:
+        raise AssertionError(f"lm_f32 steps: {rule}, one-pass TF32 "
+                             f"control {control} (must fail), launches "
+                             f"{ring['launches']}, want {want}")
+    for key, count in ring["launches"].items():
+        total[key] += count
+    ntok = b * t
+    fwd_flops = chip_bench.forward_flops_per_token(case) * ntok
+    train_flops = chip_bench.train_flops_per_token(case) * ntok
+    ms = {impl: sum(out["step_ms"][1:]) / (LM_SP_STEPS - 1)
+          for impl, out in steps.items()}
+    say("lm_f32", ok=True, batch=b, seq=t, n_layers=cfg.n_layers,
+        d_model=cfg.d_model, n_heads=cfg.n_heads, head_dim=cfg.head_dim,
+        d_ff=cfg.d_ff, vocab=cfg.vocab, param_dtype="f32",
+        compute_dtype="f32", tf32=torch.backends.cuda.matmul.allow_tf32,
+        forward_losses=losses, forward_rel=rel, forward_ms=forward_ms,
+        forward_tokens_per_s=ntok / (forward_ms["ring"] * 1e-3),
+        forward_mfu=fwd_flops / (forward_ms["ring"] * 1e-3) / peak,
+        forward_peak_memory_gb=fwd_peak,
+        losses=ring["losses"], local_losses=local["losses"],
+        f64_attention_losses=steps["f64"]["losses"], step_rule=rule,
+        tf32_attention_losses=steps["tf32"]["losses"],
+        tf32_control_rule=control,
+        launches_per_3_steps=ring["launches"],
+        step_ms=ms["ring"], local_step_ms=ms["local"],
+        step_timed=f"steps 2-{LM_SP_STEPS}, host clock to each loss's read",
+        tokens_per_s=ntok / (ms["ring"] * 1e-3),
+        mfu=train_flops / (ms["ring"] * 1e-3) / peak,
+        mfu_peak="dense bf16 tensor-core peak", peak_known=known,
+        peak_memory_gb=ring["peak_memory_gb"],
+        local_peak_memory_gb=local["peak_memory_gb"])
+    return total
 
 
 def _paths(tree, prefix="") -> list[str]:
@@ -1816,7 +2206,7 @@ def ring_overlap(mesh, block: tuple, device="cuda") -> dict:
 def mesh_witness(cfg: lm.LMConfig, run: dict, mesh, device="cuda") -> dict:
     """The witness of a mesh run: the same LM_SP_STEPS steps in f32
     (params and compute) with the ring's plain version
-    (``ring_attention.gathered_attention``: the kernels take bf16 alone);
+    (``ring_attention.gathered_attention``, which never enters the ring);
     its losses and seconds."""
     ring = ra.ring_of(mesh)
     out = timed_steps(lm_f32(cfg), run["batch"], run["seq"], mesh, device,
@@ -1825,10 +2215,58 @@ def mesh_witness(cfg: lm.LMConfig, run: dict, mesh, device="cuda") -> dict:
     return {"f32_losses": out["losses"], "f32_seconds": out["seconds"]}
 
 
+def mesh_f32_ring(steps, cfg, run: dict, mesh, device="cuda") -> dict:
+    """A mesh run's f32 reading through the real ring: ``steps``
+    (:func:`timed_steps` or :func:`moe_steps`) of ``cfg`` in f32 over
+    ``mesh`` with the default attention, the ring of the kernels' f32
+    instances; its losses, launches and seconds."""
+    out = steps(cfg, run["batch"], run["seq"], mesh, device)
+    torch.cuda.empty_cache()
+    return {"f32_ring_losses": out["losses"],
+            "f32_ring_launches": out["launches"],
+            "f32_ring_seconds": out["seconds"]}
+
+
+def f32_ring_reading(ranks: list, one_f32: list, layers: int,
+                     one_f64: list) -> dict:
+    """The f32 reading through the real ring (:func:`mesh_f32_ring`) of
+    every rank of a mesh run, each counted: ``layers`` (layers x steps)
+    gives 2 x layers causal f32 forward launches and layers backward, and
+    the rank at sp index i i times those non-causal. ``ok`` needs the
+    losses the same on every rank, within 1e-4 relative of one card's f32
+    steps (``one_f32``, plain attention) at every step, and within
+    :func:`f32_steps_rule` of those and of one card's f32 steps with
+    plain attention in f64 (``one_f64``): the rule ``lm_f32`` holds one
+    card's kernel path to. Raises on a wrong count. Returns the losses,
+    their distances, the rule's reading, the slowest rank's seconds and
+    ``ok``."""
+    for out in ranks:
+        i = out["coordinate"]["sp"]
+        want = causal_only(flash_attn_fwd_f32=2 * layers,
+                           flash_attn_bwd_f32=layers,
+                           flash_attn_fwd_f32_non_causal=2 * layers * i,
+                           flash_attn_bwd_f32_non_causal=layers * i)
+        if out["f32_ring_launches"] != want:
+            raise AssertionError(f"rank {out['rank']}: f32 ring launches "
+                                 f"{out['f32_ring_launches']}, want {want}")
+    losses = ranks[0]["f32_ring_losses"]
+
+    def rel(a, b):
+        return [abs(g - w) / abs(w) for g, w in zip(a, b)]
+    rule = f32_steps_rule(losses, one_f32, one_f64)
+    ok = (len(losses) == len(one_f32) and all(map(math.isfinite, losses))
+          and all(r <= 1e-4 for r in rel(losses, one_f32)) and rule["ok"]
+          and all(out["f32_ring_losses"] == losses for out in ranks))
+    return {"losses": losses, "rel": rel(losses, one_f32),
+            "steps_rule": rule, "ok": ok,
+            "seconds": max(out["f32_ring_seconds"] for out in ranks)}
+
+
 def lm_sp_rank(run: dict, device="cuda") -> dict:
     """One rank of an lm_sp run (``run``: dp, sp, n_layers, batch, seq)
     in a process group of ``dp * sp`` ranks: LM_SP_STEPS train steps over
-    a dp x sp mesh, their f32 witness (:func:`mesh_witness`), then
+    a dp x sp mesh, their f32 witness (:func:`mesh_witness`), the f32
+    steps through the ring (:func:`mesh_f32_ring`), then
     :func:`ring_overlap` at one layer's block."""
     cfg = lm_sp_cfg(run["n_layers"])
     mesh = sharding.make_mesh(device_type=device, dp=run["dp"],
@@ -1836,6 +2274,7 @@ def lm_sp_rank(run: dict, device="cuda") -> dict:
     out = timed_steps(cfg, run["batch"], run["seq"], mesh, device)
     torch.cuda.empty_cache()
     out.update(mesh_witness(cfg, run, mesh, device))
+    out.update(mesh_f32_ring(timed_steps, lm_f32(cfg), run, mesh, device))
     block = (run["batch"] // run["dp"], cfg.n_heads,
              run["seq"] // run["sp"], cfg.head_dim)
     return {"rank": dist.get_rank(), "coordinate": dict(zip(
@@ -1955,20 +2394,24 @@ def mesh_gate(mesh: dict, one: dict) -> dict:
 
 def lm_one_card(cfg: lm.LMConfig, batch: int, seq: int) -> dict:
     """One card's LM_SP_STEPS steps of ``cfg`` on the global batch in the
-    three paths :func:`mesh_gate` reads (``bf16``, ``plain``, ``f32``),
-    each :func:`timed_steps`' result."""
-    paths = {"bf16": dataclasses.replace(cfg, attn_impl="flash"),
-             "plain": dataclasses.replace(cfg, attn_impl="local"),
-             "f32": dataclasses.replace(lm_f32(cfg), attn_impl="local")}
+    three paths :func:`mesh_gate` reads (``bf16``, ``plain``, ``f32``)
+    and in f32 with plain attention in f64 (``f64``, which
+    :func:`f32_ring_reading` holds the mesh's f32 steps against), each
+    :func:`timed_steps`' result."""
+    paths = {"bf16": (dataclasses.replace(cfg, attn_impl="flash"), None),
+             "plain": (dataclasses.replace(cfg, attn_impl="local"), None),
+             "f32": (dataclasses.replace(lm_f32(cfg), attn_impl="local"),
+                     None),
+             "f64": (lm_f32(cfg), attention_f64)}
     out = {}
-    for name, path in paths.items():
-        out[name] = timed_steps(path, batch, seq)
+    for name, (path, attention) in paths.items():
+        out[name] = timed_steps(path, batch, seq, attention=attention)
         torch.cuda.empty_cache()
     return out
 
 
 def check_lm_mesh(phase: str, runs: list, rank_fn: str, rank_keys: tuple,
-                  peak: float, known: bool) -> dict:
+                  peak: float, known: bool, failed: list) -> dict:
     """The LM (``lm_sp_cfg``: bf16 params with an f32 master, the ring)
     over NCCL in each of ``runs`` (the four axis sizes, n_layers, batch,
     seq), rank processes of ``rank_fn``, counted on every rank: 2 x
@@ -1976,12 +2419,15 @@ def check_lm_mesh(phase: str, runs: list, rank_fn: str, rank_keys: tuple,
     sp index i launching i + 1 blocks each (i of them non-causal). Its
     losses the same on every rank and held by :func:`mesh_gate` against
     one card's steps of the same config and batch (seeds 0 and 1,
-    :func:`lm_one_card`). Step ms, tokens/s and MFU per card against one
-    card's, peak memory per card, the witness's seconds and each rank's
-    ``rank_keys``. Every run is reported before a run that misses fails
-    the phase. Returns the launches over all ranks."""
+    :func:`lm_one_card`); beside it the f32 steps through the real ring,
+    counted, within 1e-4 of one card's f32 steps at every step and
+    within :func:`f32_steps_rule` (:func:`f32_ring_reading`). Step ms,
+    tokens/s and MFU per card against one card's, peak memory per card,
+    the witness's seconds and each rank's ``rank_keys``. A run whose losses miss is reported and added to
+    ``failed``, which fails the smoke after its last phase; a wrong
+    launch count raises at once. Returns the launches over all ranks."""
     total = dict.fromkeys(counters(), 0)
-    failed, ones = [], {}
+    ones = {}
     for run in runs:
         cfg = lm_sp_cfg(run["n_layers"])
         key = (run["n_layers"], run["batch"], run["seq"])
@@ -2004,11 +2450,18 @@ def check_lm_mesh(phase: str, runs: list, rank_fn: str, rank_keys: tuple,
                 total[k] += count
         losses = {"bf16": ranks[0]["losses"], "f32": ranks[0]["f32_losses"]}
         gate = mesh_gate(losses, {p: one[p]["losses"] for p in one})
-        ok = gate["ok"] and all(
+        ring = f32_ring_reading(ranks, one["f32"]["losses"],
+                                cfg.n_layers * LM_SP_STEPS,
+                                one["f64"]["losses"])
+        for out in ranks:
+            for k, count in out["f32_ring_launches"].items():
+                total[k] += count
+        ok = gate["ok"] and ring["ok"] and all(
             out["losses"] == losses["bf16"]
             and out["f32_losses"] == losses["f32"] for out in ranks)
         if not ok:
-            failed.append(f"{run['name']}: {losses}, gate {gate}")
+            failed.append(f"{phase} {run['name']}: {losses}, gate {gate}, "
+                          f"f32 ring {ring}")
         ms = max(sum(out["step_ms"][1:]) / (LM_SP_STEPS - 1)
                  for out in ranks)
         one_ms = sum(one["bf16"]["step_ms"][1:]) / (LM_SP_STEPS - 1)
@@ -2020,6 +2473,7 @@ def check_lm_mesh(phase: str, runs: list, rank_fn: str, rank_keys: tuple,
         say(phase, ok=ok, **run, cards=world, losses=losses["bf16"],
             f32_losses=losses["f32"],
             one_card_losses={p: one[p]["losses"] for p in one}, gate=gate,
+            f32_ring=ring,
             f32_seconds=max(out["f32_seconds"] for out in ranks),
             one_card_f32_seconds=one["f32"]["seconds"],
             one_card_host_ms=one["bf16"]["host_ms"],
@@ -2034,17 +2488,15 @@ def check_lm_mesh(phase: str, runs: list, rank_fn: str, rank_keys: tuple,
                 "rank", "coordinate", "step_ms", "host_ms", "peak_memory_gb",
                 "launches", *rank_keys)} for out in ranks])
         torch.cuda.empty_cache()
-    if failed:
-        raise AssertionError(f"{phase} losses: {failed}")
     return total
 
 
-def check_lm_sp(peak: float, known: bool) -> dict:
+def check_lm_sp(peak: float, known: bool, failed: list) -> dict:
     """With two cards or more, the 600M LM sequence-parallel over NCCL
     (:func:`lm_sp_runs`, rank processes of :func:`lm_sp_rank`) under
     :func:`check_lm_mesh`, with each rank's attention and K/V rotation
-    times. With one card, a line that says it was not run. Returns the
-    launches over all ranks."""
+    times (a run that misses goes to ``failed``). With one card, a line
+    that says it was not run. Returns the launches over all ranks."""
     if torch.cuda.device_count() < 2:
         say("lm_sp", skipped="one card")
         return dict.fromkeys(counters(), 0)
@@ -2052,7 +2504,7 @@ def check_lm_sp(peak: float, known: bool) -> dict:
         "lm_sp", lm_sp_runs(torch.cuda.device_count()), "lm_sp_rank",
         ("rotation_ms", "blocks_forward_ms", "ring_forward_ms",
          "ring_forward_host_ms", "blocks_backward_ms", "ring_backward_ms",
-         "hidden_share"), peak, known)
+         "hidden_share"), peak, known, failed)
 
 
 def lm_fsdp_tp_runs(cards: int) -> list:
@@ -2100,13 +2552,15 @@ def lm_fsdp_tp_rank(run: dict, device="cuda") -> dict:
     n_layers, batch, seq): LM_SP_STEPS bf16 train steps over the mesh
     through the kernels (:func:`timed_steps`, counted; each rank its
     blocks of params, master and AdamW state), their f32 witness
-    (:func:`mesh_witness`), then :func:`layer_collectives_ms`."""
+    (:func:`mesh_witness`), the f32 steps through the ring
+    (:func:`mesh_f32_ring`), then :func:`layer_collectives_ms`."""
     cfg = lm_sp_cfg(run["n_layers"])
     sizes = {a: run[a] for a in sharding.AXES}
     mesh = sharding.make_mesh(device_type=device, **sizes)
     out = timed_steps(cfg, run["batch"], run["seq"], mesh, device)
     torch.cuda.empty_cache()
     out.update(mesh_witness(cfg, run, mesh, device))
+    out.update(mesh_f32_ring(timed_steps, lm_f32(cfg), run, mesh, device))
     params, _ = lm.init_sharded(torch.Generator(device).manual_seed(0),
                                 dataclasses.replace(cfg, n_layers=1), mesh)
     out.update(layer_collectives_ms(
@@ -2116,13 +2570,13 @@ def lm_fsdp_tp_rank(run: dict, device="cuda") -> dict:
         mesh.mesh_dim_names, mesh.get_coordinate())), **out}
 
 
-def check_lm_fsdp_tp(peak: float, known: bool) -> dict:
+def check_lm_fsdp_tp(peak: float, known: bool, failed: list) -> dict:
     """With two cards or more, the 600M LM with params sharded over fsdp
     and heads and FFN columns over tp, over NCCL (:func:`lm_fsdp_tp_runs`,
     rank processes of :func:`lm_fsdp_tp_rank`) under
-    :func:`check_lm_mesh`, with each rank's collectives per layer. With
-    one card, a line that says it was not run. Returns the launches over
-    all ranks."""
+    :func:`check_lm_mesh`, with each rank's collectives per layer (a run
+    that misses goes to ``failed``). With one card, a line that says it
+    was not run. Returns the launches over all ranks."""
     if torch.cuda.device_count() < 2:
         say("lm_fsdp_tp", skipped="one card")
         return dict.fromkeys(counters(), 0)
@@ -2130,7 +2584,7 @@ def check_lm_fsdp_tp(peak: float, known: bool) -> dict:
         "lm_fsdp_tp", lm_fsdp_tp_runs(torch.cuda.device_count()),
         "lm_fsdp_tp_rank", ("fsdp_gather_ms", "fsdp_gather_bytes",
                             "tp_allreduce_ms", "tp_allreduce_bytes"),
-        peak, known)
+        peak, known, failed)
 
 
 def moe_cfg(n_layers: int) -> moe.MoEConfig:
@@ -2140,9 +2594,9 @@ def moe_cfg(n_layers: int) -> moe.MoEConfig:
     return moe.MoEConfig(n_layers=n_layers, **chip_bench.MOE_WIDTHS)
 
 
-def moe_gate(params, tokens, cfg, what: str, **plain) -> list[dict]:
+def moe_gate(params, tokens, cfg, what: str, **kwargs) -> list[dict]:
     """:func:`moe_layer_gate` on the card, raising when a layer fails."""
-    rows = moe_layer_gate(params, tokens, cfg, **plain)
+    rows = moe_layer_gate(params, tokens, cfg, **kwargs)
     for row in rows:
         if not row["ok"]:
             raise AssertionError(f"moe {what}: layer gate fails: {row}")
@@ -2294,6 +2748,77 @@ def check_moe(peak: float, known: bool) -> dict:
     return total
 
 
+def check_moe_f32() -> dict:
+    """``MoEConfig()`` (head dim 32: the W-32 f32 instances) in f32
+    compute at MOE_SMALL_BATCH on one card, through the kernels' f32
+    instances. The forward counted (one causal f32 launch a layer); each
+    layer under :func:`moe_gate` with its f32-kernel path (the layer's
+    output and its attention's within F32_RULE of the bf16 kernel path's
+    deviation from plain f32 attention); the loss within F32_LOSS_RTOL of
+    plain f32 attention's; one train step counted (2 x layers forward and
+    layers backward f32 launches), its loss within F32_LOSS_RTOL of the
+    same step with plain f32 attention. Returns the launches."""
+    small = moe.MoEConfig()
+    cfg = f32(small)
+    b, t = MOE_SMALL_BATCH
+    batch = moe.synthetic_batch(torch.Generator("cuda").manual_seed(1), cfg,
+                                b, t)
+    tokens = batch[:, :-1]
+    params = moe.init_params(torch.Generator("cuda").manual_seed(0), cfg)
+    total = dict.fromkeys(counters(), 0)
+    torch.cuda.synchronize()
+    zero_counters()
+    logits, aux = moe.make_forward(cfg)(params, tokens)
+    torch.cuda.synchronize()
+    launches = counters()
+    want = causal_only(flash_attn_fwd_f32=cfg.n_layers)
+    if launches != want or logits.shape != (b, t, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"moe_f32 forward: {tuple(logits.shape)}, "
+                             f"launches {launches}, want {want}")
+    for key, count in launches.items():
+        total[key] += count
+    gate = moe_gate(params, tokens, small, "MoEConfig() f32",
+                    plain_attention=ra.reference_attention, f32_kernels=True)
+    with torch.inference_mode():
+        loss = float(moe.loss_fn(params, batch, cfg))
+        plain_loss = float(moe.loss_fn(params, batch, cfg,
+                                       attention=ra.reference_attention))
+    steps = {}
+    for name, attention in (("kernels", None),
+                            ("plain", ra.reference_attention)):
+        p = moe.init_params(torch.Generator("cuda").manual_seed(0), cfg)
+        step = moe.make_train_step(cfg, attention=attention)
+        torch.cuda.synchronize()
+        zero_counters()
+        _, _, step_loss = step(p, moe.make_optimizer().init(p), batch)
+        steps[name] = float(step_loss)
+        torch.cuda.synchronize()
+        if name == "kernels":
+            launches = counters()
+            want = causal_only(flash_attn_fwd_f32=2 * cfg.n_layers,
+                               flash_attn_bwd_f32=cfg.n_layers)
+            if launches != want:
+                raise AssertionError(f"moe_f32 step: launches {launches}, "
+                                     f"want {want}")
+            for key, count in launches.items():
+                total[key] += count
+    rel = {"forward": abs(loss - plain_loss) / abs(plain_loss),
+           "step": abs(steps["kernels"] - steps["plain"])
+           / abs(steps["plain"])}
+    if not all(math.isfinite(x) and r <= F32_LOSS_RTOL
+               for x, r in ((loss, rel["forward"]),
+                            (steps["kernels"], rel["step"]))):
+        raise AssertionError(f"moe_f32 losses: forward {loss} against "
+                             f"{plain_loss}, step {steps}")
+    say("moe_f32", config="MoEConfig(), compute_dtype f32", ok=True, batch=b,
+        seq=t, head_dim=cfg.head_dim, shape=list(logits.shape),
+        aux=float(aux), loss=loss, plain_f32_loss=plain_loss,
+        step_losses=steps, rel=rel, layer_gate=gate)
+    del params, logits
+    torch.cuda.empty_cache()
+    return total
+
 def moe_steps(cfg: moe.MoEConfig, batch: int, seq: int, mesh=None,
               device="cuda", attention=None) -> dict:
     """MOE_EP_STEPS train steps from the params of seed 0 (each rank its
@@ -2334,9 +2859,10 @@ def moe_ep_rank(run: dict, device="cuda") -> dict:
     batch, seq) in a process group of ``dp * ep * sp * tp`` ranks:
     MOE_EP_STEPS bf16 train steps over the mesh through the kernels
     (counted), the same steps in f32 with the ring's plain version
-    (``ring_attention.gathered_attention``: the kernels take bf16 alone),
-    then the time of one layer's expert exchange (to the experts and
-    back, on bf16 [E, C, d] buffers) by CUDA events."""
+    (``ring_attention.gathered_attention``, the witness), the f32 steps
+    through the ring (:func:`mesh_f32_ring`), then the time of one
+    layer's expert exchange (to the experts and back, on bf16 [E, C, d]
+    buffers) by CUDA events."""
     cfg = moe_cfg(run["n_layers"])
     mesh = moe.make_moe_mesh(device_type=device, dp=run["dp"], ep=run["ep"],
                              sp=run["sp"], tp=run["tp"])
@@ -2346,6 +2872,7 @@ def moe_ep_rank(run: dict, device="cuda") -> dict:
     witness = moe_steps(f32(cfg), run["batch"], run["seq"], mesh, device,
                         lambda q, k, v: ra.gathered_attention(q, k, v, ring))
     torch.cuda.empty_cache()
+    out.update(mesh_f32_ring(moe_steps, f32(cfg), run, mesh, device))
     em = moe.expert_mesh(mesh)
     c = chip_bench.moe_flops(cfg, run["batch"], run["seq"])["capacity"]
     buf = torch.randn((cfg.n_experts, c, cfg.d_model), device=device,
@@ -2502,7 +3029,7 @@ def check_published(name: str, widths: dict, train_layers: int,
     return {k: fwd_launches[k] + train_launches[k] for k in fwd_launches}
 
 
-def check_moe_ep(peak: float, known: bool) -> dict:
+def check_moe_ep(peak: float, known: bool, failed: list) -> dict:
     """With two cards or more, the full-width MoE expert-parallel over
     NCCL (:func:`moe_ep_runs`, rank processes of :func:`moe_ep_rank`),
     counted on every rank: a bf16 step makes 2 x layers ring forwards and
@@ -2510,17 +3037,21 @@ def check_moe_ep(peak: float, known: bool) -> dict:
     each (i of them non-causal). Its losses the same on every rank and
     held by :func:`mesh_gate` against one card's steps (seeds 0 and 1)
     through the kernels, with plain attention in bf16 and with plain
-    attention in f32. Step ms and tokens/s per card,
+    attention in f32 (and in f64, for the f32 reading); beside it the f32
+    steps through the real ring, counted, within 1e-4 of one card's f32
+    steps at every step and within :func:`f32_steps_rule`
+    (:func:`f32_ring_reading`). Step ms and tokens/s per card,
     peak memory per card, each rank's exchange time per layer, and the
-    seconds of the f32 steps. Every run is reported before a run that
-    misses fails the phase. With one card, a line that says it was not
-    run. Returns the launches over all ranks."""
+    seconds of the f32 steps. A run whose losses miss is reported and
+    added to ``failed``; a wrong launch count raises at once. With one
+    card, a line that says it was not run. Returns the launches over all
+    ranks."""
     total = dict.fromkeys(counters(), 0)
     cards = torch.cuda.device_count()
     if cards < 2:
         say("moe_ep", skipped="one card")
         return total
-    failed, ones = [], {}
+    ones = {}
     for run in moe_ep_runs(cards):
         cfg = moe_cfg(run["n_layers"])
         if run["n_layers"] not in ones:
@@ -2528,7 +3059,8 @@ def check_moe_ep(peak: float, known: bool) -> dict:
             for path, c, attention in (
                     ("bf16", cfg, None),
                     ("plain", cfg, ra.reference_attention),
-                    ("f32", f32(cfg), ra.reference_attention)):
+                    ("f32", f32(cfg), ra.reference_attention),
+                    ("f64", f32(cfg), attention_f64)):
                 ones[run["n_layers"]][path] = moe_steps(
                     c, run["batch"], run["seq"], attention=attention)
                 torch.cuda.empty_cache()
@@ -2550,11 +3082,18 @@ def check_moe_ep(peak: float, known: bool) -> dict:
                 total[key] += count
         losses = {"bf16": ranks[0]["losses"], "f32": ranks[0]["f32_losses"]}
         gate = mesh_gate(losses, {p: paths[p]["losses"] for p in paths})
-        ok = gate["ok"] and all(
+        ring = f32_ring_reading(ranks, exact["losses"],
+                                cfg.n_layers * MOE_EP_STEPS,
+                                paths["f64"]["losses"])
+        for out in ranks:
+            for key, count in out["f32_ring_launches"].items():
+                total[key] += count
+        ok = gate["ok"] and ring["ok"] and all(
             out["losses"] == losses["bf16"]
             and out["f32_losses"] == losses["f32"] for out in ranks)
         if not ok:
-            failed.append(f"{run['name']}: {losses}, gate {gate}")
+            failed.append(f"moe_ep {run['name']}: {losses}, gate {gate}, "
+                          f"f32 ring {ring}")
         ms = max(sum(out["step_ms"][1:]) / (MOE_EP_STEPS - 1)
                  for out in ranks)
         one_ms = sum(one["step_ms"][1:]) / (MOE_EP_STEPS - 1)
@@ -2564,7 +3103,7 @@ def check_moe_ep(peak: float, known: bool) -> dict:
         say("moe_ep", ok=ok, **run, cards=world, losses=losses["bf16"],
             f32_losses=losses["f32"],
             one_card_losses={p: paths[p]["losses"] for p in paths},
-            gate=gate,
+            gate=gate, f32_ring=ring,
             f32_seconds=max(out["f32_seconds"] for out in ranks),
             one_card_f32_seconds=exact["seconds"],
             step_ms=ms, one_card_step_ms=one_ms,
@@ -2584,8 +3123,6 @@ def check_moe_ep(peak: float, known: bool) -> dict:
                 "launches", "exchange_ms", "exchange_bytes", "f32_seconds")}
                 for out in ranks])
         torch.cuda.empty_cache()
-    if failed:
-        raise AssertionError(f"moe_ep losses: {failed}")
     return total
 
 
@@ -2636,6 +3173,9 @@ def main() -> int:
     # Every instance at head dims that are no tile's width and at the
     # W-256 tile's; Phi-3-mini's and GPT-J-6B's attention timed.
     head_dim_rows = check_head_dims(gen, name)
+    # The f32 instances (head dims up to 128) against an f64 plain
+    # version; the 600M LM's f32 attention and ring block timed.
+    f32_rows = check_attn_f32(gen, name)
     # The ring's block arithmetic at t8k on one card, at head dims 128
     # and 96, counted inside.
     loopback_launches = check_ring_loopback(gen, LOOPBACK_SHAPE,
@@ -2643,6 +3183,8 @@ def main() -> int:
     for key, count in check_ring_loopback(gen, LOOPBACK_D96_SHAPE,
                                           (2,)).items():
         loopback_launches[key] += count
+    loopback_f32_launches = check_ring_loopback_f32(gen, LOOPBACK_SHAPE,
+                                                    LOOPBACK_SPS)
     check_entry()
     check_mnist()
     # dryrun_multichip on every card (and on three of them), then the
@@ -2714,6 +3256,8 @@ def main() -> int:
         base, cases + [chip_bench.case(c) for c in RING_CASES], peak, known)
     check_train_grads(base)
     check_train_loop()
+    # The 600M LM in f32 compute through the f32 instances, counted inside.
+    lm_f32_launches = check_lm_f32(peak, known)
     # The LM at Phi-3-mini's widths (head dim 96) and at GPT-J-6B's (head
     # dim 256), counted inside.
     phi3_launches = check_published("phi3", PHI3, PHI3_TRAIN_LAYERS, peak,
@@ -2731,23 +3275,29 @@ def main() -> int:
     check_demo()
     check_trainer_dp2(world_1_losses)
     # Sequence parallelism, then fsdp and tp, over NCCL, counted on
-    # every rank inside.
-    lm_sp_launches = check_lm_sp(peak, known)
-    lm_fsdp_tp_launches = check_lm_fsdp_tp(peak, known)
+    # every rank inside. A mesh run whose losses miss fails the smoke
+    # after the kernels line, so every later phase still runs.
+    mesh_failed = []
+    lm_sp_launches = check_lm_sp(peak, known, mesh_failed)
+    lm_fsdp_tp_launches = check_lm_fsdp_tp(peak, known, mesh_failed)
     # The MoE on one card and, with two cards or more, expert-parallel
     # over NCCL; each counted inside.
     moe_launches = check_moe(peak, known)
-    moe_ep_launches = check_moe_ep(peak, known)
+    moe_f32_launches = check_moe_f32()
+    moe_ep_launches = check_moe_ep(peak, known, mesh_failed)
     by_path = {k: {"node": node_launches[k], "forward": launches[k],
                    "train": train_launches[k], "trainer": trainer_launches[k],
                    "trainer_default_lm": default_lm_launches[k],
                    "trainer_lm_d96": trainer_d96_launches[k],
                    "phi3": phi3_launches[k], "gptj": gptj_launches[k],
                    "ring_loopback": loopback_launches[k],
+                   "ring_loopback_f32": loopback_f32_launches[k],
                    "dryrun": dryrun_launches[k],
+                   "lm_f32": lm_f32_launches[k],
                    "lm_sp": lm_sp_launches[k],
                    "lm_fsdp_tp": lm_fsdp_tp_launches[k],
-                   "moe": moe_launches[k], "moe_ep": moe_ep_launches[k]}
+                   "moe": moe_launches[k], "moe_f32": moe_f32_launches[k],
+                   "moe_ep": moe_ep_launches[k]}
                for k in launches}
 
     # Last of all: the one profiled phase (K1's device_us).
@@ -2814,6 +3364,22 @@ def main() -> int:
          "source": "kubernetes_tpu_torch/csrc/flash_attn_bwd.cu",
          "replaces": "kubernetes_tpu/workloads/lm.py:193-197, 232-236",
          "at": at, **{k: causal_f32_rows[1][0][k] for k in keys}}]
+    # The f32 instances (q, k, v in f32), bound at the TF32 rate.
+    for shape, causal, fa_row, bwd_row in f32_rows:
+        suffix = "" if causal else "_non_causal"
+        at = "B{} H{} T{} D{} f32, ".format(*shape) + (
+            "causal" if causal else "non-causal")
+        kernels += [
+            {"name": f"flash_attn_fwd_f32{suffix}", "route": "cuda",
+             "source": "kubernetes_tpu_torch/csrc/flash_attn_fwd.cu",
+             "replaces": "kubernetes_tpu/workloads/lm.py:163-239",
+             "at": at, "bound_rate": "tf32",
+             **{k: fa_row[k] for k in keys}},
+            {"name": f"flash_attn_bwd_f32{suffix}", "route": "cuda",
+             "source": "kubernetes_tpu_torch/csrc/flash_attn_bwd.cu",
+             "replaces": "kubernetes_tpu/workloads/lm.py:193-197, 232-236",
+             "at": at, "bound_rate": "tf32",
+             **{k: bwd_row[k] for k in keys}}]
     for kern in kernels:
         kern["launches"] = sum(by_path[kern["name"]].values())
         kern["launches_by_path"] = by_path[kern["name"]]
@@ -2824,6 +3390,8 @@ def main() -> int:
                    for k in ("ms", "plain_ms", "bound_ms", "host_us")):
             raise AssertionError(f"bad timing: {kern}")
     print(json.dumps({"kernels": kernels}))
+    if mesh_failed:
+        raise AssertionError(f"mesh runs missed: {mesh_failed}")
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

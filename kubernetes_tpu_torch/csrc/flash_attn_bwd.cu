@@ -88,6 +88,20 @@
 // stages, ~194 KB each. The price is S and dP computed twice: a third
 // more products than the useful ones in the dK/dV kernel, half more in
 // the dQ kernel.
+//
+// f32 q, k, v, o, do (head dims up to 128): dq, dk, dv f32. The entry
+// point splits q, k, v and do into their bf16 parts (hopper.cuh) in a
+// pre-pass; delta reads o and do in f32. Every product that takes Q, K,
+// V or dO is taken by parts: S and dP as hi.hi + hi.lo + lo.hi, dV, dK,
+// dQ as P or dS (in two parts already) times the two parts of dO, Q or
+// K, less lo.lo (Terms). A tile in two parts holds twice the bytes, so W
+// 128 takes the W-256 plan (64 rows a block, the columns split between
+// the warpgroups: dK/dV K + V 64 KB + 2 x 65 KB, dQ 64 KB + 2 x 64 KB)
+// and W <= 64 the 128-row blocks. Bound: the same operations over the
+// TF32 rate (495 TFLOP/s); the design executes 21 bf16 products of the
+// useful ones' size where the bf16 backward executes 10 (S and dP three
+// times in each of the two kernels, dV, dK and dQ three times), and the
+// pre-pass reads and writes 8 bytes an element of q, k, v and do.
 #include <math.h>
 
 #include "common.cuh"
@@ -104,12 +118,14 @@ constexpr int kQTile = 64;      // dK/dV kernel: queries per ring tile
 constexpr int kKeyTile = 64;    // dQ kernel: keys per ring tile
 
 // How the two consumer warpgroups share a block of either kernel. Up to
-// W 128: 128 rows a block (keys for dK/dV, queries for dQ), 64 a
-// warpgroup, each over all W columns. At W 256: 64 rows a block, all of
-// them in both warpgroups, each over its half of the columns.
-template <int W>
+// W 128 in one part (64 in two): 128 rows a block (keys for dK/dV,
+// queries for dQ), 64 a warpgroup, each over all W columns. At W 256, or
+// W 128 in two parts: 64 rows a block, all of them in both warpgroups,
+// each over its half of the columns.
+template <int W, int kParts>
 struct Split {
-  static constexpr bool kSplit = W == 256;  // the warpgroups split columns
+  // The warpgroups split columns.
+  static constexpr bool kSplit = W * kParts >= 256;
   static constexpr int kRows = kSplit ? 64 : 128;  // rows per block
   static constexpr int kN = kSplit ? W / 2 : W;    // columns per warpgroup
   // A warpgroup's first row within the block, and its first column.
@@ -124,28 +140,38 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kDeltaThreads = 128;
 
 // delta[r] = sum_d do[r, d] * o[r, d] in f32, for rows = B * H * T rows
-// of D columns; W / 8 threads a row, of which the first D / 8 read.
-template <int W>
+// of D columns of In (bf16 bits, or f32); 16 bytes a thread (kVec
+// values), W / kVec threads a row, of which the first D / kVec read.
+template <int W, typename In>
 __global__ void __launch_bounds__(kDeltaThreads)
-flash_bwd_delta_kernel(const uint16_t* __restrict__ o,
-                       const uint16_t* __restrict__ dout,
+flash_bwd_delta_kernel(const In* __restrict__ o, const In* __restrict__ dout,
                        float* __restrict__ delta, int64_t rows, int D) {
-  constexpr int kLanes = W / 8;  // threads per row, 16 bytes each
+  constexpr int kVec = 16 / sizeof(In);
+  constexpr int kLanes = W / kVec;  // threads per row
   constexpr int kRows = kDeltaThreads / kLanes;
   const int64_t row = static_cast<int64_t>(blockIdx.x) * kRows +
                       threadIdx.x / kLanes;
   const int part = threadIdx.x % kLanes;
   float sum = 0.f;
-  if (row < rows && part * 8 < D) {
-    const uint4 a = *reinterpret_cast<const uint4*>(o + row * D + part * 8);
-    const uint4 b = *reinterpret_cast<const uint4*>(dout + row * D + part * 8);
-    const __nv_bfloat162* pa = reinterpret_cast<const __nv_bfloat162*>(&a);
-    const __nv_bfloat162* pb = reinterpret_cast<const __nv_bfloat162*>(&b);
+  if (row < rows && part * kVec < D) {
+    const uint4 a =
+        *reinterpret_cast<const uint4*>(o + row * D + part * kVec);
+    const uint4 b =
+        *reinterpret_cast<const uint4*>(dout + row * D + part * kVec);
+    if constexpr (sizeof(In) == 2) {
+      const __nv_bfloat162* pa = reinterpret_cast<const __nv_bfloat162*>(&a);
+      const __nv_bfloat162* pb = reinterpret_cast<const __nv_bfloat162*>(&b);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 fa = __bfloat1622float2(pa[i]);
-      const float2 fb = __bfloat1622float2(pb[i]);
-      sum += fa.x * fb.x + fa.y * fb.y;
+      for (int i = 0; i < 4; ++i) {
+        const float2 fa = __bfloat1622float2(pa[i]);
+        const float2 fb = __bfloat1622float2(pb[i]);
+        sum += fa.x * fb.x + fa.y * fb.y;
+      }
+    } else {
+      const float* fa = reinterpret_cast<const float*>(&a);
+      const float* fb = reinterpret_cast<const float*>(&b);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sum += fa[i] * fb[i];
     }
   }
   // The kLanes threads of a row are neighbours within one warp.
@@ -157,16 +183,19 @@ flash_bwd_delta_kernel(const uint16_t* __restrict__ o,
 }
 
 // dK/dV kernel shared memory, from a 1024-byte aligned base: K, V, then
-// per stage Q, dO, lse, delta (padded to 1024 B), then the barriers.
-template <int W>
+// per stage Q, dO, lse, delta (padded to 1024 B), then the barriers; each
+// tile's kParts parts one after the other.
+template <int W, int kParts>
 struct DkvSmem {
-  static constexpr int kKeyBlock = Split<W>::kRows;  // keys per block
+  static constexpr int kKeyBlock = Split<W, kParts>::kRows;  // keys per block
+  static constexpr int kKPart = Tile<W>::bytes(kKeyBlock);  // of K or V
   static constexpr int kK = 0;
-  static constexpr int kV = Tile<W>::bytes(kKeyBlock);
-  static constexpr int kStage0 = 2 * Tile<W>::bytes(kKeyBlock);
+  static constexpr int kV = kParts * kKPart;
+  static constexpr int kStage0 = 2 * kParts * kKPart;
+  static constexpr int kQPart = Tile<W>::bytes(kQTile);  // of Q or dO
   static constexpr int kQ = 0;  // offsets within a stage
-  static constexpr int kDo = Tile<W>::bytes(kQTile);
-  static constexpr int kLse = 2 * Tile<W>::bytes(kQTile);
+  static constexpr int kDo = kParts * kQPart;
+  static constexpr int kLse = 2 * kParts * kQPart;
   static constexpr int kDelta = kLse + kQTile * 4;
   static constexpr int kStage = (kDelta + kQTile * 4 + 1023) / 1024 * 1024;
   static constexpr int kBar = kStage0 + kStages * kStage;
@@ -174,7 +203,7 @@ struct DkvSmem {
   static constexpr int kAlloc = kBar + 8 * (1 + 2 * kStages) + 1024;
 };
 
-template <int W, bool kCausal, typename Out>
+template <int W, bool kCausal, typename Out, int kParts>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
@@ -184,8 +213,10 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
                       const float* __restrict__ delta,
                       Out* __restrict__ dk, Out* __restrict__ dv,
                       int T, int D, float scale, float scale_log2) {
-  using L = DkvSmem<W>;
-  using P = Split<W>;
+  using L = DkvSmem<W, kParts>;
+  using P = Split<W, kParts>;
+  using Score = Terms<kParts, kParts>;  // S^T = K Q^T, dP^T = V dO^T
+  using Grad = Terms<2, kParts>;        // dV += P^T dO, dK += dS^T Q
   constexpr int kKeyBlock = L::kKeyBlock;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -222,10 +253,15 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
       // Producer warp: lane 0 issues the copies; every lane copies two
       // rows of lse and delta.
       const int lane = threadIdx.x - kConsumers;
+      // Part p of head `head` is head head + p * heads of the maps.
       if (lane == 0) {
-        mbar_arrive_expect_tx(kv_full, 2 * Tile<W>::bytes(kKeyBlock));
-        Tile<W>::load(base + L::kK, &tk, kv_full, n0, kKeyBlock, head);
-        Tile<W>::load(base + L::kV, &tv, kv_full, n0, kKeyBlock, head);
+        mbar_arrive_expect_tx(kv_full, L::kStage0);
+        for (int p = 0; p < kParts; ++p) {
+          Tile<W>::load(base + L::kK + p * L::kKPart, &tk, kv_full, n0,
+                        kKeyBlock, head + p * heads);
+          Tile<W>::load(base + L::kV + p * L::kKPart, &tv, kv_full, n0,
+                        kKeyBlock, head + p * heads);
+        }
       }
       const float* lseh = lse + static_cast<int64_t>(head) * T;
       const float* deltah = delta + static_cast<int64_t>(head) * T;
@@ -244,9 +280,13 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
           delta_s[r] = in ? deltah[m0 + r] : 0.f;
         }
         if (lane == 0) {
-          mbar_arrive_expect_tx(full + 8 * s, 2 * Tile<W>::bytes(kQTile));
-          Tile<W>::load(stage + L::kQ, &tq, full + 8 * s, m0, kQTile, head);
-          Tile<W>::load(stage + L::kDo, &tdo, full + 8 * s, m0, kQTile, head);
+          mbar_arrive_expect_tx(full + 8 * s, L::kLse);
+          for (int p = 0; p < kParts; ++p) {
+            Tile<W>::load(stage + L::kQ + p * L::kQPart, &tq, full + 8 * s,
+                          m0, kQTile, head + p * heads);
+            Tile<W>::load(stage + L::kDo + p * L::kQPart, &tdo, full + 8 * s,
+                          m0, kQTile, head + p * heads);
+          }
         } else {
           mbar_arrive(full + 8 * s);
         }
@@ -298,14 +338,28 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
       float dpt[kCols / 2];
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < W / 16; ++kk) {
-        wgmma_ss<kCols>(st, Tile<W>::kmajor(base + L::kK, kKeyBlock, P::row0(wg), kk),
-                        Tile<W>::kmajor(qs, kQTile, c0, kk), kk > 0);
+      for (int t = 0; t < Score::kN; ++t) {
+#pragma unroll
+        for (int kk = 0; kk < W / 16; ++kk) {
+          wgmma_ss<kCols>(st,
+                          Tile<W>::kmajor(base + L::kK + Score::a(t) * L::kKPart,
+                                          kKeyBlock, P::row0(wg), kk),
+                          Tile<W>::kmajor(qs + Score::b(t) * L::kQPart, kQTile,
+                                          c0, kk),
+                          t > 0 || kk > 0);
+        }
       }
 #pragma unroll
-      for (int kk = 0; kk < W / 16; ++kk) {
-        wgmma_ss<kCols>(dpt, Tile<W>::kmajor(base + L::kV, kKeyBlock, P::row0(wg), kk),
-                        Tile<W>::kmajor(dos, kQTile, c0, kk), kk > 0);
+      for (int t = 0; t < Score::kN; ++t) {
+#pragma unroll
+        for (int kk = 0; kk < W / 16; ++kk) {
+          wgmma_ss<kCols>(dpt,
+                          Tile<W>::kmajor(base + L::kV + Score::a(t) * L::kKPart,
+                                          kKeyBlock, P::row0(wg), kk),
+                          Tile<W>::kmajor(dos + Score::b(t) * L::kQPart,
+                                          kQTile, c0, kk),
+                          t > 0 || kk > 0);
+        }
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -335,34 +389,40 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
 
       // dV += P^T dO, then dK += dS^T Q, contracting over the pass's
       // queries (k-slices c0/16.. of the q-tile), on this warpgroup's
-      // columns of dO and Q.
-      const uint32_t dos_n =
-          Tile<W>::box(dos, kQTile, col0 / Tile<W>::kBoxCols);
-      const uint32_t qs_n = Tile<W>::box(qs, kQTile, col0 / Tile<W>::kBoxCols);
-      uint32_t p_hi[kCols / 16][4], p_lo[kCols / 16][4];
+      // columns of dO and Q; P^T and dS^T in two parts [hi, lo].
+      const int box0 = col0 / Tile<W>::kBoxCols;
+      uint32_t pt[2][kCols / 16][4];
 #pragma unroll
       for (int kk = 0; kk < kCols / 16; ++kk) {
-        acc_to_a_split(p_hi[kk], p_lo[kk], st + 8 * kk);
+        acc_to_a_split(pt[0][kk], pt[1][kk], st + 8 * kk);
       }
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kCols / 16; ++kk) {
-        const uint64_t b = Tile<W>::mnmajor(dos_n, kQTile, c0 / 16 + kk);
-        wgmma_rs<kN>(dv_acc, p_hi[kk], b, 1);
-        wgmma_rs<kN>(dv_acc, p_lo[kk], b, 1);
+#pragma unroll
+        for (int t = 0; t < Grad::kN; ++t) {
+          const uint64_t b = Tile<W>::mnmajor(
+              Tile<W>::box(dos + Grad::b(t) * L::kQPart, kQTile, box0), kQTile,
+              c0 / 16 + kk);
+          wgmma_rs<kN>(dv_acc, pt[Grad::a(t)][kk], b, 1);
+        }
       }
       wgmma_commit();
-      uint32_t ds_hi[kCols / 16][4], ds_lo[kCols / 16][4];
+      uint32_t dst[2][kCols / 16][4];
 #pragma unroll
       for (int kk = 0; kk < kCols / 16; ++kk) {
-        acc_to_a_split(ds_hi[kk], ds_lo[kk], dpt + 8 * kk);
+        acc_to_a_split(dst[0][kk], dst[1][kk], dpt + 8 * kk);
       }
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kCols / 16; ++kk) {
-        const uint64_t b = Tile<W>::mnmajor(qs_n, kQTile, c0 / 16 + kk);
-        wgmma_rs<kN>(dk_acc, ds_hi[kk], b, 1);
-        wgmma_rs<kN>(dk_acc, ds_lo[kk], b, 1);
+#pragma unroll
+        for (int t = 0; t < Grad::kN; ++t) {
+          const uint64_t b = Tile<W>::mnmajor(
+              Tile<W>::box(qs + Grad::b(t) * L::kQPart, kQTile, box0), kQTile,
+              c0 / 16 + kk);
+          wgmma_rs<kN>(dk_acc, dst[Grad::a(t)][kk], b, 1);
+        }
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -387,22 +447,25 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// dQ kernel shared memory: Q, dO, then per stage K and V, then barriers.
-template <int W>
+// dQ kernel shared memory: Q, dO, then per stage K and V, then barriers;
+// each tile's kParts parts one after the other.
+template <int W, int kParts>
 struct DqSmem {
-  static constexpr int kQBlock = Split<W>::kRows;  // queries per block
+  static constexpr int kQBlock = Split<W, kParts>::kRows;  // queries per block
+  static constexpr int kQPart = Tile<W>::bytes(kQBlock);  // of Q or dO
   static constexpr int kQ = 0;
-  static constexpr int kDo = Tile<W>::bytes(kQBlock);
-  static constexpr int kStage0 = 2 * Tile<W>::bytes(kQBlock);
+  static constexpr int kDo = kParts * kQPart;
+  static constexpr int kStage0 = 2 * kParts * kQPart;
+  static constexpr int kKPart = Tile<W>::bytes(kKeyTile);  // of K or V
   static constexpr int kK = 0;  // offsets within a stage
-  static constexpr int kV = Tile<W>::bytes(kKeyTile);
-  static constexpr int kStage = 2 * Tile<W>::bytes(kKeyTile);
+  static constexpr int kV = kParts * kKPart;
+  static constexpr int kStage = 2 * kParts * kKPart;
   static constexpr int kBar = kStage0 + kStages * kStage;
   // qdo_full, full[kStages], empty[kStages]
   static constexpr int kAlloc = kBar + 8 * (1 + 2 * kStages) + 1024;
 };
 
-template <int W, bool kCausal, typename Out>
+template <int W, bool kCausal, typename Out, int kParts>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
@@ -412,8 +475,10 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
                     const float* __restrict__ delta,
                     Out* __restrict__ dq, int T, int D, float scale,
                     float scale_log2) {
-  using L = DqSmem<W>;
-  using P = Split<W>;
+  using L = DqSmem<W, kParts>;
+  using P = Split<W, kParts>;
+  using Score = Terms<kParts, kParts>;  // S = Q K^T, dP = dO V^T
+  using Grad = Terms<2, kParts>;        // dQ += dS K
   constexpr int kQBlock = L::kQBlock;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -447,18 +512,25 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
   if (threadIdx.x >= kConsumers) {
     setmaxnreg_dec<24>();
     if (threadIdx.x == kConsumers) {
-      mbar_arrive_expect_tx(qdo_full, 2 * Tile<W>::bytes(kQBlock));
-      Tile<W>::load(base + L::kQ, &tq, qdo_full, m0, kQBlock, head);
-      Tile<W>::load(base + L::kDo, &tdo, qdo_full, m0, kQBlock, head);
+      // Part p of head `head` is head head + p * heads of the maps.
+      mbar_arrive_expect_tx(qdo_full, L::kStage0);
+      for (int p = 0; p < kParts; ++p) {
+        Tile<W>::load(base + L::kQ + p * L::kQPart, &tq, qdo_full, m0, kQBlock,
+                      head + p * heads);
+        Tile<W>::load(base + L::kDo + p * L::kQPart, &tdo, qdo_full, m0,
+                      kQBlock, head + p * heads);
+      }
       for (int it = 0; it < n_iters; ++it) {
         const int s = it % kStages;
         const uint32_t stage = base + L::kStage0 + s * L::kStage;
         mbar_wait(empty + 8 * s, ((it / kStages) & 1) ^ 1);
         mbar_arrive_expect_tx(full + 8 * s, L::kStage);
-        Tile<W>::load(stage + L::kK, &tk, full + 8 * s, it * kKeyTile,
-                      kKeyTile, head);
-        Tile<W>::load(stage + L::kV, &tv, full + 8 * s, it * kKeyTile,
-                      kKeyTile, head);
+        for (int p = 0; p < kParts; ++p) {
+          Tile<W>::load(stage + L::kK + p * L::kKPart, &tk, full + 8 * s,
+                        it * kKeyTile, kKeyTile, head + p * heads);
+          Tile<W>::load(stage + L::kV + p * L::kKPart, &tv, full + 8 * s,
+                        it * kKeyTile, kKeyTile, head + p * heads);
+        }
       }
     }
     return;
@@ -505,14 +577,28 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
       float dp[kKeyTile / 2];
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < W / 16; ++kk) {
-        wgmma_ss<kKeyTile>(sc, Tile<W>::kmajor(base + L::kQ, kQBlock, P::row0(wg), kk),
-                           Tile<W>::kmajor(ks, kKeyTile, 0, kk), kk > 0);
+      for (int t = 0; t < Score::kN; ++t) {
+#pragma unroll
+        for (int kk = 0; kk < W / 16; ++kk) {
+          wgmma_ss<kKeyTile>(
+              sc,
+              Tile<W>::kmajor(base + L::kQ + Score::a(t) * L::kQPart, kQBlock,
+                              P::row0(wg), kk),
+              Tile<W>::kmajor(ks + Score::b(t) * L::kKPart, kKeyTile, 0, kk),
+              t > 0 || kk > 0);
+        }
       }
 #pragma unroll
-      for (int kk = 0; kk < W / 16; ++kk) {
-        wgmma_ss<kKeyTile>(dp, Tile<W>::kmajor(base + L::kDo, kQBlock, P::row0(wg), kk),
-                           Tile<W>::kmajor(vs, kKeyTile, 0, kk), kk > 0);
+      for (int t = 0; t < Score::kN; ++t) {
+#pragma unroll
+        for (int kk = 0; kk < W / 16; ++kk) {
+          wgmma_ss<kKeyTile>(
+              dp,
+              Tile<W>::kmajor(base + L::kDo + Score::a(t) * L::kQPart, kQBlock,
+                              P::row0(wg), kk),
+              Tile<W>::kmajor(vs + Score::b(t) * L::kKPart, kKeyTile, 0, kk),
+              t > 0 || kk > 0);
+        }
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -532,19 +618,23 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
         dp[i] = p * (dp[i] - dl[r]);
       }
       // dQ += dS K (scaled once, at the store), on this warpgroup's
-      // columns of K.
-      uint32_t ds_hi[kKeyTile / 16][4], ds_lo[kKeyTile / 16][4];
+      // columns of K; dS in two parts [hi, lo].
+      uint32_t ds[2][kKeyTile / 16][4];
 #pragma unroll
       for (int kk = 0; kk < kKeyTile / 16; ++kk) {
-        acc_to_a_split(ds_hi[kk], ds_lo[kk], dp + 8 * kk);
+        acc_to_a_split(ds[0][kk], ds[1][kk], dp + 8 * kk);
       }
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kKeyTile / 16; ++kk) {
-        const uint64_t b = Tile<W>::mnmajor(
-            Tile<W>::box(ks, kKeyTile, col0 / Tile<W>::kBoxCols), kKeyTile, kk);
-        wgmma_rs<kN>(dq_acc, ds_hi[kk], b, 1);
-        wgmma_rs<kN>(dq_acc, ds_lo[kk], b, 1);
+#pragma unroll
+        for (int t = 0; t < Grad::kN; ++t) {
+          const uint64_t b = Tile<W>::mnmajor(
+              Tile<W>::box(ks + Grad::b(t) * L::kKPart, kKeyTile,
+                           col0 / Tile<W>::kBoxCols),
+              kKeyTile, kk);
+          wgmma_rs<kN>(dq_acc, ds[Grad::a(t)][kk], b, 1);
+        }
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -566,16 +656,20 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-template <int W, bool kCausal, typename Out>
-int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* dout, const void* lse, void* delta, void* dq, void* dk,
-           void* dv, int B, int H, int T, int D, float scale,
+// q, k, v, do_tiles: kParts parts of B * H heads each (hopper.cuh), read
+// by the tensor maps; o and dout: [B, H, T, D] of In, read by the delta
+// kernel.
+template <int W, bool kCausal, typename Out, int kParts, typename In>
+int launch(const void* q, const void* k, const void* v, const void* do_tiles,
+           const In* o, const In* dout, const void* lse, void* delta, void* dq,
+           void* dk, void* dv, int B, int H, int T, int D, float scale,
            cudaStream_t stream) {
   CUtensorMap tq, tk, tv, tdo;
-  int err = make_tile_map<W>(&tq, q, B * H, T, D);
-  if (err == 0) err = make_tile_map<W>(&tk, k, B * H, T, D);
-  if (err == 0) err = make_tile_map<W>(&tv, v, B * H, T, D);
-  if (err == 0) err = make_tile_map<W>(&tdo, dout, B * H, T, D);
+  const int heads = kParts * B * H;
+  int err = make_tile_map<W>(&tq, q, heads, T, D);
+  if (err == 0) err = make_tile_map<W>(&tk, k, heads, T, D);
+  if (err == 0) err = make_tile_map<W>(&tv, v, heads, T, D);
+  if (err == 0) err = make_tile_map<W>(&tdo, do_tiles, heads, T, D);
   // The shared-memory limits are properties of the kernels on a device:
   // set once per device, not on every launch.
   static PerDevice smem_set;
@@ -584,13 +678,13 @@ int launch(const void* q, const void* k, const void* v, const void* o,
     err = smem_set.get(&done, [](int, int* set) {
       *set = 1;
       cudaError_t e = cudaFuncSetAttribute(
-          flash_bwd_dkdv_kernel<W, kCausal, Out>,
+          flash_bwd_dkdv_kernel<W, kCausal, Out, kParts>,
           cudaFuncAttributeMaxDynamicSharedMemorySize,
-          DkvSmem<W>::kAlloc);
+          DkvSmem<W, kParts>::kAlloc);
       if (e == cudaSuccess) {
-        e = cudaFuncSetAttribute(flash_bwd_dq_kernel<W, kCausal, Out>,
+        e = cudaFuncSetAttribute(flash_bwd_dq_kernel<W, kCausal, Out, kParts>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 DqSmem<W>::kAlloc);
+                                 DqSmem<W, kParts>::kAlloc);
       }
       return e;
     });
@@ -602,73 +696,86 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   const float scale_log2 = scale * kLog2e;
 
   const int64_t rows = static_cast<int64_t>(B) * H * T;
-  constexpr int kRowsPerBlock = kDeltaThreads / (W / 8);
+  constexpr int kRowsPerBlock = kDeltaThreads / (W * sizeof(In) / 16);
   const int64_t delta_blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
   // One block per (row tile, head) in both the dK/dV and dQ grids: 128
-  // rows a tile, 64 at W 256.
-  constexpr int kRows = Split<W>::kRows;
+  // rows a tile, 64 where the warpgroups split the columns.
+  constexpr int kRows = Split<W, kParts>::kRows;
   const int64_t blocks = static_cast<int64_t>((T + kRows - 1) / kRows) * B * H;
   if (delta_blocks > 0x7fffffff || blocks > 0x7fffffff) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  flash_bwd_delta_kernel<W><<<static_cast<unsigned>(delta_blocks),
-                              kDeltaThreads, 0, stream>>>(
-      static_cast<const uint16_t*>(o), static_cast<const uint16_t*>(dout),
-      delta32, rows, D);
+  flash_bwd_delta_kernel<W, In><<<static_cast<unsigned>(delta_blocks),
+                                  kDeltaThreads, 0, stream>>>(
+      o, dout, delta32, rows, D);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
 
-  flash_bwd_dkdv_kernel<W, kCausal, Out><<<static_cast<unsigned>(blocks),
-                                           kThreads, DkvSmem<W>::kAlloc,
-                                           stream>>>(
-      tq, tk, tv, tdo, lse32, delta32, static_cast<Out*>(dk),
-      static_cast<Out*>(dv), T, D, scale, scale_log2);
+  flash_bwd_dkdv_kernel<W, kCausal, Out, kParts>
+      <<<static_cast<unsigned>(blocks), kThreads, DkvSmem<W, kParts>::kAlloc,
+         stream>>>(tq, tk, tv, tdo, lse32, delta32, static_cast<Out*>(dk),
+                   static_cast<Out*>(dv), T, D, scale, scale_log2);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
 
-  flash_bwd_dq_kernel<W, kCausal, Out><<<static_cast<unsigned>(blocks),
-                                         kThreads, DqSmem<W>::kAlloc, stream>>>(
-      tq, tk, tv, tdo, lse32, delta32, static_cast<Out*>(dq), T, D, scale,
-      scale_log2);
+  flash_bwd_dq_kernel<W, kCausal, Out, kParts>
+      <<<static_cast<unsigned>(blocks), kThreads, DqSmem<W, kParts>::kAlloc,
+         stream>>>(tq, tk, tv, tdo, lse32, delta32, static_cast<Out*>(dq), T,
+                   D, scale, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The smallest tile width that holds head dim D (a multiple of 8, at
-// most 256; the entry point checks).
-template <bool kCausal, typename Out>
-int launch_d(const void* q, const void* k, const void* v, const void* o,
-             const void* dout, const void* lse, void* delta, void* dq,
-             void* dk, void* dv, int B, int H, int T, int D, float scale,
-             cudaStream_t s) {
+// most 256 in one part, 128 in two; the entry points check).
+template <bool kCausal, typename Out, int kParts, typename In>
+int launch_d(const void* q, const void* k, const void* v,
+             const void* do_tiles, const In* o, const In* dout,
+             const void* lse, void* delta, void* dq, void* dk, void* dv, int B,
+             int H, int T, int D, float scale, cudaStream_t s) {
   if (D <= 16) {
-    return launch<16, kCausal, Out>(q, k, v, o, dout, lse, delta, dq, dk, dv,
-                                    B, H, T, D, scale, s);
+    return launch<16, kCausal, Out, kParts>(q, k, v, do_tiles, o, dout, lse,
+                                            delta, dq, dk, dv, B, H, T, D,
+                                            scale, s);
   }
   if (D <= 32) {
-    return launch<32, kCausal, Out>(q, k, v, o, dout, lse, delta, dq, dk, dv,
-                                    B, H, T, D, scale, s);
+    return launch<32, kCausal, Out, kParts>(q, k, v, do_tiles, o, dout, lse,
+                                            delta, dq, dk, dv, B, H, T, D,
+                                            scale, s);
   }
   if (D <= 64) {
-    return launch<64, kCausal, Out>(q, k, v, o, dout, lse, delta, dq, dk, dv,
-                                    B, H, T, D, scale, s);
+    return launch<64, kCausal, Out, kParts>(q, k, v, do_tiles, o, dout, lse,
+                                            delta, dq, dk, dv, B, H, T, D,
+                                            scale, s);
   }
   if (D <= 128) {
-    return launch<128, kCausal, Out>(q, k, v, o, dout, lse, delta, dq, dk,
-                                     dv, B, H, T, D, scale, s);
+    return launch<128, kCausal, Out, kParts>(q, k, v, do_tiles, o, dout, lse,
+                                             delta, dq, dk, dv, B, H, T, D,
+                                             scale, s);
   }
-  return launch<256, kCausal, Out>(q, k, v, o, dout, lse, delta, dq, dk, dv,
-                                   B, H, T, D, scale, s);
+  if constexpr (kParts == 1) {
+    return launch<256, kCausal, Out, 1>(q, k, v, do_tiles, o, dout, lse,
+                                        delta, dq, dk, dv, B, H, T, D, scale,
+                                        s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <typename Out>
-int launch_c(const void* q, const void* k, const void* v, const void* o,
-             const void* dout, const void* lse, void* delta, void* dq,
-             void* dk, void* dv, int B, int H, int T, int D, int causal,
-             float scale, cudaStream_t s) {
-  return causal ? launch_d<true, Out>(q, k, v, o, dout, lse, delta, dq, dk,
-                                      dv, B, H, T, D, scale, s)
-                : launch_d<false, Out>(q, k, v, o, dout, lse, delta, dq, dk,
-                                       dv, B, H, T, D, scale, s);
+template <typename Out, int kParts, typename In>
+int launch_c(const void* q, const void* k, const void* v,
+             const void* do_tiles, const In* o, const In* dout,
+             const void* lse, void* delta, void* dq, void* dk, void* dv, int B,
+             int H, int T, int D, int causal, float scale, cudaStream_t s) {
+  return causal ? launch_d<true, Out, kParts>(q, k, v, do_tiles, o, dout, lse,
+                                              delta, dq, dk, dv, B, H, T, D,
+                                              scale, s)
+                : launch_d<false, Out, kParts>(q, k, v, do_tiles, o, dout,
+                                               lse, delta, dq, dk, dv, B, H,
+                                               T, D, scale, s);
+}
+
+bool bad_shape(int B, int H, int T, int D, int max_d) {
+  return B <= 0 || H <= 0 || T <= 0 || H > 65535 || B > 65535 || D <= 0 ||
+         D > max_d || D % 8 != 0;
 }
 
 }  // namespace
@@ -687,15 +794,42 @@ extern "C" int flash_attn_bwd_bf16(const void* q, const void* k, const void* v,
                                    void* dk, void* dv, int B, int H, int T,
                                    int D, int causal, int f32_out,
                                    float scale, int device, void* stream) {
-  if (B <= 0 || H <= 0 || T <= 0 || H > 65535 || B > 65535 || D <= 0 ||
-      D > 256 || D % 8 != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (bad_shape(B, H, T, D, 256)) return static_cast<int>(cudaErrorInvalidValue);
   DeviceGuard guard(device);
   if (guard.error()) return guard.error();
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return f32_out ? launch_c<float>(q, k, v, o, dout, lse, delta, dq, dk, dv,
-                                   B, H, T, D, causal, scale, s)
-                 : launch_c<uint16_t>(q, k, v, o, dout, lse, delta, dq, dk,
-                                      dv, B, H, T, D, causal, scale, s);
+  const auto* o16 = static_cast<const uint16_t*>(o);
+  const auto* do16 = static_cast<const uint16_t*>(dout);
+  return f32_out ? launch_c<float, 1>(q, k, v, dout, o16, do16, lse, delta, dq,
+                                      dk, dv, B, H, T, D, causal, scale, s)
+                 : launch_c<uint16_t, 1>(q, k, v, dout, o16, do16, lse, delta,
+                                         dq, dk, dv, B, H, T, D, causal,
+                                         scale, s);
+}
+
+// The same for f32 q, k, v, o, dout and dq, dk, dv, D a multiple of 8 up
+// to 128; parts: scratch of [4, 2, B, H, T, D] bf16 (8 x 2 bytes an
+// element of q), which the pre-pass fills with the hi and lo parts of q,
+// k, v and dout before the kernels read them. Five launches on `stream`.
+extern "C" int flash_attn_bwd_f32(const void* q, const void* k, const void* v,
+                                  const void* o, const void* dout,
+                                  const void* lse, void* delta, void* parts,
+                                  void* dq, void* dk, void* dv, int B, int H,
+                                  int T, int D, int causal, float scale,
+                                  int device, void* stream) {
+  if (bad_shape(B, H, T, D, 128)) return static_cast<int>(cudaErrorInvalidValue);
+  DeviceGuard guard(device);
+  if (guard.error()) return guard.error();
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t n = static_cast<int64_t>(B) * H * T * D;
+  uint16_t* p = static_cast<uint16_t*>(parts);
+  const void* src[4] = {q, k, v, dout};
+  for (int i = 0; i < 4; ++i) {
+    const int err = split_parts(src[i], p + 2 * i * n, n, s);
+    if (err != 0) return err;
+  }
+  return launch_c<float, 2>(p, p + 2 * n, p + 4 * n, p + 6 * n,
+                            static_cast<const float*>(o),
+                            static_cast<const float*>(dout), lse, delta, dq,
+                            dk, dv, B, H, T, D, causal, scale, s);
 }

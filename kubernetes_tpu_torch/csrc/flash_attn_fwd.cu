@@ -14,12 +14,12 @@
 // one kernel takes every T.
 //
 // Layout: q, k, v, o are contiguous [B, H, T, D] bf16 (the reference's
-// layout); lse is [B, H, T] f32. Scores, the running max and sum, and
-// the output accumulator are f32; P is rounded once to bf16 for the P V
-// product, as the tensor cores take it. o is bf16, or f32 for the ring,
-// which merges its blocks' o in f32 and rounds once (rounding each block
-// too put the ring's largest deviation from f32 attention at 1.9x the
-// plain path's, at T 8192 split 2 and 4 ways on an H100).
+// layout), or f32 (below); lse is [B, H, T] f32. Scores, the running max
+// and sum, and the output accumulator are f32; P is rounded once to bf16
+// for the P V product, as the tensor cores take it. o is bf16, or f32 for
+// the ring, which merges its blocks' o in f32 and rounds once (rounding
+// each block too put the ring's largest deviation from f32 attention at
+// 1.9x the plain path's, at T 8192 split 2 and 4 ways on an H100).
 //
 // Bound: operations. The causal work is 4 * B * H * D * T(T+1)/2 FLOPs
 // (4 * B * H * D * T^2 non-causal) against (3 + 1) * B * H * T * D * 2
@@ -71,6 +71,20 @@
 // A 128-row q-tile's diagonal then spans two key tiles, the first two
 // taken, both masked; in the first, warpgroup 0's rows see no key at
 // all, and their running max and sum stay -inf and 0 until the second.
+//
+// f32 q, k, v (the LM and the MoE at compute_dtype f32; head dims up to
+// 128, tile widths 16 to 128). The entry point splits each into its two
+// bf16 parts (hopper.cuh: hi, lo) in a pre-pass, and the kernel takes
+// S = Q K^T and O += P V each as three bf16 products (hi.hi + hi.lo +
+// lo.hi), P split in registers as the backward splits it; o is f32. Over
+// one-pass TF32 (~3 decimal digits, and no MN-major B for V) the parts
+// keep ~16 bits of every operand, and every layout above stays. A tile
+// in two parts holds twice the bytes: at W 128 the W-256 plan (64-key
+// K/V tiles, Q 2 x 32 KB + 4 x 2 x 16 KB = 192 KB), below it the square
+// tiles. Bound: the same operations over the TF32 rate (495 TFLOP/s) a
+// user who asks for f32 would otherwise get; the design executes three
+// times the bf16 products at the bf16 rate, and the pre-pass reads and
+// writes 8 bytes an element of q, k and v.
 #include <math.h>
 
 #include "common.cuh"
@@ -86,14 +100,19 @@ constexpr int kConsumers = 256;
 constexpr int kThreads = kConsumers + 128;  // + the producer warpgroup
 
 // Shared memory, from a 1024-byte aligned base (the 128-byte swizzle's
-// period): Q, then the K stages, the V stages, then the barriers.
-template <int W>
+// period): Q, then the K stages, the V stages, then the barriers. Each
+// tile of kParts parts (1: bf16; 2: the hi and lo of f32) holds them one
+// after the other.
+template <int W, int kParts>
 struct Smem {
-  // Keys per K/V tile of the ring: 128 (square tiles), 64 at W 256.
-  static constexpr int kKeys = W == 256 ? 64 : 128;
-  static constexpr int kTile = Tile<W>::bytes(kKeys);
+  // Keys per K/V tile of the ring: 128 (square tiles), 64 where a key's
+  // row of parts takes 512 bytes (W 256, or W 128 in two parts).
+  static constexpr int kKeys = W * kParts >= 256 ? 64 : 128;
+  static constexpr int kPart = Tile<W>::bytes(kKeys);  // of a K or V tile
+  static constexpr int kTile = kParts * kPart;
+  static constexpr int kQPart = Tile<W>::bytes(kRows);
   static constexpr int kQ = 0;
-  static constexpr int kK = Tile<W>::bytes(kRows);
+  static constexpr int kK = kParts * kQPart;
   static constexpr int kV = kK + kStages * kTile;
   static constexpr int kBar = kV + kStages * kTile;
   // q_full, k_full[kStages], v_full[kStages], empty[kStages]
@@ -101,14 +120,15 @@ struct Smem {
   static constexpr int kAlloc = kBytes + 1024;  // slack for the alignment
 };
 
-template <int W, bool kCausal, typename Out>
+template <int W, bool kCausal, typename Out, int kParts>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv,
                  Out* __restrict__ o, float* __restrict__ lse, int T, int D,
                  float scale_log2) {
-  using L = Smem<W>;
+  using L = Smem<W, kParts>;
+  using Prod = Terms<kParts, kParts>;  // S = Q K^T and O += P V
   constexpr int kKeys = L::kKeys;
   // Square tiles: a q-tile takes the key tiles up to its own index, and
   // only the first taken (the diagonal, or T's last keys) is masked.
@@ -149,18 +169,26 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
     // Producer warpgroup: one thread issues every copy.
     setmaxnreg_dec<24>();
     if (threadIdx.x == kConsumers) {
-      mbar_arrive_expect_tx(q_full, Tile<W>::bytes(kRows));
-      Tile<W>::load(base + L::kQ, &tq, q_full, m0, kRows, head);
+      // Part p of head `head` is head head + p * heads of the maps.
+      mbar_arrive_expect_tx(q_full, kParts * L::kQPart);
+      for (int p = 0; p < kParts; ++p) {
+        Tile<W>::load(base + L::kQ + p * L::kQPart, &tq, q_full, m0, kRows,
+                      head + p * heads);
+      }
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % kStages;
         const int n0 = (n_tiles - 1 - it) * kKeys;
         mbar_wait(empty + 8 * s, ((it / kStages) & 1) ^ 1);
         mbar_arrive_expect_tx(k_full + 8 * s, L::kTile);
-        Tile<W>::load(base + L::kK + s * L::kTile, &tk, k_full + 8 * s, n0,
-                      kKeys, head);
+        for (int p = 0; p < kParts; ++p) {
+          Tile<W>::load(base + L::kK + s * L::kTile + p * L::kPart, &tk,
+                        k_full + 8 * s, n0, kKeys, head + p * heads);
+        }
         mbar_arrive_expect_tx(v_full + 8 * s, L::kTile);
-        Tile<W>::load(base + L::kV + s * L::kTile, &tv, v_full + 8 * s, n0,
-                      kKeys, head);
+        for (int p = 0; p < kParts; ++p) {
+          Tile<W>::load(base + L::kV + s * L::kTile + p * L::kPart, &tv,
+                        v_full + 8 * s, n0, kKeys, head + p * heads);
+        }
       }
     }
     return;
@@ -196,9 +224,16 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
     mbar_wait(k_full + 8 * s, parity);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < W / 16; ++kk) {
-      wgmma_ss<kKeys>(sc, Tile<W>::kmajor(base + L::kQ, kRows, wg * 64, kk),
-                      Tile<W>::kmajor(ks, kKeys, 0, kk), kk > 0);
+    for (int t = 0; t < Prod::kN; ++t) {
+#pragma unroll
+      for (int kk = 0; kk < W / 16; ++kk) {
+        wgmma_ss<kKeys>(
+            sc,
+            Tile<W>::kmajor(base + L::kQ + Prod::a(t) * L::kQPart, kRows,
+                            wg * 64, kk),
+            Tile<W>::kmajor(ks + Prod::b(t) * L::kPart, kKeys, 0, kk),
+            t > 0 || kk > 0);
+      }
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -248,15 +283,27 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int i = 0; i < W / 2; ++i) acc[i] *= corr[(i % 4) / 2];
 
-    // O += P V: P's k-slice kk is S's entries 8kk..8kk+7.
-    uint32_t pf[kKeys / 16][4];
+    // O += P V: P's k-slice kk is S's entries 8kk..8kk+7, rounded once
+    // to bf16 beside bf16 V, in two parts beside the parts of f32 V.
+    uint32_t pf[kParts][kKeys / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < kKeys / 16; ++kk) acc_to_a(pf[kk], sc + 8 * kk);
+    for (int kk = 0; kk < kKeys / 16; ++kk) {
+      if constexpr (kParts == 1) {
+        acc_to_a(pf[0][kk], sc + 8 * kk);
+      } else {
+        acc_to_a_split(pf[0][kk], pf[1][kk], sc + 8 * kk);
+      }
+    }
     mbar_wait(v_full + 8 * s, parity);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kKeys / 16; ++kk) {
-      wgmma_rs<W>(acc, pf[kk], Tile<W>::mnmajor(vs, kKeys, kk), 1);
+#pragma unroll
+      for (int t = 0; t < Prod::kN; ++t) {
+        wgmma_rs<W>(acc, pf[Prod::a(t)][kk],
+                    Tile<W>::mnmajor(vs + Prod::b(t) * L::kPart, kKeys, kk),
+                    1);
+      }
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -293,13 +340,14 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-template <int W, bool kCausal, typename Out>
+// q, k, v: kParts parts of B * H heads each (hopper.cuh).
+template <int W, bool kCausal, typename Out, int kParts>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            int B, int H, int T, int D, float scale_log2, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  int err = make_tile_map<W>(&tq, q, B * H, T, D);
-  if (err == 0) err = make_tile_map<W>(&tk, k, B * H, T, D);
-  if (err == 0) err = make_tile_map<W>(&tv, v, B * H, T, D);
+  int err = make_tile_map<W>(&tq, q, kParts * B * H, T, D);
+  if (err == 0) err = make_tile_map<W>(&tk, k, kParts * B * H, T, D);
+  if (err == 0) err = make_tile_map<W>(&tv, v, kParts * B * H, T, D);
   // The shared-memory limit is a property of the kernel on a device: set
   // once per device, not on every launch.
   static PerDevice smem_set;
@@ -307,53 +355,63 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   if (err == 0) {
     err = smem_set.get(&done, [](int, int* set) {
       *set = 1;
-      return cudaFuncSetAttribute(flash_fwd_kernel<W, kCausal, Out>,
+      return cudaFuncSetAttribute(flash_fwd_kernel<W, kCausal, Out, kParts>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  Smem<W>::kAlloc);
+                                  Smem<W, kParts>::kAlloc);
     });
   }
   if (err != 0) return err;
   const int64_t blocks = static_cast<int64_t>((T + kRows - 1) / kRows) * B * H;
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  flash_fwd_kernel<W, kCausal, Out><<<static_cast<unsigned>(blocks),
-                                      kThreads, Smem<W>::kAlloc, stream>>>(
+  flash_fwd_kernel<W, kCausal, Out, kParts><<<static_cast<unsigned>(blocks),
+                                              kThreads, Smem<W, kParts>::kAlloc,
+                                              stream>>>(
       tq, tk, tv, static_cast<Out*>(o), static_cast<float*>(lse), T, D,
       scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The smallest tile width that holds head dim D (a multiple of 8, at
-// most 256; the entry point checks).
-template <bool kCausal, typename Out>
+// most 256 in one part, 128 in two; the entry points check).
+template <bool kCausal, typename Out, int kParts>
 int launch_d(const void* q, const void* k, const void* v, void* o, void* lse,
              int B, int H, int T, int D, float scale_log2, cudaStream_t s) {
   if (D <= 16) {
-    return launch<16, kCausal, Out>(q, k, v, o, lse, B, H, T, D, scale_log2,
-                                    s);
+    return launch<16, kCausal, Out, kParts>(q, k, v, o, lse, B, H, T, D,
+                                            scale_log2, s);
   }
   if (D <= 32) {
-    return launch<32, kCausal, Out>(q, k, v, o, lse, B, H, T, D, scale_log2,
-                                    s);
+    return launch<32, kCausal, Out, kParts>(q, k, v, o, lse, B, H, T, D,
+                                            scale_log2, s);
   }
   if (D <= 64) {
-    return launch<64, kCausal, Out>(q, k, v, o, lse, B, H, T, D, scale_log2,
-                                    s);
+    return launch<64, kCausal, Out, kParts>(q, k, v, o, lse, B, H, T, D,
+                                            scale_log2, s);
   }
   if (D <= 128) {
-    return launch<128, kCausal, Out>(q, k, v, o, lse, B, H, T, D, scale_log2,
-                                     s);
+    return launch<128, kCausal, Out, kParts>(q, k, v, o, lse, B, H, T, D,
+                                             scale_log2, s);
   }
-  return launch<256, kCausal, Out>(q, k, v, o, lse, B, H, T, D, scale_log2,
-                                   s);
+  if constexpr (kParts == 1) {
+    return launch<256, kCausal, Out, 1>(q, k, v, o, lse, B, H, T, D,
+                                        scale_log2, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <typename Out>
+template <typename Out, int kParts>
 int launch_c(const void* q, const void* k, const void* v, void* o, void* lse,
              int B, int H, int T, int D, int causal, float scale_log2,
              cudaStream_t s) {
-  return causal
-             ? launch_d<true, Out>(q, k, v, o, lse, B, H, T, D, scale_log2, s)
-             : launch_d<false, Out>(q, k, v, o, lse, B, H, T, D, scale_log2, s);
+  return causal ? launch_d<true, Out, kParts>(q, k, v, o, lse, B, H, T, D,
+                                              scale_log2, s)
+                : launch_d<false, Out, kParts>(q, k, v, o, lse, B, H, T, D,
+                                               scale_log2, s);
+}
+
+bool bad_shape(int B, int H, int T, int D, int max_d) {
+  return B <= 0 || H <= 0 || T <= 0 || H > 65535 || B > 65535 || D <= 0 ||
+         D > max_d || D % 8 != 0;
 }
 
 }  // namespace
@@ -368,15 +426,35 @@ extern "C" int flash_attn_fwd_bf16(const void* q, const void* k, const void* v,
                                    int D, int causal, int f32_out,
                                    float scale_log2, int device,
                                    void* stream) {
-  if (B <= 0 || H <= 0 || T <= 0 || H > 65535 || B > 65535 || D <= 0 ||
-      D > 256 || D % 8 != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (bad_shape(B, H, T, D, 256)) return static_cast<int>(cudaErrorInvalidValue);
   DeviceGuard guard(device);
   if (guard.error()) return guard.error();
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return f32_out ? launch_c<float>(q, k, v, o, lse, B, H, T, D, causal,
-                                   scale_log2, s)
-                 : launch_c<uint16_t>(q, k, v, o, lse, B, H, T, D, causal,
-                                      scale_log2, s);
+  return f32_out ? launch_c<float, 1>(q, k, v, o, lse, B, H, T, D, causal,
+                                      scale_log2, s)
+                 : launch_c<uint16_t, 1>(q, k, v, o, lse, B, H, T, D, causal,
+                                         scale_log2, s);
+}
+
+// The same for f32 q, k, v and o, D a multiple of 8 up to 128; parts:
+// scratch of [3, 2, B, H, T, D] bf16 (6 x 2 bytes an element of q), which
+// the pre-pass fills with the hi and lo parts of q, k and v before the
+// kernel reads them. Two launches on `stream`.
+extern "C" int flash_attn_fwd_f32(const void* q, const void* k, const void* v,
+                                  void* o, void* lse, void* parts, int B,
+                                  int H, int T, int D, int causal,
+                                  float scale_log2, int device, void* stream) {
+  if (bad_shape(B, H, T, D, 128)) return static_cast<int>(cudaErrorInvalidValue);
+  DeviceGuard guard(device);
+  if (guard.error()) return guard.error();
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t n = static_cast<int64_t>(B) * H * T * D;
+  uint16_t* p = static_cast<uint16_t*>(parts);
+  const void* src[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    const int err = split_parts(src[i], p + 2 * i * n, n, s);
+    if (err != 0) return err;
+  }
+  return launch_c<float, 2>(p, p + 2 * n, p + 4 * n, o, lse, B, H, T, D,
+                            causal, scale_log2, s);
 }

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the attention kernels, as
 // inline PTX: TMA tile loads into swizzled shared memory, mbarrier
 // pipelines between a producer warp and consumer warpgroups,
-// `wgmma.mma_async` bf16 -> f32 with shared-memory descriptors, and
-// `setmaxnreg`. `wgmma` and `setmaxnreg` exist only for sm_90a
-// (kernels/build.py compiles with `-gencode arch=compute_90a,code=sm_90a`).
+// `wgmma.mma_async` bf16 -> f32 with shared-memory descriptors,
+// `setmaxnreg`, and the split of f32 operands into bf16 parts. `wgmma`
+// and `setmaxnreg` exist only for sm_90a (kernels/build.py compiles with
+// `-gencode arch=compute_90a,code=sm_90a`).
 //
 // Tiles. Every operand tile is a [rows, W] slice of a contiguous
 // [B*H, T, D] bf16 tensor, copied by TMA through a 3-D tensor map
@@ -37,6 +38,17 @@
 // column 8i + 2c + (e%2). That is also the layout of the A fragments of
 // a register-sourced (RS) product: k-slice kk of an accumulator is
 // entries 8kk..8kk+7, packed as pairs (acc_to_a / acc_to_a_split).
+//
+// f32 operands. The tensor cores take `.tf32` operands only K-major,
+// and the kernels read V, dO, Q and K as MN-major B operands, which only
+// `.bf16`/`.f16` allow. So an f32 tensor enters as two bf16 tensors, its
+// parts (split_parts): hi, its rounding to bf16, and lo, the rounding of
+// what hi left out; hi + lo carries ~16 significant bits. The parts lie
+// one after the other, [2, heads, T, D], so one tensor map of 2 * heads
+// heads reads both: part p of head h is head h + p * heads. A product of
+// two such operands is three bf16 products summed in the f32
+// accumulator, hi.hi + hi.lo + lo.hi (Terms), dropping lo.lo, ~2^-16 of
+// the product; every layout and wgmma instance stays as it is for bf16.
 #pragma once
 
 #include <cuda.h>
@@ -393,6 +405,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// Two f32 values (x0 in the low half) in two parts: `hi`, the values
+// rounded to bf16, and `lo`, the bf16 rounding of what `hi` left out.
+__device__ __forceinline__ void split_pair(uint32_t* hi, uint32_t* lo,
+                                           float x0, float x1) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  *hi = *reinterpret_cast<const uint32_t*>(&h);
+  *lo = pack_bf16(x0 - hf.x, x1 - hf.y);
+}
+
 // Two adjacent output values stored at p: rounded once to bf16 (a
 // uint16_t output holds bf16 bits) or kept in f32 (a float output, which
 // the ring sums before it rounds).
@@ -417,12 +439,55 @@ __device__ __forceinline__ void acc_to_a(uint32_t* a, const float* c) {
 __device__ __forceinline__ void acc_to_a_split(uint32_t* hi, uint32_t* lo,
                                                const float* c) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(c[2 * i], c[2 * i + 1]);
-    const float2 hf = __bfloat1622float2(h);
-    hi[i] = *reinterpret_cast<const uint32_t*>(&h);
-    lo[i] = pack_bf16(c[2 * i] - hf.x, c[2 * i + 1] - hf.y);
+  for (int i = 0; i < 4; ++i) split_pair(hi + i, lo + i, c[2 * i], c[2 * i + 1]);
+}
+
+// The bf16 products that make up one product A B whose A comes in kA
+// parts and B in kB (1: bf16; 2: hi, lo): every pair of parts but lo.lo,
+// in the order (0, 0), (0, 1), (1, 0). Product t takes part a(t) of A
+// and part b(t) of B.
+template <int kA, int kB>
+struct Terms {
+  static constexpr int kN = kA * kB - (kA == 2 && kB == 2);
+  static constexpr __host__ __device__ int a(int t) { return t / kB; }
+  static constexpr __host__ __device__ int b(int t) { return t % kB; }
+};
+
+// ---- f32 operands: the split into parts ---------------------------------
+
+constexpr int kSplitThreads = 256;
+
+// x: n f32 values (n a multiple of 4, 16-byte aligned) -> parts: n bf16
+// values of hi, then n of lo.
+__global__ void __launch_bounds__(kSplitThreads)
+split_parts_kernel(const float4* __restrict__ x, uint2* __restrict__ hi,
+                   uint2* __restrict__ lo, int64_t n4) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kSplitThreads;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kSplitThreads +
+                   threadIdx.x;
+       i < n4; i += stride) {
+    const float4 v = x[i];
+    uint2 h, l;
+    split_pair(&h.x, &l.x, v.x, v.y);
+    split_pair(&h.y, &l.y, v.z, v.w);
+    hi[i] = h;
+    lo[i] = l;
   }
+}
+
+// The parts of the n f32 values at x (n a multiple of 4) into `parts`
+// ([2, n] bf16), on `stream`. Returns a CUDA error code.
+inline int split_parts(const void* x, void* parts, int64_t n,
+                       cudaStream_t stream) {
+  const int64_t n4 = n / 4;
+  // A grid-stride loop over at most 16 blocks an SM of an H100.
+  const int64_t blocks = (n4 + kSplitThreads - 1) / kSplitThreads;
+  auto* out = static_cast<uint2*>(parts);
+  split_parts_kernel<<<static_cast<unsigned>(blocks < 132 * 16 ? blocks
+                                                               : 132 * 16),
+                       kSplitThreads, 0, stream>>>(
+      static_cast<const float4*>(x), out, out + n4, n4);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---- host: tensor maps -----------------------------------------------

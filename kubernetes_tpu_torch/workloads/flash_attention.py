@@ -17,12 +17,21 @@ their instances that write the output (or the gradients) in f32: the ring
 (:mod:`.ring_attention`) runs both, non-causal on a block of keys wholly
 before its queries, and sums its blocks in f32 before it rounds.
 
-Head dims: the kernels take any head dim up to :data:`MAX_HEAD_DIM`. A
-multiple of 8 launches as it is (the smallest of their tile widths 16,
-32, 64, 128, 256 that holds it runs, its extra columns zeros that TMA
-fills in); any other is copied into a zero-padded ``[B, H, T,
-ceil8(D)]`` buffer first, the result sliced back to D, with
-``1/sqrt(D)`` of the true D. A head dim over 256 raises ``ValueError``.
+Dtypes: q, k, v (and o, dO) all bf16 or all f32; any other dtype, or
+two dtypes, raise ``TypeError``. bf16 takes the ``*_bf16`` entry points;
+f32 the ``*_f32`` ones, whose pre-pass splits each operand into two
+bf16 parts that the kernels multiply three times (hi.hi + hi.lo +
+lo.hi, ``csrc/hopper.cuh``), so the products keep ~16 significant bits
+where one-pass TF32 keeps ~11; their outputs are f32. The pre-pass
+writes the parts into scratch that the wrapper allocates.
+
+Head dims: the bf16 kernels take any head dim up to :data:`MAX_HEAD_DIM`,
+the f32 ones up to :data:`MAX_F32_HEAD_DIM`. A multiple of 8 launches as
+it is (the smallest of their tile widths 16, 32, 64, 128, 256 that holds
+it runs, its extra columns zeros that TMA fills in); any other is copied
+into a zero-padded ``[B, H, T, ceil8(D)]`` buffer first, the result
+sliced back to D, with ``1/sqrt(D)`` of the true D. A wider head dim
+raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -45,25 +54,55 @@ bwd_launches = 0
 #: backward: the ring's blocks before their queries.
 non_causal_launches = 0
 non_causal_bwd_launches = 0
+#: Of all four, the launches on f32 q, k, v: the f32 instances.
+f32_launches = 0
+f32_bwd_launches = 0
+f32_non_causal_launches = 0
+f32_non_causal_bwd_launches = 0
 
 
 def counts() -> dict:
-    """The launches so far by kernel instance: causal and non-causal
-    apart, forward and backward."""
-    return {"flash_attn_fwd": launches - non_causal_launches,
-            "flash_attn_bwd": bwd_launches - non_causal_bwd_launches,
-            "flash_attn_fwd_non_causal": non_causal_launches,
-            "flash_attn_bwd_non_causal": non_causal_bwd_launches}
+    """The launches so far by kernel instance: bf16 and f32, causal and
+    non-causal apart, forward and backward."""
+    f32 = f32_launches - f32_non_causal_launches
+    f32_bwd = f32_bwd_launches - f32_non_causal_bwd_launches
+    return {"flash_attn_fwd": launches - non_causal_launches - f32,
+            "flash_attn_bwd": bwd_launches - non_causal_bwd_launches - f32_bwd,
+            "flash_attn_fwd_non_causal":
+                non_causal_launches - f32_non_causal_launches,
+            "flash_attn_bwd_non_causal":
+                non_causal_bwd_launches - f32_non_causal_bwd_launches,
+            "flash_attn_fwd_f32": f32, "flash_attn_bwd_f32": f32_bwd,
+            "flash_attn_fwd_f32_non_causal": f32_non_causal_launches,
+            "flash_attn_bwd_f32_non_causal": f32_non_causal_bwd_launches}
+
+
+def zero_counts() -> None:
+    """Every launch counter to 0."""
+    global launches, bwd_launches, non_causal_launches, \
+        non_causal_bwd_launches, f32_launches, f32_bwd_launches, \
+        f32_non_causal_launches, f32_non_causal_bwd_launches
+    launches = bwd_launches = non_causal_launches = 0
+    non_causal_bwd_launches = f32_launches = f32_bwd_launches = 0
+    f32_non_causal_launches = f32_non_causal_bwd_launches = 0
 
 #: The widest head dim the kernels take: their widest tile (GPT-J-6B's
 #: 256). From 1 (the trainer's default LM has 16) to this one, every
 #: head dim launches them.
 MAX_HEAD_DIM = 256
+#: The widest head dim of the f32 instances: an f32 operand's two bf16
+#: parts take twice a bf16 tile's bytes, so their widest tile, 128, fills
+#: the shared memory of the bf16 tile of 256. Wider f32 heads need the
+#: head dim split across tiles (ROADMAP queue 1 item 3).
+MAX_F32_HEAD_DIM = 128
+#: The dtypes the kernels take, and each one's widest head dim.
+_MAX_D = {torch.bfloat16: MAX_HEAD_DIM, torch.float32: MAX_F32_HEAD_DIM}
 
 
-def takes_head_dim(d: int) -> bool:
-    """Whether the kernels take head dim ``d``: 1 to :data:`MAX_HEAD_DIM`."""
-    return 0 < d <= MAX_HEAD_DIM
+def takes_head_dim(d: int, dtype=torch.bfloat16) -> bool:
+    """Whether the kernels take head dim ``d`` in ``dtype``: 1 to
+    :data:`MAX_HEAD_DIM` in bf16, 1 to :data:`MAX_F32_HEAD_DIM` in f32."""
+    return 0 < d <= _MAX_D.get(dtype, 0)
 
 
 def _padded(d: int) -> int:
@@ -85,21 +124,34 @@ _BWD = build.Kernel(
     "flash_attn_bwd", "flash_attn_bwd_bf16",
     (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 6
     + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
+_FWD32 = build.Kernel(
+    "flash_attn_fwd", "flash_attn_fwd_f32",
+    (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 5
+    + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
+_BWD32 = build.Kernel(
+    "flash_attn_bwd", "flash_attn_bwd_f32",
+    (ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 5
+    + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
 
 
 def _check_kernel_inputs(what: str, **tensors) -> None:
-    """The checks every kernel wrapper makes on its bf16 [B, H, T, D]
-    inputs before a launch: dtype, head dim, contiguity, alignment and
-    grid limits. Raises on what the kernels do not take."""
-    for x in tensors.values():
-        if x.dtype is not torch.bfloat16:
-            bad = {n: t.dtype for n, t in tensors.items()
-                   if t.dtype is not torch.bfloat16}
-            raise TypeError(f"{what} kernel takes bfloat16, got {bad}")
+    """The checks every kernel wrapper makes on its [B, H, T, D] inputs
+    before a launch: one dtype, bf16 or f32; the head dim; contiguity,
+    alignment and grid limits. Raises on what the kernels do not take."""
+    dtype = next(iter(tensors.values())).dtype
+    if dtype not in _MAX_D or any(x.dtype is not dtype
+                                  for x in tensors.values()):
+        got = {n: t.dtype for n, t in tensors.items()}
+        raise TypeError(f"{what} kernel takes bfloat16 or float32, one "
+                        f"dtype for all, got {got}")
     b, h, _, d = next(iter(tensors.values())).shape
-    if not takes_head_dim(d):
-        raise ValueError(f"{what} kernel takes head dim 1 to {MAX_HEAD_DIM}, "
-                         f"not {d}")
+    if not takes_head_dim(d, dtype):
+        wider = (" (f32 head dims over 128 need the head dim split across "
+                 "tiles: ROADMAP queue 1 item 3)"
+                 if dtype is torch.float32 and d > 0 else "")
+        raise ValueError(f"{what} kernel takes head dim 1 to {_MAX_D[dtype]}"
+                         f"{' in float32' if dtype is torch.float32 else ''}"
+                         f", not {d}{wider}")
     for name, x in tensors.items():
         if not x.is_contiguous():
             raise ValueError(f"{what} kernel takes contiguous tensors; "
@@ -148,8 +200,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Returns ``(o, lse)``: ``o`` [B, H, T, D] in ``out_dtype`` (default
     ``q.dtype``; or f32, unrounded) and the natural-log row sums of the
     scaled scores, ``lse`` [B, H, T] f32. CUDA tensors launch the kernel
-    (bf16, contiguous, D up to :data:`MAX_HEAD_DIM`; one not a multiple
-    of 8 through a zero-padded copy); CPU tensors take
+    (contiguous, bf16 with D up to :data:`MAX_HEAD_DIM` or f32 with D up
+    to :data:`MAX_F32_HEAD_DIM`; a D not a multiple of 8 through a
+    zero-padded copy); CPU tensors take
     :func:`~.ring_attention.reference_attention_with_lse`."""
     out_dtype = _out_dtype(q, out_dtype)
     if _check_shapes(q=q, k=k, v=v).type == "cpu":
@@ -172,15 +225,28 @@ def _kernel_fwd(q, k, v, causal: bool, out_dtype):
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     scale_log2 = (1.0 / math.sqrt(d)) * math.log2(math.e)
     device = q.get_device()
-    rc = _FWD.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                     lse.data_ptr(), b, h, t, w, int(causal),
-                     int(out_dtype == torch.float32), scale_log2, device,
-                     build.current_stream(device))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr())
+    f32 = q.dtype is torch.float32
+    if f32:
+        # The hi and lo bf16 parts of q, k and v, which the pre-pass writes.
+        parts = torch.empty((3, 2) + q.shape, dtype=torch.bfloat16,
+                            device=q.device)
+        kernel, args = _FWD32, (*ptrs, parts.data_ptr(), b, h, t, w,
+                                int(causal))
+    else:
+        kernel, args = _FWD, (*ptrs, b, h, t, w, int(causal),
+                              int(out_dtype == torch.float32))
+    rc = kernel.launch(*args, scale_log2, device,
+                       build.current_stream(device))
     if rc:
-        raise _FWD.error(rc)
-    global launches, non_causal_launches
+        raise kernel.error(rc)
+    global launches, non_causal_launches, f32_launches, \
+        f32_non_causal_launches
     launches += 1
     non_causal_launches += not causal
+    f32_launches += f32
+    f32_non_causal_launches += f32 and not causal
     return (o if w == d else o[..., :d].contiguous()), lse
 
 
@@ -220,8 +286,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
     ``o`` and ``lse`` and the output gradient ``do``, all [B, H, T, D]
     but ``lse`` [B, H, T] f32; the gradients in ``out_dtype`` (default
     ``q.dtype``; or f32, unrounded). CUDA tensors launch the kernel
-    (bf16, contiguous, D up to :data:`MAX_HEAD_DIM`; one not a multiple
-    of 8 through zero-padded copies); CPU tensors take
+    (contiguous, all bf16 with D up to :data:`MAX_HEAD_DIM` or all f32
+    with D up to :data:`MAX_F32_HEAD_DIM`; a D not a multiple of 8
+    through zero-padded copies); CPU tensors take
     :func:`flash_attention_bwd_plain`."""
     out_dtype = _out_dtype(q, out_dtype)
     dev = _check_shapes(q=q, k=k, v=v, o=o, do=do)
@@ -250,16 +317,30 @@ def _kernel_bwd(q, k, v, o, lse, do, causal: bool, out_dtype):
     dq, dk, dv = (torch.empty_like(q, dtype=out_dtype) for _ in range(3))
     delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     device = q.get_device()
-    rc = _BWD.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                     do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                     dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, t, w,
-                     int(causal), int(out_dtype == torch.float32),
-                     1.0 / math.sqrt(d), device, build.current_stream(device))
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+           do.data_ptr(), lse.data_ptr(), delta.data_ptr())
+    outs = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    f32 = q.dtype is torch.float32
+    if f32:
+        # The hi and lo bf16 parts of q, k, v and do, which the pre-pass
+        # writes.
+        parts = torch.empty((4, 2) + q.shape, dtype=torch.bfloat16,
+                            device=q.device)
+        kernel, args = _BWD32, (*ins, parts.data_ptr(), *outs, b, h, t, w,
+                                int(causal))
+    else:
+        kernel, args = _BWD, (*ins, *outs, b, h, t, w, int(causal),
+                              int(out_dtype == torch.float32))
+    rc = kernel.launch(*args, 1.0 / math.sqrt(d), device,
+                       build.current_stream(device))
     if rc:
-        raise _BWD.error(rc)
-    global bwd_launches, non_causal_bwd_launches
+        raise kernel.error(rc)
+    global bwd_launches, non_causal_bwd_launches, f32_bwd_launches, \
+        f32_non_causal_bwd_launches
     bwd_launches += 1
     non_causal_bwd_launches += not causal
+    f32_bwd_launches += f32
+    f32_non_causal_bwd_launches += f32 and not causal
     if w == d:
         return dq, dk, dv
     return tuple(g[..., :d].contiguous() for g in (dq, dk, dv))

@@ -687,8 +687,9 @@ def make_train_step(cfg: LMConfig, lr: float = 3e-3, device=None,
     or a ``mesh`` (``batch`` is the global batch; params, master and AdamW
     state this rank's blocks) the loss and gradients are those of the
     whole batch (:func:`loss_and_grads`) before AdamW. ``attention`` as
-    in :func:`hidden_states` (the kernels take bf16 alone: an f32 step
-    on a mesh passes ``ring_attention.gathered_attention``)."""
+    in :func:`hidden_states`. The kernels take bf16 and f32 q, k, v
+    (f32 up to head dim 128), so an f32 step (``compute_dtype=
+    torch.float32``) runs through them by default too."""
     dev = resolve_device(device)
     opt = make_optimizer(lr)
     _one_of(group, mesh)

@@ -566,8 +566,9 @@ def make_train_step(cfg: MoEConfig, mesh=None, lr: float = 3e-3,
     ``device`` (default ``cuda``): forward, loss, backward and AdamW (the
     reference's ``make_optimizer``) over this rank's params, updated in
     place where the reference donates them. ``batch`` is the global
-    batch; ``attention`` as in :func:`hidden_states` (the kernels take
-    bf16 alone: an f32 step passes a plain attention)."""
+    batch; ``attention`` as in :func:`hidden_states`. The kernels take
+    bf16 and f32 q, k, v (f32 up to head dim 128), so an f32 step
+    (``compute_dtype=torch.float32``) runs through them by default too."""
     dev = resolve_device(device)
     opt = make_optimizer(lr)
     _check_mesh(cfg, mesh)

@@ -16,7 +16,9 @@ which is one of three things to its queries:
 Every block gives ``(o_j, lse_j)``, ``o_j`` in f32 (the kernels'
 f32-output instances); the blocks merge in f32 (``lse = logsumexp_j
 lse_j``, ``o = sum_j exp(lse_j - lse) o_j``) and the output is cast once
-to ``q.dtype``. The backward runs the ring again, one
+to ``q.dtype``. f32 q, k, v (an LM or MoE at ``compute_dtype`` f32) take
+the kernels' f32 instances, causal and non-causal alike, and the same
+f32 merge and sums. The backward runs the ring again, one
 backward launch per block with the merged ``o`` and ``lse``, so that the
 kernel's ``P`` is the global softmax restricted to the block and its
 ``delta`` the global one; dQ accumulates on its rank, dK and dV travel
@@ -299,8 +301,9 @@ def gathered_attention(q, k, v, ring: Ring | None) -> torch.Tensor:
     rank's [B, H, Tl, D] queries over the whole ring's keys, K and V
     all-gathered over the ring's group (their gradients reduce-scattered
     back, ``collectives.gather``), f32 softmax, the output in
-    ``q.dtype``; :func:`reference_attention` without a ring. The kernels
-    take bf16 alone: this is the attention of an f32 step on a mesh."""
+    ``q.dtype``; :func:`reference_attention` without a ring. The mesh
+    runs' f32 witness steps through it, beside their f32 steps through
+    the ring itself."""
     if ring is None:
         return reference_attention(q, k, v)
     from torch import distributed as dist

@@ -57,12 +57,23 @@ NCCL against two gloo ranks on the CPU.
 Two tests capture a launch in a CUDA graph and replay it after changing
 the inputs in place: they show that the wrappers launch on PyTorch's
 current stream, which the capture makes a side stream.
+
+The f32 instances (f32 q, k, v, o, dO; head dims up to 128), forward and
+backward, causal and not, at every tile width and at head dims between
+(24, 48, 96; 100 through the padded copy), T at the tile edges and 2048:
+each output's largest deviation from a float64 plain version at most
+1/16 of the bf16 instance's (f32 out) on the bf16 rounding of the same
+inputs; f32 over head dim 128 raises ``ValueError``, f16 and f64
+``TypeError``. The f32 LM (params and compute) through the ring at sp =
+1 and through "flash" within 1e-4 of plain f32 attention on logits and
+loss, counted on the f32 instances.
 """
 import dataclasses
 
 import pytest
 import torch
 
+from kubernetes_tpu_torch.perf import gates
 from kubernetes_tpu_torch.workloads import flash_attention as fa
 from kubernetes_tpu_torch.workloads import lm
 from kubernetes_tpu_torch.workloads import ring_attention as ra
@@ -248,8 +259,11 @@ def test_flash_kernel_matches_plain(gen, shape):
 
 def test_flash_kernel_rejects_what_it_does_not_take(gen):
     q = torch.zeros((1, 1, 8, 32), device="cuda", dtype=torch.bfloat16)
+    for dtype in (torch.float64, torch.float16):
+        with pytest.raises(TypeError):
+            fa.flash_attention_fwd(q.to(dtype), q.to(dtype), q.to(dtype))
     with pytest.raises(TypeError):
-        fa.flash_attention_fwd(q.float(), q.float(), q.float())
+        fa.flash_attention_fwd(q.float(), q, q)
     bad_d = torch.zeros((1, 1, 8, 264), device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim 1 to 256, not 264"):
         fa.flash_attention_fwd(bad_d, bad_d, bad_d)
@@ -308,6 +322,10 @@ def test_flash_bwd_kernel_rejects_what_it_does_not_take(gen):
     q, k, v, o, lse, do = _bwd_inputs(gen, (1, 2, 8, 32))
     with pytest.raises(TypeError):
         fa.flash_attention_bwd(q, k, v, o, lse, do.float())
+    for dtype in (torch.float64, torch.float16):
+        with pytest.raises(TypeError):
+            fa.flash_attention_bwd(*(x.to(dtype) for x in (q, k, v, o)), lse,
+                                   do.to(dtype))
     bad_d = torch.zeros((1, 1, 8, 264), device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim 1 to 256, not 264"):
         fa.flash_attention_bwd(bad_d, bad_d, bad_d, bad_d,
@@ -684,3 +702,80 @@ def test_fsdp_gather_and_tp_pair_over_nccl_match_gloo(tmp_path):
         for key in ("w_grad", "x_grad"):
             torch.testing.assert_close(got[key], want[key], atol=1e-6,
                                        rtol=1e-6, msg=f"{key} rank {rank}")
+
+
+# -- The f32 instances. --
+
+#: f32 shapes: every tile width and head dims between (100 through the
+#: padded copy), T at the tile and TMA edges, a batch of heads, and the
+#: 600M LM's t2k attention.
+F32_SHAPES = ([(1, 2, t, d) for d in (16, 24, 32, 48, 64, 96, 100, 128)
+               for t in (1, 127, 129, 257)]
+              + [(2, 4, 1000, 64), (1, 2, 2048, 128), (4, 16, 2048, 128)])
+
+
+def _run(q, k, v, do, causal, out_dtype=None):
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, out_dtype)
+    grads = fa.flash_attention_bwd(q, k, v, o.to(q.dtype), lse, do, causal,
+                                   out_dtype)
+    return {"o": o, "lse": lse, **dict(zip(("dq", "dk", "dv"), grads))}
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", F32_SHAPES)
+def test_f32_kernels_within_a_sixteenth_of_bf16(gen, shape, causal):
+    """The f32 instances, counted, outputs f32 of the input's shape, each
+    output's deviation from float64 at most 1/16 of the bf16 instance's
+    on the bf16 rounding of the same inputs; at T = 1, where dq and dk
+    are 0 in exact arithmetic, those two within 1e-5."""
+    x32 = [torch.randn(shape, generator=gen, device="cuda") for _ in range(4)]
+    before = fa.counts()
+    got = _run(*x32, causal)
+    suffix = "" if causal else "_non_causal"
+    assert {n: c - before[n] for n, c in fa.counts().items()} == {
+        **dict.fromkeys(before, 0), f"flash_attn_fwd_f32{suffix}": 1,
+        f"flash_attn_bwd_f32{suffix}": 1}
+    bf16 = _run(*(x.to(torch.bfloat16) for x in x32), causal, torch.float32)
+    for name, want in gates.plain64(*x32, causal).items():
+        g = got[name]
+        assert g.dtype == torch.float32 and g.shape == want.shape, name
+        assert bool(torch.isfinite(g).all()), name
+        dev = float((g.double() - want).abs().max())
+        if shape[2] == 1 and name in ("dq", "dk"):
+            assert dev <= 1e-5, name
+            continue
+        ref = float((bf16[name].double() - want).abs().max())
+        assert dev <= gates.F32_RULE * ref, (name, dev, ref)
+
+
+def test_f32_kernels_refuse_a_head_dim_over_128(gen):
+    wide = torch.zeros((1, 2, 8, 136), device="cuda")
+    before = fa.counts()
+    with pytest.raises(ValueError, match="head dim 1 to 128 in float32"):
+        fa.flash_attention_fwd(wide, wide, wide)
+    with pytest.raises(ValueError, match="head dim 1 to 128 in float32"):
+        fa.flash_attention_bwd(wide, wide, wide, wide,
+                               torch.zeros((1, 2, 8), device="cuda"), wide)
+    assert fa.counts() == before
+
+
+@pytest.mark.parametrize("attn", ["ring", "flash"])
+def test_lm_f32_through_the_kernels_matches_local(gen, attn):
+    """The LM in f32 (params and compute, head dim 64) through the f32
+    instances, counted, against plain f32 attention: logits and loss
+    within 1e-4."""
+    cfg = lm.LMConfig(vocab=128, d_model=128, n_layers=2, n_heads=2,
+                      d_ff=256, param_dtype=torch.float32,
+                      compute_dtype=torch.float32, attn_impl=attn)
+    params = lm.init_params(torch.Generator("cuda").manual_seed(0), cfg)
+    batch = lm.synthetic_batch(torch.Generator("cuda").manual_seed(1), cfg,
+                               2, 257)
+    local = dataclasses.replace(cfg, attn_impl="local")
+    before = fa.counts()["flash_attn_fwd_f32"]
+    logits = lm.make_forward(cfg)(params, batch[:, :-1])
+    assert fa.counts()["flash_attn_fwd_f32"] == before + cfg.n_layers
+    want = lm.make_forward(local)(params, batch[:, :-1])
+    torch.testing.assert_close(logits, want, atol=1e-4, rtol=0)
+    loss, _ = lm.loss_and_grads(params, batch, cfg)
+    want_loss, _ = lm.loss_and_grads(params, batch, local)
+    assert abs(float(loss) - float(want_loss)) <= 1e-4 * abs(float(want_loss))
