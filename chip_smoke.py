@@ -50,18 +50,22 @@ run after the kernels line, so the phases after it still run):
    head_dims: every instance (causal or not, bf16 or f32 out), forward
    and backward, at head dims that are no tile's width (8, 24, 25, 40,
    48, 80, 96, 112, 136, 144, 200, 250; 25 and 250 through the padded
-   copy) and at the W-256 tile's 256, T 1, 127, 129, 257, under the same
-   tolerances and drift gate, each launch counted; head dim 264 raises;
-   the padded copy of D 25 timed against D 32; then Phi-3-mini's
-   attention (B4 H32 T2048 D96, causal) and GPT-J-6B's (B4 H16 T2048
-   D256, causal) gated and timed beside SDPA, the bounds at the true
-   head dim;
+   copy), at the W-256 tile's 256 and over it (264, 272, 384, 512: the
+   wide kernels of ``csrc/flash_attn_wide.cu``), T 1, 127, 129, 257,
+   under the same tolerances and drift gate, each launch counted; the
+   wide kernels' f32 instances at head dims 136, 200, 256 and T 127,
+   1000 under the f32 rule of attn_f32; f64, f16 and mixed dtypes at
+   head dim 272 raise ``TypeError``; the padded copy of D 25 timed
+   against D 32; then Phi-3-mini's attention (B4 H32 T2048 D96,
+   causal), GPT-J-6B's (B4 H16 T2048 D256, causal) and the wide
+   kernels' (B4 H16 T2048 at D272 in bf16 and D256 in f32, causal)
+   gated and timed beside SDPA, the bounds at the true head dim;
    attn_f32: the f32 instances (q, k, v, dO in f32), forward and
    backward, causal and not, at head dims 16, 24, 48, 96, 128 and T 127,
-   1000, each output against an f64 plain version within 1/16 of the
+   1000, each output against an f64 plain version within 1/256 of the
    bf16 instance's deviation on the bf16 rounding of the same inputs,
-   each launch counted; head dim 136 in f32 raises ``ValueError``, f64,
-   f16 and mixed dtypes ``TypeError``; then the 600M LM's attention in
+   each launch counted; f64, f16 and mixed dtypes raise ``TypeError``;
+   then the 600M LM's attention in
    f32 (B4 H16 T2048 D128, causal) and its t8k ring block (B1 H16 T4096,
    non-causal) gated the same way and timed beside SDPA with TF32 off,
    bound at the TF32 tensor rate;
@@ -73,8 +77,10 @@ run after the kernels line, so the phases after it still run):
    against f32 attention of the whole sequence; the whole ring's time
    and each rank's share;
    ring_loopback_f32: the same t8k attention in f32 at sp = 2 and 4
-   through the f32 instances, counted, each output against f64 attention
-   of the whole sequence within 1/16 of the bf16 ring's deviation;
+   through the f32 instances, and at head dim 256 at sp = 2 through the
+   wide kernels' f32 instances, counted, each output against f64
+   attention of the whole sequence within 1/256 of the bf16 ring's
+   deviation;
 7. entry: the tiny entry-point forward (the reference's default
    attention, the ring, at sp = 1) on the card against the CPU;
    mnist: the MNIST payload (plain PyTorch ops) on the card, 40 Adam
@@ -84,9 +90,10 @@ run after the kernels line, so the phases after it still run):
    cards or more, on the first three (head dim 48; each rank a process
    over NCCL): one dense step over ``default_axis_sizes(n)`` and one MoE
    step, every rank counted, the losses finite, positive and the same on
-   every rank; dryrun_odd: the dense configs of 3, 6, 9 and 15 devices
-   (head dims 48, 24, 144 and 240) at a 1-device layout on the card, one
-   counted step each within 1e-3 of the CPU's;
+   every rank; dryrun_odd: the dense configs of 3, 6, 9, 15 and 17
+   devices (head dims 48, 24, 144, 240 and 272, the last on the wide
+   kernels) at a 1-device layout on the card, one counted step each
+   within 1e-3 of the CPU's;
 8. main path (serving): the payload ``smoke_test`` and the 600M-config
    LM forward (d_model 2048, 8 layers, 16 heads of 128, d_ff 8192, vocab
    32768, bf16 params, random weights from a seed) at the t2k and t8k
@@ -103,8 +110,8 @@ run after the kernels line, so the phases after it still run):
    kernel path against an f32 plain-attention step, no further from it
    than the plain bf16 step's gradients are; then the f32 kernel path
    (f32 params and compute, the ring at sp = 1): its logits and every
-   gradient within 1/16 of the bf16 kernel path's largest deviation from
-   that f32 step;
+   gradient within 1/256 of the bf16 kernel path's largest deviation
+   from that f32 step;
 11. train_loop: ``lm.train`` on the card at the entry config with
    checkpoints every 2 steps, 4 steps then a resume to 6, the marker and
    the metrics report;
@@ -130,6 +137,12 @@ run after the kernels line, so the phases after it still run):
    heads of 256, d_ff 16384, vocab 50400) in the reference LM's block:
    the forward at 28 layers, the gradients and 3 train steps at 6 (the
    depth cut), on the kernels' W-256 instances;
+   gptj_f32: the same widths in f32 params and compute (TF32 off), head
+   dim 256 on the wide kernels' f32 instances: the forward at 28 layers,
+   counted (one wide f32 launch a layer), its loss within 1e-4 of plain
+   f32 attention's; 3 train steps at 6 layers, counted, under
+   ``f32_steps_rule`` against plain f32 and f64 attention; forward and
+   step ms, tokens/s, MFU against the bf16 peak, peak memory;
 12. trainer (the TrainJob worker payload): ``trainer.main()`` in this
    process as a one-rank gang, ``MODEL=lm`` at the 600M width and depth
    (f32 params, as the reference trainer's), B4 T2048, 3 steps, every
@@ -173,8 +186,11 @@ run after the kernels line, so the phases after it still run):
    further from one card's f32 step than twice the larger distance from
    it of one card's two bf16 paths (the flash kernels, plain attention);
    beside the gate, the mesh's f32 steps through the real ring (the f32
-   instances), counted, within 1e-4 of one card's f32 steps at every
-   step and within ``f32_steps_rule`` (lm_f32's rule); step ms,
+   instances), counted, within 2e-5 of one card's f32 steps through the
+   kernels at steps 1 and 2 (the same attention arithmetic, so the
+   reading sees the layout alone) and at every step within
+   ``f32_steps_rule`` (lm_f32's rule) against one card's plain f32 and
+   f64 steps; step ms,
    tokens/s, MFU and peak memory per card; each rank's attention time
    and one K/V rotation's, and how much of the rotations the kernels
    hide. With one card, a line that says it was
@@ -202,9 +218,13 @@ run after the kernels line, so the phases after it still run):
    memory;
    moe_f32: ``MoEConfig()`` in f32 compute (head dim 32) at B4 T512: the
    forward counted (one f32 launch a layer), each layer's output and
-   attention through the f32 instances within 1/16 of the bf16 kernel
+   attention through the f32 instances within 1/256 of the bf16 kernel
    path's deviation from plain f32 attention (the layer gate), the loss
    and one counted step's loss within 1e-4 of plain f32 attention's;
+   then the 600M-width MoE (head dim 128) in f32 at B4 T2048, 3 train
+   steps through the kernels, counted, against the same steps with
+   plain f32 and f64 attention: within ``f32_steps_rule`` and within
+   1e-4 of plain f32 at every step;
    moe_ep: with two cards or more, that MoE expert-parallel over NCCL,
    one rank process per card: ep = 2 at full depth; with four cards also
    ep = 2 x sp = 2, dp = 2 x ep = 2 and ep = 2 x tp = 2 at 2 layers.
@@ -214,8 +234,11 @@ run after the kernels line, so the phases after it still run):
    time per layer and the f32 steps' seconds. With one card, a line that
    says it was not run;
 17. vector_add_device_us: ``device_us`` of K1 and of ``torch.add`` at
-   the timed cases, from ``torch.profiler`` (CUPTI) kernel events; last,
-   so that nothing is timed after the profiler ran;
+   the timed cases, from ``torch.profiler`` (CUPTI) kernel events; then
+   f32_passes_device_us: the same events' mean time of each kernel that
+   the f32 forward and backward launch at B4 H16 T2048 D128 causal, the
+   operands' pre-pass apart from the attention kernels; last, so that
+   nothing is timed after the profiler ran;
 18. a ``kernels`` line, then the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -252,8 +275,9 @@ from kubernetes_tpu_torch.deviceplugin import gpu_plugin
 from kubernetes_tpu_torch.kernels import build
 from kubernetes_tpu_torch.node import runtimehook
 from kubernetes_tpu_torch.perf import chip_bench
-from kubernetes_tpu_torch.perf.gates import (F32_RULE, attention_f64,
-                                             attention_tf32, drift, f32_rule,
+from kubernetes_tpu_torch.perf.gates import (F32_LOSS_RTOL, F32_RULE,
+                                             attention_f64, attention_tf32,
+                                             drift, f32_rule, f32_steps_rule,
                                              moe_layer_gate, plain64)
 from kubernetes_tpu_torch.perf.launch_cost import host_us
 from kubernetes_tpu_torch.entry import (dryrun_config, dryrun_inputs,
@@ -312,14 +336,27 @@ CAUSAL_F32_SHAPE = RING_TIMED_SHAPES[0]
 LOOPBACK_SHAPE = (1, 16, 8192, 128)
 LOOPBACK_SPS = (2, 4)
 LOOPBACK_D96_SHAPE = (1, 16, 8192, 96)
+#: The f32 loopback ring at GPT-J-6B's head dim, 256, split in two: the
+#: wide kernels' f32 instances, causal and not.
+LOOPBACK_F32_D256_SHAPE = (1, 16, 8192, 256)
 #: Head dims that are no tile's width (8 to 250; 25 and 250 not
-#: multiples of 8, so through the padded copy), and the W-256 tile's own
-#: 256, at T over the tile and TMA edges: every instance of both kernels
-#: against its plain version.
-HEAD_DIMS = (8, 24, 25, 40, 48, 80, 96, 112, 136, 144, 200, 250, 256)
+#: multiples of 8, so through the padded copy), the W-256 tile's own 256,
+#: and bf16 head dims over it (264, 272, 384, 512: the wide kernels), at
+#: T over the tile and TMA edges: every instance of both kernels against
+#: its plain version.
+HEAD_DIMS = (8, 24, 25, 40, 48, 80, 96, 112, 136, 144, 200, 250, 256, 264,
+             272, 384, 512)
 HEAD_DIM_TS = (1, 127, 129, 257)
-#: The narrowest head dim the kernels refuse.
-REFUSED_HEAD_DIM = 264
+#: f32 head dims over one f32 tile (128): the wide kernels' f32
+#: instances, at ATTN_F32_TS, under the f32 rule.
+F32_WIDE_HEAD_DIMS = (136, 200, 256)
+#: A head dim only the wide kernels take, where the dtypes they refuse
+#: are tried.
+WIDE_REFUSAL_HEAD_DIM = 272
+#: The wide kernels timed: bf16 at the dryrun's 272 and f32 at GPT-J-6B's
+#: 256, both at GPT-J-6B's attention shape otherwise (B4 H16 T2048).
+WIDE_ATTN_SHAPE = (4, 16, 2048, 272)
+WIDE_F32_ATTN_SHAPE = (4, 16, 2048, 256)
 #: Phi-3-mini's attention at its serving and training shape (B4 T2048,
 #: 32 heads of 96): the kernels line's D-96 rows.
 PHI3_ATTN_SHAPE = (4, 32, 2048, 96)
@@ -348,11 +385,21 @@ GPTJ_ATTN_SHAPE = (4, 16, 2048, 256)
 GPTJ = dict(vocab=50400, d_model=4096, n_layers=28, n_heads=16, d_ff=16384)
 GPTJ_TRAIN_LAYERS = 6
 #: Device counts with an odd factor whose dense dryrun config steps on
-#: one card at a 1-device layout: head dim 48 at 3, 24 at 6, 144 at 9 and
-#: 240 at 15 (dp = n alone, d_model 32 n over 2 heads).
-DRYRUN_ODD = (3, 6, 9, 15)
+#: one card at a 1-device layout: head dim 48 at 3, 24 at 6, 144 at 9,
+#: 240 at 15 and 272 at 17, the wide kernels' (dp = n alone, d_model 32 n
+#: over 2 heads).
+DRYRUN_ODD = (3, 6, 9, 15, 17)
 #: Train steps of each lm_sp run.
 LM_SP_STEPS = 3
+#: The f32 ring reading (:func:`f32_ring_reading`) holds a mesh's first
+#: RING_F32_STEPS f32 steps within RING_F32_RTOL relative of one card's
+#: f32 steps through the kernels. The bound lies between the readings of
+#: sound meshes at those steps (at most 6.5e-6 on four H100s) and of a
+#: ring that rounds each block's lse to bf16 (6.9e-5 at sp 4, step 2).
+#: Later steps carry f32's own rounding through AdamW (one card's f32
+#: paths spread 1.3-2.3e-4 at step 3 of lm_sp's sp 2), so there the
+#: reading holds the mesh to ``f32_steps_rule`` alone.
+RING_F32_STEPS, RING_F32_RTOL = 2, 2e-5
 #: o against the plain version: both round o to bf16 and the kernel also
 #: rounds P to bf16 for the tensor cores, so allow two bf16 steps of |o|
 #: (2^-6) plus an absolute 1e-2 for outputs near 0.
@@ -372,12 +419,8 @@ TF32_FLOPS = 494.7e12
 ATTN_F32_DIMS = (16, 24, 48, 96, 128)
 ATTN_F32_TS = (127, 1000)
 ATTN_F32_TIMED = (((4, 16, 2048, 128), True), ((1, 16, 4096, 128), False))
-#: The head dim the f32 instances refuse first.
-REFUSED_F32_HEAD_DIM = 136
-#: The f32 LM's and f32 MoE's losses against plain f32 attention's,
-#: relative: the forward's and the first step's. After the first step
-#: the f32 LM's train steps are held by :func:`f32_steps_rule`.
-F32_LOSS_RTOL = 1e-4
+#: Calls of each f32 entry point that :func:`profile_f32_passes` traces.
+F32_PASS_CALLS = 10
 #: K1 checked bit for bit at (n, x offset, y offset): lengths around one
 #: 16-byte vector and its ragged tail, the payload's 2^16 and its
 #: neighbours, 2^20 + 3, 2^26; then views at an odd offset, also at two
@@ -760,6 +803,43 @@ def profile_vector_add(rows: list[dict]) -> None:
         for row in rows])
 
 
+def profile_f32_passes() -> None:
+    """The device time of each kernel that one f32 attention call
+    launches, by kernel name, from ``torch.profiler`` (CUPTI) kernel
+    events over F32_PASS_CALLS calls: the pre-pass that writes the fp16
+    parts of the operands and each slice's largest |x| apart from the
+    attention kernels, forward and backward, at ATTN_F32_TIMED's causal
+    t2k shape. Run after :func:`profile_vector_add`, last."""
+    shape, causal = ATTN_F32_TIMED[0]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                   for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    rows = {}
+    for name, fn in (
+            ("fwd", lambda: fa.flash_attention_fwd(q, k, v, causal=causal)),
+            ("bwd", lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                                   causal=causal))):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(F32_PASS_CALLS):
+                fn()
+            torch.cuda.synchronize()
+        us = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                us.setdefault(e.name[:100], []).append(
+                    e.time_range.elapsed_us())
+        rows[name] = {kernel: {"events": len(t), "mean_us": sum(t) / len(t),
+                               "us_per_call": sum(t) / F32_PASS_CALLS}
+                      for kernel, t in us.items()}
+    say("f32_passes_device_us", shape=list(shape), causal=causal,
+        calls=F32_PASS_CALLS, kernels=rows)
+    del q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+
+
 def check_host_path() -> None:
     """What a K1 launch costs the host at the payload size, piece by
     piece, by the host clock over HOST_CALLS calls of each piece, every
@@ -920,9 +1000,11 @@ def check_ring_loopback_f32(gen, shape: tuple, sps: tuple) -> dict:
         torch.cuda.synchronize()
         launches = counters()
         n = sp * (sp + 1) // 2
-        want = causal_only(flash_attn_fwd_f32=sp, flash_attn_bwd_f32=sp,
-                           flash_attn_fwd_f32_non_causal=n - sp,
-                           flash_attn_bwd_f32_non_causal=n - sp)
+        w = wide_infix(x32[0])
+        want = causal_only(**{f"flash_attn_fwd{w}_f32": sp,
+                              f"flash_attn_bwd{w}_f32": sp,
+                              f"flash_attn_fwd{w}_f32_non_causal": n - sp,
+                              f"flash_attn_bwd{w}_f32_non_causal": n - sp})
         if launches != want:
             raise AssertionError(f"ring_loopback_f32 sp={sp}: launches "
                                  f"{launches}, want {want}")
@@ -947,6 +1029,13 @@ def check_ring_loopback_f32(gen, shape: tuple, sps: tuple) -> dict:
     torch.cuda.empty_cache()
     return total
 
+def wide_infix(q: torch.Tensor) -> str:
+    """``"_wide"`` in the instance names of a launch on ``q``'s head dim
+    and dtype where one tile of the fused kernels does not hold it (the
+    wide kernels), else ``""``."""
+    return "" if fa.one_tile(q.shape[-1], q.dtype) else "_wide"
+
+
 def gate_instance(x32: list, causal: bool, out_dtype) -> tuple[dict, dict]:
     """One launch of each kernel's instance (causal or not, bf16 or f32
     out) on the bf16 rounding of ``x32`` ([q, k, v, do], f32), counted,
@@ -956,7 +1045,7 @@ def gate_instance(x32: list, causal: bool, out_dtype) -> tuple[dict, dict]:
     as in :func:`check_flash_bwd`). Returns the forward and backward
     rows; raises on a miss."""
     q, k, v, do = (x.to(torch.bfloat16) for x in x32)
-    suffix = "" if causal else "_non_causal"
+    suffix = wide_infix(q) + ("" if causal else "_non_causal")
     before = counters()
     o, lse = fa.flash_attention_fwd(q, k, v, causal, out_dtype)
     got = fa.flash_attention_bwd(q, k, v, o.to(q.dtype), lse, do, causal,
@@ -1068,15 +1157,20 @@ def check_instances(gen, name: str, phase: str, shapes: list,
 
 
 def check_head_dims(gen, name: str) -> dict:
-    """The kernels at head dims that are no tile's width, and at the
-    W-256 tile's: every instance (causal or not, bf16 or f32 out),
-    forward and backward, at HEAD_DIMS x HEAD_DIM_TS under
-    :func:`gate_instance`; REFUSED_HEAD_DIM raises and launches nothing;
-    the padded copy of head dim 25 timed against the D-32 launch it pads
-    to; then Phi-3-mini's and GPT-J-6B's attention (PHI3_ATTN_SHAPE,
-    GPTJ_ATTN_SHAPE; causal, bf16) gated and timed beside SDPA, the
-    bounds at the true head dim. Returns ``{shape: (forward row,
-    backward row)}`` of the timed shapes."""
+    """The kernels at head dims that are no tile's width, at the W-256
+    tile's and over it (the wide kernels): every instance (causal or
+    not, bf16 or f32 out), forward and backward, at HEAD_DIMS x
+    HEAD_DIM_TS under :func:`gate_instance`; the wide kernels' f32
+    instances at F32_WIDE_HEAD_DIMS x ATTN_F32_TS under
+    :func:`gate_f32`; f64, f16 and mixed dtypes at
+    WIDE_REFUSAL_HEAD_DIM raise ``TypeError`` and launch nothing; the
+    padded copy of head dim 25 timed against the D-32 launch it pads to;
+    then Phi-3-mini's, GPT-J-6B's and the wide bf16 attention
+    (PHI3_ATTN_SHAPE, GPTJ_ATTN_SHAPE, WIDE_ATTN_SHAPE; causal, bf16) and
+    the wide f32 attention (WIDE_F32_ATTN_SHAPE, causal, bound at the
+    TF32 rate) gated and timed beside SDPA, the bounds at the true head
+    dim. Returns ``{shape: (forward row, backward row)}`` of the timed
+    shapes, the f32 one keyed by its shape and ``"f32"``."""
     cases = []
     for d in HEAD_DIMS:
         for t in HEAD_DIM_TS:
@@ -1091,17 +1185,31 @@ def check_head_dims(gen, name: str) -> dict:
                                   row["max_abs_err"], row["lse_max_abs_err"],
                                   *(_ratio(brow[g]) for g in ("dq", "dk",
                                                               "dv"))])
+    f32_cases = []
+    for d in F32_WIDE_HEAD_DIMS:
+        for t in ATTN_F32_TS:
+            for causal in (True, False):
+                x32 = [torch.randn((1, 2, t, d), generator=gen,
+                                   device="cuda") for _ in range(4)]
+                row, brow = gate_f32(x32, causal)
+                f32_cases.append([d, t, causal,
+                                  *(row[key]["ratio"] for key in ("o", "lse")),
+                                  *(brow[key]["ratio"]
+                                    for key in ("dq", "dk", "dv"))])
+    refused = {}
     before = counters()
-    wide = torch.zeros((1, 2, 8, REFUSED_HEAD_DIM), device="cuda",
-                       dtype=torch.bfloat16)
-    try:
-        fa.flash_attention_fwd(wide, wide, wide)
-    except ValueError as err:
-        refused = str(err)
-    else:
-        raise AssertionError(f"head dim {REFUSED_HEAD_DIM} launched")
+    x = torch.zeros((1, 2, 8, WIDE_REFUSAL_HEAD_DIM), device="cuda")
+    for what, args in (("f64", (x.double(),) * 3), ("f16", (x.half(),) * 3),
+                       ("f32 q, bf16 k v", (x, x.bfloat16(), x.bfloat16()))):
+        try:
+            fa.flash_attention_fwd(*args)
+        except TypeError as err:
+            refused[what] = str(err)
+        else:
+            raise AssertionError(f"{what} at head dim "
+                                 f"{WIDE_REFUSAL_HEAD_DIM} launched")
     if counters() != before:
-        raise AssertionError(f"head dim {REFUSED_HEAD_DIM} counted a launch")
+        raise AssertionError("a refused input counted a launch")
     padded = {}
     for d in (25, 32):
         shape = PHI3_ATTN_SHAPE[:3] + (d,)
@@ -1120,25 +1228,42 @@ def check_head_dims(gen, name: str) -> dict:
     torch.cuda.empty_cache()
 
     rows = {}
-    for shape in (PHI3_ATTN_SHAPE, GPTJ_ATTN_SHAPE):
+    for shape in (PHI3_ATTN_SHAPE, GPTJ_ATTN_SHAPE, WIDE_ATTN_SHAPE):
         x32 = [torch.randn(shape, generator=gen, device="cuda")
                for _ in range(4)]
         rows[shape] = gate_instance(x32, True, torch.bfloat16)
         time_instance(*rows[shape], x32, True, torch.bfloat16, name)
         del x32
         torch.cuda.empty_cache()
+    x32 = [torch.randn(WIDE_F32_ATTN_SHAPE, generator=gen, device="cuda")
+           for _ in range(4)]
+    wide_f32 = gate_f32(x32, True)
+    time_instance(*wide_f32, x32, True, torch.float32, name, torch.float32,
+                  TF32_FLOPS)
+    wide_f32[0]["bound_rate"] = wide_f32[1]["bound_rate"] = "tf32"
+    rows[WIDE_F32_ATTN_SHAPE + ("f32",)] = wide_f32
+    del x32
+    torch.cuda.empty_cache()
     say("head_dims", ok=True, head_dims=list(HEAD_DIMS),
         ts=list(HEAD_DIM_TS), o_atol=O_ATOL, o_rtol=O_RTOL,
         lse_atol=LSE_ATOL,
         cases_fields=["d", "t", "causal", "out_dtype", "o_max_abs_err",
                       "lse_max_abs_err", "dq_max_dev_over_plain",
                       "dk_max_dev_over_plain", "dv_max_dev_over_plain"],
-        cases=cases, refused=refused,
+        cases=cases, f32_head_dims=list(F32_WIDE_HEAD_DIMS),
+        f32_ts=list(ATTN_F32_TS), f32_rule=f"each output's largest "
+        f"deviation from f64 <= {F32_RULE} of the bf16 instance's",
+        f32_cases_fields=["d", "t", "causal", "o_ratio", "lse_ratio",
+                          "dq_ratio", "dk_ratio", "dv_ratio"],
+        f32_cases=f32_cases, refused=refused,
         padded_d25_vs_d32={f"d{d}": v for d, v in padded.items()},
         phi3_forward=rows[PHI3_ATTN_SHAPE][0],
         phi3_backward=rows[PHI3_ATTN_SHAPE][1],
         gptj_forward=rows[GPTJ_ATTN_SHAPE][0],
-        gptj_backward=rows[GPTJ_ATTN_SHAPE][1])
+        gptj_backward=rows[GPTJ_ATTN_SHAPE][1],
+        wide_forward=rows[WIDE_ATTN_SHAPE][0],
+        wide_backward=rows[WIDE_ATTN_SHAPE][1],
+        wide_f32_forward=wide_f32[0], wide_f32_backward=wide_f32[1])
     return rows
 
 
@@ -1159,13 +1284,14 @@ def gate_f32(x32: list, causal: bool) -> tuple[dict, dict]:
     forward and backward rows (``max_abs_err``: the largest deviation
     from f64); raises on a miss."""
     suffix = "" if causal else "_non_causal"
+    wide = wide_infix(x32[0])
     before = counters()
     got = attention_run(*x32, causal)
     torch.cuda.synchronize()
     after = counters()
     counted = {key: after[key] - before[key] for key in after}
-    if counted != causal_only(**{f"flash_attn_fwd_f32{suffix}": 1,
-                                 f"flash_attn_bwd_f32{suffix}": 1}):
+    if counted != causal_only(**{f"flash_attn_fwd{wide}_f32{suffix}": 1,
+                                 f"flash_attn_bwd{wide}_f32{suffix}": 1}):
         raise AssertionError(f"f32 launches counted {counted}")
     outputs = [(g.dtype, tuple(g.shape)) for g in got.values()]
     if any(dt != torch.float32 or shape != x32[0].shape[:len(shape)]
@@ -1189,8 +1315,10 @@ def gate_f32(x32: list, causal: bool) -> tuple[dict, dict]:
 def check_attn_f32(gen, name: str) -> list:
     """The f32 instances (q, k, v, dO in f32; head dims up to 128):
     forward and backward, causal and not, at ATTN_F32_DIMS x ATTN_F32_TS
-    under :func:`gate_f32`; REFUSED_F32_HEAD_DIM raises ``ValueError``,
-    f64, f16 and mixed dtypes ``TypeError``, none counting a launch; then
+    under :func:`gate_f32` (each output within F32_RULE, 1/256, of the
+    bf16 instance's deviation from f64); f64, f16 and mixed dtypes raise
+    ``TypeError``, none counting a launch (wider f32 head dims take the
+    wide kernels: :func:`check_head_dims`); then
     ATTN_F32_TIMED gated and timed (:func:`time_instance` in f32, bound
     at TF32_FLOPS, SDPA with TF32 off as the yardstick). Returns
     ``[(shape, causal, forward row, backward row)]`` of the timed ones."""
@@ -1208,9 +1336,7 @@ def check_attn_f32(gen, name: str) -> list:
     refused = {}
     before = counters()
     x = torch.zeros((1, 2, 8, 32), device="cuda")
-    wide = torch.zeros((1, 2, 8, REFUSED_F32_HEAD_DIM), device="cuda")
     for what, args, error in (
-            (f"f32 D{REFUSED_F32_HEAD_DIM}", (wide,) * 3, ValueError),
             ("f64", (x.double(),) * 3, TypeError),
             ("f16", (x.half(),) * 3, TypeError),
             ("f32 q, bf16 k v", (x, x.bfloat16(), x.bfloat16()), TypeError)):
@@ -1347,9 +1473,10 @@ def check_dryrun_odd() -> dict:
     """The dense dryrun configs of DRYRUN_ODD device counts at a 1-device
     layout on the card: one train step from the dryrun's params and
     batch (drawn on the host), the ring at sp 1 through the kernels at
-    head dim 48 and 24, counted (2 x layers forward and layers backward
-    causal launches); its loss within 1e-3 relative of the same step's
-    on the CPU. Returns the launches."""
+    head dims 48, 24, 144, 240 and 272 (the wide kernels at 17), counted
+    (2 x layers forward and layers backward causal launches); its loss
+    within 1e-3 relative of the same step's on the CPU. Returns the
+    launches."""
     total = dict.fromkeys(counters(), 0)
     rows = []
     for n in DRYRUN_ODD:
@@ -1366,8 +1493,9 @@ def check_dryrun_odd() -> dict:
             zero_counters()
             losses[device] = float(step(params, opt_state, batch)[2])
         launches = counters()
-        want = causal_only(flash_attn_fwd=2 * run.cfg.n_layers,
-                           flash_attn_bwd=run.cfg.n_layers)
+        w = "" if fa.one_tile(run.cfg.head_dim) else "_wide"
+        want = causal_only(**{f"flash_attn_fwd{w}": 2 * run.cfg.n_layers,
+                              f"flash_attn_bwd{w}": run.cfg.n_layers})
         rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
         row = {"n": n, "head_dim": run.cfg.head_dim, "batch": run.batch,
                "seq": run.seq, "loss": losses["cuda"],
@@ -1509,36 +1637,6 @@ def check_train_grads(base: lm.LMConfig) -> None:
         f32_kernels=f32_kernels)
     del grads_k, grads_32, grads_f, logits, f32_rows, bf16_rows, exact_rows
     torch.cuda.empty_cache()
-
-
-def f32_steps_rule(kernels: list, plain: list, exact: list) -> dict:
-    """An f32 path's train-step losses (``kernels``: one card's through
-    the kernels, or a mesh's through the ring) against one card's with
-    plain f32 attention (``plain``) and with plain attention in f64
-    (``exact``), the three from the same params and batch.
-
-    - Step 1: within F32_LOSS_RTOL of ``plain``.
-    - Every step: no further from ``exact`` than F32_LOSS_RTOL or, where
-      ``plain`` itself is further from it, twice ``plain``'s distance.
-
-    A loss a few steps on is no finer than f32 attention's own rounding
-    carried through AdamW: where ``plain`` is more than F32_LOSS_RTOL
-    from ``exact``, an attention as exact as f64 fails F32_LOSS_RTOL
-    against ``plain``; ``lm_f32`` reads the distances on the card, and
-    shows the rule rejects one-pass TF32 attention. Returns the
-    distances and ``ok``."""
-    def rel(a, b):
-        return [abs(x - y) / abs(y) for x, y in zip(a, b)]
-    row = {"kernels_vs_plain": rel(kernels, plain),
-           "kernels_vs_exact": rel(kernels, exact),
-           "plain_vs_exact": rel(plain, exact)}
-    row["bound"] = [max(F32_LOSS_RTOL, 2 * p) for p in row["plain_vs_exact"]]
-    row["ok"] = (len(kernels) == len(plain) == len(exact)
-                 and all(map(math.isfinite, kernels))
-                 and row["kernels_vs_plain"][0] <= F32_LOSS_RTOL
-                 and all(d <= b for d, b in zip(row["kernels_vs_exact"],
-                                                row["bound"])))
-    return row
 
 
 def check_lm_f32(peak: float, known: bool) -> dict:
@@ -2227,19 +2325,23 @@ def mesh_f32_ring(steps, cfg, run: dict, mesh, device="cuda") -> dict:
             "f32_ring_seconds": out["seconds"]}
 
 
-def f32_ring_reading(ranks: list, one_f32: list, layers: int,
-                     one_f64: list) -> dict:
+def f32_ring_reading(ranks: list, one: dict, layers: int) -> dict:
     """The f32 reading through the real ring (:func:`mesh_f32_ring`) of
     every rank of a mesh run, each counted: ``layers`` (layers x steps)
     gives 2 x layers causal f32 forward launches and layers backward, and
-    the rank at sp index i i times those non-causal. ``ok`` needs the
-    losses the same on every rank, within 1e-4 relative of one card's f32
-    steps (``one_f32``, plain attention) at every step, and within
-    :func:`f32_steps_rule` of those and of one card's f32 steps with
-    plain attention in f64 (``one_f64``): the rule ``lm_f32`` holds one
-    card's kernel path to. Raises on a wrong count. Returns the losses,
-    their distances, the rule's reading, the slowest rank's seconds and
-    ``ok``."""
+    the rank at sp index i i times those non-causal. ``one`` holds one
+    card's f32 steps of the same config and batch: ``f32_kernels``
+    (through the kernels' f32 instances, the mesh's own attention
+    arithmetic), ``f32`` (plain f32 attention) and ``f64`` (plain
+    attention in f64). ``ok`` needs the losses the same on every rank,
+    within RING_F32_RTOL relative of ``f32_kernels`` at the first
+    RING_F32_STEPS steps (so the reading sees the layout alone: a block,
+    a merge, a sum), and within :func:`f32_steps_rule` of ``f32`` and
+    ``f64`` at every step, the rule ``lm_f32`` holds one card's kernel
+    path to. The distance from ``f32`` is reported beside. Raises on a
+    wrong count. Returns the losses, their distances, the bound of each
+    step held to ``f32_kernels`` (None where the rule alone holds), the
+    rule's reading, the slowest rank's seconds and ``ok``."""
     for out in ranks:
         i = out["coordinate"]["sp"]
         want = causal_only(flash_attn_fwd_f32=2 * layers,
@@ -2253,11 +2355,18 @@ def f32_ring_reading(ranks: list, one_f32: list, layers: int,
 
     def rel(a, b):
         return [abs(g - w) / abs(w) for g, w in zip(a, b)]
-    rule = f32_steps_rule(losses, one_f32, one_f64)
-    ok = (len(losses) == len(one_f32) and all(map(math.isfinite, losses))
-          and all(r <= 1e-4 for r in rel(losses, one_f32)) and rule["ok"]
+    kernels = one["f32_kernels"]["losses"]
+    bound = [RING_F32_RTOL if s < RING_F32_STEPS else None
+             for s in range(len(kernels))]
+    rule = f32_steps_rule(losses, one["f32"]["losses"], one["f64"]["losses"])
+    ok = (len(losses) == len(kernels) and all(map(math.isfinite, losses))
+          and all(b is None or r <= b
+                  for r, b in zip(rel(losses, kernels), bound))
+          and rule["ok"]
           and all(out["f32_ring_losses"] == losses for out in ranks))
-    return {"losses": losses, "rel": rel(losses, one_f32),
+    return {"losses": losses, "rel": rel(losses, kernels), "bound": bound,
+            "reference": "one card's f32 steps through the kernels",
+            "rel_to_plain_f32": rel(losses, one["f32"]["losses"]),
             "steps_rule": rule, "ok": ok,
             "seconds": max(out["f32_ring_seconds"] for out in ranks)}
 
@@ -2395,13 +2504,14 @@ def mesh_gate(mesh: dict, one: dict) -> dict:
 def lm_one_card(cfg: lm.LMConfig, batch: int, seq: int) -> dict:
     """One card's LM_SP_STEPS steps of ``cfg`` on the global batch in the
     three paths :func:`mesh_gate` reads (``bf16``, ``plain``, ``f32``)
-    and in f32 with plain attention in f64 (``f64``, which
-    :func:`f32_ring_reading` holds the mesh's f32 steps against), each
-    :func:`timed_steps`' result."""
+    and in f32 through the kernels (``f32_kernels``) and with plain
+    attention in f64 (``f64``), which :func:`f32_ring_reading` holds the
+    mesh's f32 steps against, each :func:`timed_steps`' result."""
     paths = {"bf16": (dataclasses.replace(cfg, attn_impl="flash"), None),
              "plain": (dataclasses.replace(cfg, attn_impl="local"), None),
              "f32": (dataclasses.replace(lm_f32(cfg), attn_impl="local"),
                      None),
+             "f32_kernels": (lm_f32(cfg), None),
              "f64": (lm_f32(cfg), attention_f64)}
     out = {}
     for name, (path, attention) in paths.items():
@@ -2420,8 +2530,10 @@ def check_lm_mesh(phase: str, runs: list, rank_fn: str, rank_keys: tuple,
     losses the same on every rank and held by :func:`mesh_gate` against
     one card's steps of the same config and batch (seeds 0 and 1,
     :func:`lm_one_card`); beside it the f32 steps through the real ring,
-    counted, within 1e-4 of one card's f32 steps at every step and
-    within :func:`f32_steps_rule` (:func:`f32_ring_reading`). Step ms,
+    counted, within RING_F32_RTOL of one card's f32 steps through the
+    kernels at the first RING_F32_STEPS steps and within
+    :func:`f32_steps_rule` at every step (:func:`f32_ring_reading`).
+    Step ms,
     tokens/s and MFU per card against one card's, peak memory per card,
     the witness's seconds and each rank's ``rank_keys``. A run whose losses miss is reported and added to
     ``failed``, which fails the smoke after its last phase; a wrong
@@ -2450,9 +2562,7 @@ def check_lm_mesh(phase: str, runs: list, rank_fn: str, rank_keys: tuple,
                 total[k] += count
         losses = {"bf16": ranks[0]["losses"], "f32": ranks[0]["f32_losses"]}
         gate = mesh_gate(losses, {p: one[p]["losses"] for p in one})
-        ring = f32_ring_reading(ranks, one["f32"]["losses"],
-                                cfg.n_layers * LM_SP_STEPS,
-                                one["f64"]["losses"])
+        ring = f32_ring_reading(ranks, one, cfg.n_layers * LM_SP_STEPS)
         for out in ranks:
             for k, count in out["f32_ring_launches"].items():
                 total[k] += count
@@ -2757,7 +2867,12 @@ def check_moe_f32() -> dict:
     deviation from plain f32 attention); the loss within F32_LOSS_RTOL of
     plain f32 attention's; one train step counted (2 x layers forward and
     layers backward f32 launches), its loss within F32_LOSS_RTOL of the
-    same step with plain f32 attention. Returns the launches."""
+    same step with plain f32 attention. Then the MoE at
+    ``chip_bench.MOE_WIDTHS`` (head dim 128) in f32 at MOE_BATCH:
+    MOE_EP_STEPS train steps through the kernels, counted, against the
+    same steps with plain f32 and with f64 attention under
+    :func:`f32_steps_rule`, and every step within F32_LOSS_RTOL of plain
+    f32. Returns the launches."""
     small = moe.MoEConfig()
     cfg = f32(small)
     b, t = MOE_SMALL_BATCH
@@ -2806,17 +2921,52 @@ def check_moe_f32() -> dict:
     rel = {"forward": abs(loss - plain_loss) / abs(plain_loss),
            "step": abs(steps["kernels"] - steps["plain"])
            / abs(steps["plain"])}
+    logits_shape, aux = logits.shape, float(aux)
     if not all(math.isfinite(x) and r <= F32_LOSS_RTOL
                for x, r in ((loss, rel["forward"]),
                             (steps["kernels"], rel["step"]))):
         raise AssertionError(f"moe_f32 losses: forward {loss} against "
                              f"{plain_loss}, step {steps}")
-    say("moe_f32", config="MoEConfig(), compute_dtype f32", ok=True, batch=b,
-        seq=t, head_dim=cfg.head_dim, shape=list(logits.shape),
-        aux=float(aux), loss=loss, plain_f32_loss=plain_loss,
-        step_losses=steps, rel=rel, layer_gate=gate)
     del params, logits
     torch.cuda.empty_cache()
+
+    # The full-width MoE (head dim 128) in f32, whose train steps
+    # amplify the attention's rounding: MOE_EP_STEPS steps through the
+    # kernels beside plain f32 and f64 attention, from the same params
+    # and batch.
+    full = f32(moe_cfg(8))
+    fb, ft = MOE_BATCH
+    paths = {}
+    for name, attention in (("kernels", None),
+                            ("plain", ra.reference_attention),
+                            ("f64", attention_f64)):
+        paths[name] = moe_steps(full, fb, ft, attention=attention)
+        torch.cuda.empty_cache()
+    layers = full.n_layers * MOE_EP_STEPS
+    kern = paths["kernels"]
+    want = causal_only(flash_attn_fwd_f32=2 * layers,
+                       flash_attn_bwd_f32=layers)
+    rule = f32_steps_rule(kern["losses"], paths["plain"]["losses"],
+                          paths["f64"]["losses"])
+    if kern["launches"] != want or not rule["ok"] or \
+            not all(r <= F32_LOSS_RTOL for r in rule["kernels_vs_plain"]):
+        raise AssertionError(f"moe_f32 full width: {rule} (each step within "
+                             f"{F32_LOSS_RTOL} of plain f32 too), launches "
+                             f"{kern['launches']}, want {want}")
+    for key, count in kern["launches"].items():
+        total[key] += count
+    say("moe_f32", config="MoEConfig(), compute_dtype f32", ok=True, batch=b,
+        seq=t, head_dim=cfg.head_dim, shape=list(logits_shape),
+        aux=aux, loss=loss, plain_f32_loss=plain_loss,
+        step_losses=steps, rel=rel, layer_gate=gate,
+        full_width={"config": "chip_bench.MOE_WIDTHS, compute_dtype f32",
+                    "batch": fb, "seq": ft, "n_layers": full.n_layers,
+                    "head_dim": full.head_dim, "launches": kern["launches"],
+                    "losses": {p: paths[p]["losses"] for p in paths},
+                    "step_rule": rule,
+                    "rule": f"f32_steps_rule, and every step within "
+                    f"{F32_LOSS_RTOL} of plain f32",
+                    "step_ms": {p: paths[p]["step_ms"] for p in paths}})
     return total
 
 def moe_steps(cfg: moe.MoEConfig, batch: int, seq: int, mesh=None,
@@ -3029,6 +3179,99 @@ def check_published(name: str, widths: dict, train_layers: int,
     return {k: fwd_launches[k] + train_launches[k] for k in fwd_launches}
 
 
+def check_gptj_f32(peak: float, known: bool) -> dict:
+    """The LM at GPT-J-6B's widths (GPTJ, head dim 256) in f32 params and
+    compute at PUBLISHED_BATCH on one card, through the wide kernels' f32
+    instances (an f32 head dim of 256 is wider than one f32 tile).
+    Serving: ``lm.make_forward`` at full depth, counted (one wide f32
+    causal launch a layer), its loss within F32_LOSS_RTOL of the same
+    forward with ``attn_impl="local"``. Training at GPTJ_TRAIN_LAYERS:
+    LM_SP_STEPS train steps (:func:`timed_steps`, counted: 2 x layers
+    wide f32 forward and layers backward launches) against the same steps
+    with plain f32 attention and with plain attention in f64 under
+    :func:`f32_steps_rule`. Forward and step ms, tokens/s, MFU against
+    the bf16 peak, peak memory. Returns the launches of the counted
+    runs."""
+    b, t = PUBLISHED_BATCH
+    cfg = lm.LMConfig(**GPTJ, param_dtype=torch.float32,
+                      compute_dtype=torch.float32)
+    case = chip_bench.BenchCase("gptj-f32-t2k", cfg.d_model, cfg.n_layers,
+                                cfg.n_heads, cfg.d_ff, cfg.vocab, b, t)
+    params = lm.init_params(torch.Generator("cuda").manual_seed(0), cfg)
+    batch = lm.synthetic_batch(torch.Generator("cuda").manual_seed(1), cfg,
+                               b, t)
+    tokens = batch[:, :-1]
+    forward = lm.make_forward(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    logits = forward(params, tokens)
+    torch.cuda.synchronize()
+    fwd_launches = counters()
+    fwd_peak = torch.cuda.max_memory_allocated() / 1e9
+    want = causal_only(flash_attn_fwd_wide_f32=cfg.n_layers)
+    if fwd_launches != want or logits.shape != (b, t, cfg.vocab) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"gptj_f32 forward: {tuple(logits.shape)}, "
+                             f"launches {fwd_launches}, want {want}")
+    del logits
+    with torch.inference_mode():
+        losses = {impl: float(lm.loss_fn(params, batch, dataclasses.replace(
+            cfg, attn_impl=impl))) for impl in ("ring", "local")}
+    rel = abs(losses["ring"] - losses["local"]) / abs(losses["local"])
+    if not rel <= F32_LOSS_RTOL:
+        raise AssertionError(f"gptj_f32 forward losses {losses}")
+    ms = time_ms(lambda: forward(params, tokens), 3, 1)
+    ntok = b * t
+    flops = chip_bench.forward_flops_per_token(case) * ntok
+    say("gptj_f32_forward", ok=True, batch=b, seq=t, **GPTJ,
+        head_dim=cfg.head_dim, param_dtype="f32", compute_dtype="f32",
+        tf32=torch.backends.cuda.matmul.allow_tf32,
+        params=chip_bench.matmul_params(case), launches=fwd_launches,
+        losses=losses, rel=rel, forward_ms=ms,
+        tokens_per_s=ntok / (ms * 1e-3), mfu=flops / (ms * 1e-3) / peak,
+        mfu_peak="dense bf16 tensor-core peak", peak_known=known,
+        peak_memory_gb=fwd_peak)
+    del params, forward
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(cfg, n_layers=GPTJ_TRAIN_LAYERS)
+    case = dataclasses.replace(case, n_layers=cfg.n_layers)
+    steps = {"kernels": timed_steps(cfg, b, t)}
+    torch.cuda.empty_cache()
+    for name, attention in (("plain", None), ("f64", attention_f64)):
+        steps[name] = timed_steps(
+            dataclasses.replace(cfg, attn_impl="local") if name == "plain"
+            else cfg, b, t, attention=attention)
+        torch.cuda.empty_cache()
+    layers = cfg.n_layers * LM_SP_STEPS
+    want = causal_only(flash_attn_fwd_wide_f32=2 * layers,
+                       flash_attn_bwd_wide_f32=layers)
+    kern = steps["kernels"]
+    rule = f32_steps_rule(kern["losses"], steps["plain"]["losses"],
+                          steps["f64"]["losses"])
+    if kern["launches"] != want or not rule["ok"]:
+        raise AssertionError(f"gptj_f32 steps: {rule}, launches "
+                             f"{kern['launches']}, want {want}")
+    step_ms = sum(kern["step_ms"][1:]) / (LM_SP_STEPS - 1)
+    flops = chip_bench.train_flops_per_token(case) * ntok
+    say("gptj_f32_train", ok=True, batch=b, seq=t,
+        **dict(GPTJ, n_layers=cfg.n_layers),
+        cut=f"depth {GPTJ['n_layers']} -> {cfg.n_layers}",
+        params=chip_bench.matmul_params(case),
+        launches_per_3_steps=kern["launches"], losses=kern["losses"],
+        local_losses=steps["plain"]["losses"],
+        f64_attention_losses=steps["f64"]["losses"], step_rule=rule,
+        step_ms=step_ms,
+        step_timed=f"steps 2-{LM_SP_STEPS}, host clock to each loss's read",
+        local_step_ms=sum(steps["plain"]["step_ms"][1:]) / (LM_SP_STEPS - 1),
+        tokens_per_s=ntok / (step_ms * 1e-3),
+        mfu=flops / (step_ms * 1e-3) / peak, peak_known=known,
+        peak_memory_gb=kern["peak_memory_gb"],
+        local_peak_memory_gb=steps["plain"]["peak_memory_gb"])
+    return {k: fwd_launches[k] + kern["launches"][k] for k in fwd_launches}
+
+
 def check_moe_ep(peak: float, known: bool, failed: list) -> dict:
     """With two cards or more, the full-width MoE expert-parallel over
     NCCL (:func:`moe_ep_runs`, rank processes of :func:`moe_ep_rank`),
@@ -3038,8 +3281,9 @@ def check_moe_ep(peak: float, known: bool, failed: list) -> dict:
     held by :func:`mesh_gate` against one card's steps (seeds 0 and 1)
     through the kernels, with plain attention in bf16 and with plain
     attention in f32 (and in f64, for the f32 reading); beside it the f32
-    steps through the real ring, counted, within 1e-4 of one card's f32
-    steps at every step and within :func:`f32_steps_rule`
+    steps through the real ring, counted, within RING_F32_RTOL of one
+    card's f32 steps through the kernels at the first RING_F32_STEPS
+    steps and within :func:`f32_steps_rule` at every step
     (:func:`f32_ring_reading`). Step ms and tokens/s per card,
     peak memory per card, each rank's exchange time per layer, and the
     seconds of the f32 steps. A run whose losses miss is reported and
@@ -3060,6 +3304,7 @@ def check_moe_ep(peak: float, known: bool, failed: list) -> dict:
                     ("bf16", cfg, None),
                     ("plain", cfg, ra.reference_attention),
                     ("f32", f32(cfg), ra.reference_attention),
+                    ("f32_kernels", f32(cfg), None),
                     ("f64", f32(cfg), attention_f64)):
                 ones[run["n_layers"]][path] = moe_steps(
                     c, run["batch"], run["seq"], attention=attention)
@@ -3082,9 +3327,7 @@ def check_moe_ep(peak: float, known: bool, failed: list) -> dict:
                 total[key] += count
         losses = {"bf16": ranks[0]["losses"], "f32": ranks[0]["f32_losses"]}
         gate = mesh_gate(losses, {p: paths[p]["losses"] for p in paths})
-        ring = f32_ring_reading(ranks, exact["losses"],
-                                cfg.n_layers * MOE_EP_STEPS,
-                                paths["f64"]["losses"])
+        ring = f32_ring_reading(ranks, paths, cfg.n_layers * MOE_EP_STEPS)
         for out in ranks:
             for key, count in out["f32_ring_launches"].items():
                 total[key] += count
@@ -3185,6 +3428,9 @@ def main() -> int:
         loopback_launches[key] += count
     loopback_f32_launches = check_ring_loopback_f32(gen, LOOPBACK_SHAPE,
                                                     LOOPBACK_SPS)
+    for key, count in check_ring_loopback_f32(gen, LOOPBACK_F32_D256_SHAPE,
+                                              (2,)).items():
+        loopback_f32_launches[key] += count
     check_entry()
     check_mnist()
     # dryrun_multichip on every card (and on three of them), then the
@@ -3207,9 +3453,9 @@ def main() -> int:
     report = va.smoke_test()
     logits, per_forward = [], []
     for tokens in batches:
-        before = fa.launches
+        before = fa.counts()["flash_attn_fwd"]
         logits.append(forward(params, tokens))
-        per_forward.append(fa.launches - before)
+        per_forward.append(fa.counts()["flash_attn_fwd"] - before)
     torch.cuda.synchronize()
     launches = counters()
     if not report["ok"] or launches["vector_add"] != 1 \
@@ -3264,6 +3510,9 @@ def main() -> int:
                                     known)
     gptj_launches = check_published("gptj", GPTJ, GPTJ_TRAIN_LAYERS, peak,
                                     known)
+    # The LM at GPT-J-6B's widths in f32: head dim 256 on the wide
+    # kernels' f32 instances, counted inside.
+    gptj_f32_launches = check_gptj_f32(peak, known)
 
     # The TrainJob worker payload, counted inside check_trainer; then the
     # trainer's group, resume and demo paths and, with two cards, dp.
@@ -3290,6 +3539,7 @@ def main() -> int:
                    "trainer_default_lm": default_lm_launches[k],
                    "trainer_lm_d96": trainer_d96_launches[k],
                    "phi3": phi3_launches[k], "gptj": gptj_launches[k],
+                   "gptj_f32": gptj_f32_launches[k],
                    "ring_loopback": loopback_launches[k],
                    "ring_loopback_f32": loopback_f32_launches[k],
                    "dryrun": dryrun_launches[k],
@@ -3300,8 +3550,10 @@ def main() -> int:
                    "moe_ep": moe_ep_launches[k]}
                for k in launches}
 
-    # Last of all: the one profiled phase (K1's device_us).
+    # Last of all: the profiled phases (K1's device_us, then the f32
+    # entry points' kernels one by one).
     profile_vector_add(va_rows)
+    profile_f32_passes()
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library", "ratio_to_library", "share_of_bound",
@@ -3353,6 +3605,23 @@ def main() -> int:
              "source": "kubernetes_tpu_torch/csrc/flash_attn_bwd.cu",
              "replaces": "kubernetes_tpu/workloads/lm.py:193-197, 232-236",
              "at": at, **{k: bwd_row[k] for k in keys}}]
+    # The wide kernels (head dims over one tile): bf16 at head dim 272,
+    # f32 at 256 (bound at the TF32 rate).
+    for shape, suffix, extra in (
+            (WIDE_ATTN_SHAPE, "", {}),
+            (WIDE_F32_ATTN_SHAPE + ("f32",), "_f32", {"bound_rate": "tf32"})):
+        at = "B{} H{} T{} D{} ".format(*shape[:4]) + (
+            "f32" if suffix else "bf16") + ", causal"
+        fa_row, bwd_row = head_dim_rows[shape]
+        kernels += [
+            {"name": f"flash_attn_fwd_wide{suffix}", "route": "cuda",
+             "source": "kubernetes_tpu_torch/csrc/flash_attn_wide.cu",
+             "replaces": "kubernetes_tpu/workloads/lm.py:163-239",
+             "at": at, **extra, **{k: fa_row[k] for k in keys}},
+            {"name": f"flash_attn_bwd_wide{suffix}", "route": "cuda",
+             "source": "kubernetes_tpu_torch/csrc/flash_attn_wide.cu",
+             "replaces": "kubernetes_tpu/workloads/lm.py:193-197, 232-236",
+             "at": at, **extra, **{k: bwd_row[k] for k in keys}}]
     # The causal instances with f32 outputs: the ring's diagonal blocks.
     at = "B{} H{} T{} D{} bf16 in, f32 out, causal".format(*CAUSAL_F32_SHAPE)
     kernels += [

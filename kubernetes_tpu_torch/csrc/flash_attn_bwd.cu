@@ -90,18 +90,29 @@
 // the dQ kernel.
 //
 // f32 q, k, v, o, do (head dims up to 128): dq, dk, dv f32. The entry
-// point splits q, k, v and do into their bf16 parts (hopper.cuh) in a
-// pre-pass; delta reads o and do in f32. Every product that takes Q, K,
-// V or dO is taken by parts: S and dP as hi.hi + hi.lo + lo.hi, dV, dK,
-// dQ as P or dS (in two parts already) times the two parts of dO, Q or
-// K, less lo.lo (Terms). A tile in two parts holds twice the bytes, so W
-// 128 takes the W-256 plan (64 rows a block, the columns split between
-// the warpgroups: dK/dV K + V 64 KB + 2 x 65 KB, dQ 64 KB + 2 x 64 KB)
-// and W <= 64 the 128-row blocks. Bound: the same operations over the
-// TF32 rate (495 TFLOP/s); the design executes 21 bf16 products of the
-// useful ones' size where the bf16 backward executes 10 (S and dP three
-// times in each of the two kernels, dV, dK and dQ three times), and the
-// pre-pass reads and writes 8 bytes an element of q, k, v and do.
+// point splits q, k, v and do into their fp16 parts under a power-of-2
+// scale per [batch, head] slice (hopper.cuh) in a pre-pass; delta reads
+// o and do in f32. Every product that takes Q, K, V or dO is taken by
+// parts: S and dP as hi.hi + hi.lo + lo.hi, dV, dK, dQ as P or dS (in
+// two fp16 parts) times the two parts of dO, Q or K, less lo.lo (Terms).
+// The slices' scales fold into the softmax scale for S, multiply dP back
+// before delta is taken from it, and divide out of dq, dk, dv in the
+// epilogue. P enters under the fixed scale kPScale; dS, whose range no
+// bound fixes, under a running scale per row of the product it feeds
+// (RowScale): per query in the dQ kernel (dQ = dS K), per key in the
+// dK/dV kernel (dK = dS^T Q, whose A operand is dS^T), each rescaling
+// its accumulator's row when the scale falls; each pass's products with
+// P or dS go into a fresh accumulator, added in f32 (the tensor cores'
+// adds truncate, which over T would pass the operands' rounding). A tile
+// in two parts holds
+// twice the bytes, so W 128 takes the W-256 plan (64 rows a block, the
+// columns split between the warpgroups: dK/dV K + V 64 KB + 2 x 65 KB,
+// dQ 64 KB + 2 x 64 KB) and W <= 64 the 128-row blocks. Bound: the same
+// operations over the TF32 rate (495 TFLOP/s); the design executes 21
+// fp16 products of the useful ones' size where the bf16 backward
+// executes 10 (S and dP three times in each of the two kernels, dV, dK
+// and dQ three times), and the pre-pass reads q, k, v and do twice and
+// writes 4 bytes an element.
 #include <math.h>
 
 #include "common.cuh"
@@ -211,12 +222,14 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tdo,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta,
+                      const uint32_t* __restrict__ amax,
                       Out* __restrict__ dk, Out* __restrict__ dv,
                       int T, int D, float scale, float scale_log2) {
   using L = DkvSmem<W, kParts>;
   using P = Split<W, kParts>;
   using Score = Terms<kParts, kParts>;  // S^T = K Q^T, dP^T = V dO^T
   using Grad = Terms<2, kParts>;        // dV += P^T dO, dK += dS^T Q
+  using E = typename Part<kParts>::T;
   constexpr int kKeyBlock = L::kKeyBlock;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -314,6 +327,20 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
   float dv_acc[kN / 2];
 #pragma unroll
   for (int i = 0; i < kN / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  // In two parts: S^T comes out s_k s_q times (the softmax scale takes
+  // it), dP^T s_v s_do times (dp_back takes it back), dV kPScale s_do
+  // times and dK ds_scale s_q times (the epilogue divides them out).
+  float dp_back = 1.f, dv_post = 1.f, dk_post = scale;
+  RowScale ds_scale;
+  if constexpr (kParts == 2) {
+    const int bh = heads;
+    const float inv_q = slice_inv_scale(amax[head]);
+    const float inv_do = slice_inv_scale(amax[3 * bh + head]);
+    scale_log2 = scale_log2 * slice_inv_scale(amax[bh + head]) * inv_q;
+    dp_back = slice_inv_scale(amax[2 * bh + head]) * inv_do;
+    dv_post = inv_do * (1.f / kPScale);
+    dk_post = scale * inv_q;
+  }
 
   mbar_wait(kv_full, 0);
   for (int it = 0; it < n_iters; ++it) {
@@ -341,7 +368,7 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
       for (int t = 0; t < Score::kN; ++t) {
 #pragma unroll
         for (int kk = 0; kk < W / 16; ++kk) {
-          wgmma_ss<kCols>(st,
+          wgmma_ss<kCols, E>(st,
                           Tile<W>::kmajor(base + L::kK + Score::a(t) * L::kKPart,
                                           kKeyBlock, P::row0(wg), kk),
                           Tile<W>::kmajor(qs + Score::b(t) * L::kQPart, kQTile,
@@ -353,7 +380,7 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
       for (int t = 0; t < Score::kN; ++t) {
 #pragma unroll
         for (int kk = 0; kk < W / 16; ++kk) {
-          wgmma_ss<kCols>(dpt,
+          wgmma_ss<kCols, E>(dpt,
                           Tile<W>::kmajor(base + L::kV + Score::a(t) * L::kKPart,
                                           kKeyBlock, P::row0(wg), kk),
                           Tile<W>::kmajor(dos + Score::b(t) * L::kQPart,
@@ -381,51 +408,82 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
         float p1 = exp2f(st[i + 1] * scale_log2 - l2.y);
         if (diagonal && key > q) p0 = 0.f;
         if (diagonal && key > q + 1) p1 = 0.f;
-        dpt[i] = p0 * (dpt[i] - dl.x);
-        dpt[i + 1] = p1 * (dpt[i + 1] - dl.y);
+        dpt[i] = p0 * (dpt[i] * dp_back - dl.x);
+        dpt[i + 1] = p1 * (dpt[i + 1] * dp_back - dl.y);
         st[i] = p0;
         st[i + 1] = p1;
       }
 
       // dV += P^T dO, then dK += dS^T Q, contracting over the pass's
       // queries (k-slices c0/16.. of the q-tile), on this warpgroup's
-      // columns of dO and Q; P^T and dS^T in two parts [hi, lo].
+      // columns of dO and Q; P^T and dS^T in two parts [hi, lo] (bf16,
+      // or fp16 beside f32 operands: P^T times kPScale, dS^T times its
+      // keys' running scale).
       const int box0 = col0 / Tile<W>::kBoxCols;
       uint32_t pt[2][kCols / 16][4];
 #pragma unroll
       for (int kk = 0; kk < kCols / 16; ++kk) {
-        acc_to_a_split(pt[0][kk], pt[1][kk], st + 8 * kk);
-      }
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kCols / 16; ++kk) {
-#pragma unroll
-        for (int t = 0; t < Grad::kN; ++t) {
-          const uint64_t b = Tile<W>::mnmajor(
-              Tile<W>::box(dos + Grad::b(t) * L::kQPart, kQTile, box0), kQTile,
-              c0 / 16 + kk);
-          wgmma_rs<kN>(dv_acc, pt[Grad::a(t)][kk], b, 1);
+        if constexpr (kParts == 1) {
+          acc_to_a_split(pt[0][kk], pt[1][kk], st + 8 * kk);
+        } else {
+          const float ps[2] = {kPScale, kPScale};
+          acc_to_a_split_f16(pt[0][kk], pt[1][kk], st + 8 * kk, ps);
         }
+      }
+      // In two parts each pass's products go into a fresh accumulator,
+      // `part`, added to dV and dK in f32 after: the tensor cores add
+      // into an accumulator with truncation, whose bias over a long sum
+      // would pass the ~22-bit operands' rounding.
+      float part[kParts == 2 ? kN / 2 : 1];
+      float* dv_to = dv_acc;
+      float* dk_to = dk_acc;
+      if constexpr (kParts == 2) dv_to = dk_to = part;
+      wgmma_fence();
+      constexpr int kSlices = kCols / 16;
+#pragma unroll
+      for (int i = 0; i < Grad::kN * kSlices; ++i) {
+        const int t = Grad::term(i, kSlices), kk = Grad::slice(i, kSlices);
+        const uint64_t b = Tile<W>::mnmajor(
+            Tile<W>::box(dos + Grad::b(t) * L::kQPart, kQTile, box0), kQTile,
+            c0 / 16 + kk);
+        wgmma_rs<kN, E>(dv_to, pt[Grad::a(t)][kk], b, kParts == 1 || i > 0);
       }
       wgmma_commit();
+      if constexpr (kParts == 2) {
+        wgmma_wait<0>();
+        fence_regs<kN / 2>(part);
+#pragma unroll
+        for (int i = 0; i < kN / 2; ++i) dv_acc[i] += part[i];
+      }
       uint32_t dst[2][kCols / 16][4];
+      if constexpr (kParts == 2) {
+        ds_scale.update<kCols / 2, kN / 2>(dpt, dk_acc);
+      }
 #pragma unroll
       for (int kk = 0; kk < kCols / 16; ++kk) {
-        acc_to_a_split(dst[0][kk], dst[1][kk], dpt + 8 * kk);
+        if constexpr (kParts == 1) {
+          acc_to_a_split(dst[0][kk], dst[1][kk], dpt + 8 * kk);
+        } else {
+          acc_to_a_split_f16(dst[0][kk], dst[1][kk], dpt + 8 * kk,
+                             ds_scale.s);
+        }
       }
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kCols / 16; ++kk) {
-#pragma unroll
-        for (int t = 0; t < Grad::kN; ++t) {
-          const uint64_t b = Tile<W>::mnmajor(
-              Tile<W>::box(qs + Grad::b(t) * L::kQPart, kQTile, box0), kQTile,
-              c0 / 16 + kk);
-          wgmma_rs<kN>(dk_acc, dst[Grad::a(t)][kk], b, 1);
-        }
+      for (int i = 0; i < Grad::kN * kSlices; ++i) {
+        const int t = Grad::term(i, kSlices), kk = Grad::slice(i, kSlices);
+        const uint64_t b = Tile<W>::mnmajor(
+            Tile<W>::box(qs + Grad::b(t) * L::kQPart, kQTile, box0), kQTile,
+            c0 / 16 + kk);
+        wgmma_rs<kN, E>(dk_to, dst[Grad::a(t)][kk], b, kParts == 1 || i > 0);
       }
       wgmma_commit();
       wgmma_wait<0>();
+      if constexpr (kParts == 2) {
+        fence_regs<kN / 2>(part);
+#pragma unroll
+        for (int i = 0; i < kN / 2; ++i) dk_acc[i] += part[i];
+      }
       fence_regs<kN / 2>(dv_acc);
       fence_regs<kN / 2>(dk_acc);
     }
@@ -435,14 +493,20 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
   // Columns col, col + 1 of keys < T, only those < D (D is even).
   Out* dkh = dk + static_cast<int64_t>(head) * T * D;
   Out* dvh = dv + static_cast<int64_t>(head) * T * D;
+  float dk_row[2] = {dk_post, dk_post};
+  if constexpr (kParts == 2) {
+    dk_row[0] = ds_scale.inv(0) * dk_post;
+    dk_row[1] = ds_scale.inv(1) * dk_post;
+  }
 #pragma unroll
   for (int i = 0; i < kN / 2; i += 2) {
-    const int key = key0 + 8 * ((i % 4) / 2);
+    const int r = (i % 4) / 2;
+    const int key = key0 + 8 * r;
     const int col = col0 + 8 * (i / 4) + 2 * c;
     if (key < T && col < D) {
       const int64_t off = static_cast<int64_t>(key) * D + col;
-      store_pair(dkh + off, dk_acc[i] * scale, dk_acc[i + 1] * scale);
-      store_pair(dvh + off, dv_acc[i], dv_acc[i + 1]);
+      store_pair(dkh + off, dk_acc[i] * dk_row[r], dk_acc[i + 1] * dk_row[r]);
+      store_pair(dvh + off, dv_acc[i] * dv_post, dv_acc[i + 1] * dv_post);
     }
   }
 }
@@ -473,12 +537,14 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tdo,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
+                    const uint32_t* __restrict__ amax,
                     Out* __restrict__ dq, int T, int D, float scale,
                     float scale_log2) {
   using L = DqSmem<W, kParts>;
   using P = Split<W, kParts>;
   using Score = Terms<kParts, kParts>;  // S = Q K^T, dP = dO V^T
   using Grad = Terms<2, kParts>;        // dQ += dS K
+  using E = typename Part<kParts>::T;
   constexpr int kQBlock = L::kQBlock;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -563,6 +629,18 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
   float dq_acc[kN / 2];
 #pragma unroll
   for (int i = 0; i < kN / 2; ++i) dq_acc[i] = 0.f;
+  // In two parts: S comes out s_q s_k times, dP s_do s_v times, dQ
+  // ds_scale s_k times (as in the dK/dV kernel).
+  float dp_back = 1.f, dq_post = scale;
+  RowScale ds_scale;
+  if constexpr (kParts == 2) {
+    const int bh = heads;
+    const float inv_k = slice_inv_scale(amax[bh + head]);
+    scale_log2 = scale_log2 * slice_inv_scale(amax[head]) * inv_k;
+    dp_back = slice_inv_scale(amax[3 * bh + head]) *
+              slice_inv_scale(amax[2 * bh + head]);
+    dq_post = scale * inv_k;
+  }
 
   mbar_wait(qdo_full, 0);
   for (int it = 0; it < n_iters; ++it) {
@@ -580,7 +658,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
       for (int t = 0; t < Score::kN; ++t) {
 #pragma unroll
         for (int kk = 0; kk < W / 16; ++kk) {
-          wgmma_ss<kKeyTile>(
+          wgmma_ss<kKeyTile, E>(
               sc,
               Tile<W>::kmajor(base + L::kQ + Score::a(t) * L::kQPart, kQBlock,
                               P::row0(wg), kk),
@@ -592,7 +670,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
       for (int t = 0; t < Score::kN; ++t) {
 #pragma unroll
         for (int kk = 0; kk < W / 16; ++kk) {
-          wgmma_ss<kKeyTile>(
+          wgmma_ss<kKeyTile, E>(
               dp,
               Tile<W>::kmajor(base + L::kDo + Score::a(t) * L::kQPart, kQBlock,
                               P::row0(wg), kk),
@@ -615,29 +693,46 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
         const int key = it * kKeyTile + 8 * (i / 4) + 2 * c + (i % 2);
         float p = exp2f(sc[i] * scale_log2 - lse2[r]);
         if (edge && (kCausal ? key > row : key >= T)) p = 0.f;
-        dp[i] = p * (dp[i] - dl[r]);
+        dp[i] = p * (dp[i] * dp_back - dl[r]);
       }
       // dQ += dS K (scaled once, at the store), on this warpgroup's
-      // columns of K; dS in two parts [hi, lo].
+      // columns of K; dS in two parts [hi, lo] (bf16, or fp16 times its
+      // rows' running scale beside f32 operands).
       uint32_t ds[2][kKeyTile / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < kKeyTile / 16; ++kk) {
-        acc_to_a_split(ds[0][kk], ds[1][kk], dp + 8 * kk);
+      if constexpr (kParts == 2) {
+        ds_scale.update<kKeyTile / 2, kN / 2>(dp, dq_acc);
       }
-      wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kKeyTile / 16; ++kk) {
-#pragma unroll
-        for (int t = 0; t < Grad::kN; ++t) {
-          const uint64_t b = Tile<W>::mnmajor(
-              Tile<W>::box(ks + Grad::b(t) * L::kKPart, kKeyTile,
-                           col0 / Tile<W>::kBoxCols),
-              kKeyTile, kk);
-          wgmma_rs<kN>(dq_acc, ds[Grad::a(t)][kk], b, 1);
+        if constexpr (kParts == 1) {
+          acc_to_a_split(ds[0][kk], ds[1][kk], dp + 8 * kk);
+        } else {
+          acc_to_a_split_f16(ds[0][kk], ds[1][kk], dp + 8 * kk, ds_scale.s);
         }
+      }
+      // In two parts the tile's products go into a fresh accumulator,
+      // added to dQ in f32 after (as dV and dK in the dK/dV kernel).
+      float part[kParts == 2 ? kN / 2 : 1];
+      float* dq_to = dq_acc;
+      if constexpr (kParts == 2) dq_to = part;
+      wgmma_fence();
+      constexpr int kSlices = kKeyTile / 16;
+#pragma unroll
+      for (int i = 0; i < Grad::kN * kSlices; ++i) {
+        const int t = Grad::term(i, kSlices), kk = Grad::slice(i, kSlices);
+        const uint64_t b = Tile<W>::mnmajor(
+            Tile<W>::box(ks + Grad::b(t) * L::kKPart, kKeyTile,
+                         col0 / Tile<W>::kBoxCols),
+            kKeyTile, kk);
+        wgmma_rs<kN, E>(dq_to, ds[Grad::a(t)][kk], b, kParts == 1 || i > 0);
       }
       wgmma_commit();
       wgmma_wait<0>();
+      if constexpr (kParts == 2) {
+        fence_regs<kN / 2>(part);
+#pragma unroll
+        for (int i = 0; i < kN / 2; ++i) dq_acc[i] += part[i];
+      }
       fence_regs<kN / 2>(dq_acc);
     }
     mbar_arrive(empty + 8 * s);  // this stage's K and V are read
@@ -645,13 +740,19 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
 
   // Columns col, col + 1 of rows < T, only those < D (D is even).
   Out* dqh = dq + static_cast<int64_t>(head) * T * D;
+  float dq_row[2] = {dq_post, dq_post};
+  if constexpr (kParts == 2) {
+    dq_row[0] = ds_scale.inv(0) * dq_post;
+    dq_row[1] = ds_scale.inv(1) * dq_post;
+  }
 #pragma unroll
   for (int i = 0; i < kN / 2; i += 2) {
-    const int row = r0 + 8 * ((i % 4) / 2);
+    const int r = (i % 4) / 2;
+    const int row = r0 + 8 * r;
     const int col = col0 + 8 * (i / 4) + 2 * c;
     if (row < T && col < D) {
-      store_pair(dqh + static_cast<int64_t>(row) * D + col, dq_acc[i] * scale,
-                 dq_acc[i + 1] * scale);
+      store_pair(dqh + static_cast<int64_t>(row) * D + col,
+                 dq_acc[i] * dq_row[r], dq_acc[i + 1] * dq_row[r]);
     }
   }
 }
@@ -661,15 +762,16 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
 // kernel.
 template <int W, bool kCausal, typename Out, int kParts, typename In>
 int launch(const void* q, const void* k, const void* v, const void* do_tiles,
-           const In* o, const In* dout, const void* lse, void* delta, void* dq,
-           void* dk, void* dv, int B, int H, int T, int D, float scale,
-           cudaStream_t stream) {
+           const In* o, const In* dout, const void* lse, void* delta,
+           const uint32_t* amax, void* dq, void* dk, void* dv, int B, int H,
+           int T, int D, float scale, cudaStream_t stream) {
   CUtensorMap tq, tk, tv, tdo;
   const int heads = kParts * B * H;
-  int err = make_tile_map<W>(&tq, q, heads, T, D);
-  if (err == 0) err = make_tile_map<W>(&tk, k, heads, T, D);
-  if (err == 0) err = make_tile_map<W>(&tv, v, heads, T, D);
-  if (err == 0) err = make_tile_map<W>(&tdo, do_tiles, heads, T, D);
+  constexpr CUtensorMapDataType type = Part<kParts>::kMap;
+  int err = make_tile_map<W>(&tq, q, heads, T, D, type);
+  if (err == 0) err = make_tile_map<W>(&tk, k, heads, T, D, type);
+  if (err == 0) err = make_tile_map<W>(&tv, v, heads, T, D, type);
+  if (err == 0) err = make_tile_map<W>(&tdo, do_tiles, heads, T, D, type);
   // The shared-memory limits are properties of the kernels on a device:
   // set once per device, not on every launch.
   static PerDevice smem_set;
@@ -713,15 +815,16 @@ int launch(const void* q, const void* k, const void* v, const void* do_tiles,
 
   flash_bwd_dkdv_kernel<W, kCausal, Out, kParts>
       <<<static_cast<unsigned>(blocks), kThreads, DkvSmem<W, kParts>::kAlloc,
-         stream>>>(tq, tk, tv, tdo, lse32, delta32, static_cast<Out*>(dk),
-                   static_cast<Out*>(dv), T, D, scale, scale_log2);
+         stream>>>(tq, tk, tv, tdo, lse32, delta32, amax,
+                   static_cast<Out*>(dk), static_cast<Out*>(dv), T, D, scale,
+                   scale_log2);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
 
   flash_bwd_dq_kernel<W, kCausal, Out, kParts>
       <<<static_cast<unsigned>(blocks), kThreads, DqSmem<W, kParts>::kAlloc,
-         stream>>>(tq, tk, tv, tdo, lse32, delta32, static_cast<Out*>(dq), T,
-                   D, scale, scale_log2);
+         stream>>>(tq, tk, tv, tdo, lse32, delta32, amax,
+                   static_cast<Out*>(dq), T, D, scale, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -730,32 +833,33 @@ int launch(const void* q, const void* k, const void* v, const void* do_tiles,
 template <bool kCausal, typename Out, int kParts, typename In>
 int launch_d(const void* q, const void* k, const void* v,
              const void* do_tiles, const In* o, const In* dout,
-             const void* lse, void* delta, void* dq, void* dk, void* dv, int B,
-             int H, int T, int D, float scale, cudaStream_t s) {
+             const void* lse, void* delta, const uint32_t* amax, void* dq,
+             void* dk, void* dv, int B, int H, int T, int D, float scale,
+             cudaStream_t s) {
   if (D <= 16) {
     return launch<16, kCausal, Out, kParts>(q, k, v, do_tiles, o, dout, lse,
-                                            delta, dq, dk, dv, B, H, T, D,
+                                            delta, amax, dq, dk, dv, B, H, T, D,
                                             scale, s);
   }
   if (D <= 32) {
     return launch<32, kCausal, Out, kParts>(q, k, v, do_tiles, o, dout, lse,
-                                            delta, dq, dk, dv, B, H, T, D,
+                                            delta, amax, dq, dk, dv, B, H, T, D,
                                             scale, s);
   }
   if (D <= 64) {
     return launch<64, kCausal, Out, kParts>(q, k, v, do_tiles, o, dout, lse,
-                                            delta, dq, dk, dv, B, H, T, D,
+                                            delta, amax, dq, dk, dv, B, H, T, D,
                                             scale, s);
   }
   if (D <= 128) {
     return launch<128, kCausal, Out, kParts>(q, k, v, do_tiles, o, dout, lse,
-                                             delta, dq, dk, dv, B, H, T, D,
+                                             delta, amax, dq, dk, dv, B, H, T, D,
                                              scale, s);
   }
   if constexpr (kParts == 1) {
     return launch<256, kCausal, Out, 1>(q, k, v, do_tiles, o, dout, lse,
-                                        delta, dq, dk, dv, B, H, T, D, scale,
-                                        s);
+                                        delta, amax, dq, dk, dv, B, H, T, D,
+                                        scale, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -763,14 +867,15 @@ int launch_d(const void* q, const void* k, const void* v,
 template <typename Out, int kParts, typename In>
 int launch_c(const void* q, const void* k, const void* v,
              const void* do_tiles, const In* o, const In* dout,
-             const void* lse, void* delta, void* dq, void* dk, void* dv, int B,
-             int H, int T, int D, int causal, float scale, cudaStream_t s) {
+             const void* lse, void* delta, const uint32_t* amax, void* dq,
+             void* dk, void* dv, int B, int H, int T, int D, int causal,
+             float scale, cudaStream_t s) {
   return causal ? launch_d<true, Out, kParts>(q, k, v, do_tiles, o, dout, lse,
-                                              delta, dq, dk, dv, B, H, T, D,
-                                              scale, s)
+                                              delta, amax, dq, dk, dv, B, H,
+                                              T, D, scale, s)
                 : launch_d<false, Out, kParts>(q, k, v, do_tiles, o, dout,
-                                               lse, delta, dq, dk, dv, B, H,
-                                               T, D, scale, s);
+                                               lse, delta, amax, dq, dk, dv,
+                                               B, H, T, D, scale, s);
 }
 
 bool bad_shape(int B, int H, int T, int D, int max_d) {
@@ -800,36 +905,40 @@ extern "C" int flash_attn_bwd_bf16(const void* q, const void* k, const void* v,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* o16 = static_cast<const uint16_t*>(o);
   const auto* do16 = static_cast<const uint16_t*>(dout);
-  return f32_out ? launch_c<float, 1>(q, k, v, dout, o16, do16, lse, delta, dq,
-                                      dk, dv, B, H, T, D, causal, scale, s)
+  return f32_out ? launch_c<float, 1>(q, k, v, dout, o16, do16, lse, delta,
+                                      nullptr, dq, dk, dv, B, H, T, D, causal,
+                                      scale, s)
                  : launch_c<uint16_t, 1>(q, k, v, dout, o16, do16, lse, delta,
-                                         dq, dk, dv, B, H, T, D, causal,
-                                         scale, s);
+                                         nullptr, dq, dk, dv, B, H, T, D,
+                                         causal, scale, s);
 }
 
 // The same for f32 q, k, v, o, dout and dq, dk, dv, D a multiple of 8 up
-// to 128; parts: scratch of [4, 2, B, H, T, D] bf16 (8 x 2 bytes an
-// element of q), which the pre-pass fills with the hi and lo parts of q,
-// k, v and dout before the kernels read them. Five launches on `stream`.
+// to 128; parts: scratch of [4, 2, B, H, T, D] fp16 (8 x 2 bytes an
+// element of q), and amax of [4, B * H] uint32, which the pre-pass fills
+// with the fp16 parts of q, k, v and dout and their slices' largest |x|
+// before the kernels read them. Eleven launches and a memset on
+// `stream`.
 extern "C" int flash_attn_bwd_f32(const void* q, const void* k, const void* v,
                                   const void* o, const void* dout,
                                   const void* lse, void* delta, void* parts,
-                                  void* dq, void* dk, void* dv, int B, int H,
-                                  int T, int D, int causal, float scale,
-                                  int device, void* stream) {
+                                  void* amax, void* dq, void* dk, void* dv,
+                                  int B, int H, int T, int D, int causal,
+                                  float scale, int device, void* stream) {
   if (bad_shape(B, H, T, D, 128)) return static_cast<int>(cudaErrorInvalidValue);
   DeviceGuard guard(device);
   if (guard.error()) return guard.error();
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t n = static_cast<int64_t>(B) * H * T * D;
-  uint16_t* p = static_cast<uint16_t*>(parts);
+  const int64_t slices = static_cast<int64_t>(B) * H;
+  const int64_t n = static_cast<int64_t>(T) * D;  // per slice
   const void* src[4] = {q, k, v, dout};
-  for (int i = 0; i < 4; ++i) {
-    const int err = split_parts(src[i], p + 2 * i * n, n, s);
-    if (err != 0) return err;
-  }
-  return launch_c<float, 2>(p, p + 2 * n, p + 4 * n, p + 6 * n,
+  const int err = split_operands(src, 4, parts, amax, slices, n, s);
+  if (err != 0) return err;
+  const __half* p = static_cast<const __half*>(parts);
+  const int64_t part = 2 * slices * n;  // an operand's two parts
+  return launch_c<float, 2>(p, p + part, p + 2 * part, p + 3 * part,
                             static_cast<const float*>(o),
-                            static_cast<const float*>(dout), lse, delta, dq,
-                            dk, dv, B, H, T, D, causal, scale, s);
+                            static_cast<const float*>(dout), lse, delta,
+                            static_cast<const uint32_t*>(amax), dq, dk, dv, B,
+                            H, T, D, causal, scale, s);
 }

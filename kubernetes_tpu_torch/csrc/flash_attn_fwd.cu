@@ -74,17 +74,24 @@
 //
 // f32 q, k, v (the LM and the MoE at compute_dtype f32; head dims up to
 // 128, tile widths 16 to 128). The entry point splits each into its two
-// bf16 parts (hopper.cuh: hi, lo) in a pre-pass, and the kernel takes
-// S = Q K^T and O += P V each as three bf16 products (hi.hi + hi.lo +
-// lo.hi), P split in registers as the backward splits it; o is f32. Over
-// one-pass TF32 (~3 decimal digits, and no MN-major B for V) the parts
-// keep ~16 bits of every operand, and every layout above stays. A tile
-// in two parts holds twice the bytes: at W 128 the W-256 plan (64-key
-// K/V tiles, Q 2 x 32 KB + 4 x 2 x 16 KB = 192 KB), below it the square
-// tiles. Bound: the same operations over the TF32 rate (495 TFLOP/s) a
-// user who asks for f32 would otherwise get; the design executes three
-// times the bf16 products at the bf16 rate, and the pre-pass reads and
-// writes 8 bytes an element of q, k and v.
+// fp16 parts under a power-of-2 scale per [batch, head] slice
+// (hopper.cuh: hi, lo, ~22 significant bits) in a pre-pass, and the
+// kernel takes S = Q K^T and O += P V each as three fp16 products (hi.hi
+// + hi.lo + lo.hi), P split in registers under the fixed scale kPScale;
+// the slices' scales fold into the softmax scale for S and divide out of
+// o in the epilogue; each tile's P V goes into a fresh accumulator, added
+// to O in f32 (the tensor cores' adds truncate); o is f32. Over one-pass
+// TF32 (~3 decimal digits,
+// and no MN-major B for V) the parts keep ~22 bits of every operand, as
+// exact as f32 attention's own rounding (bf16 hi + lo parts kept ~16,
+// which an MoE's train steps amplified past f32's), and every layout
+// above stays. A tile in two parts holds twice the bytes: at W 128 the
+// W-256 plan (64-key K/V tiles, Q 2 x 32 KB + 4 x 2 x 16 KB = 192 KB),
+// below it the square tiles. Bound: the same operations over the TF32
+// rate (495 TFLOP/s) a user who asks for f32 would otherwise get; the
+// design executes three times the 16-bit products at the fp16 rate, and
+// the pre-pass reads q, k and v twice (their slices' largest |x|, then
+// the split) and writes 4 bytes an element.
 #include <math.h>
 
 #include "common.cuh"
@@ -120,15 +127,19 @@ struct Smem {
   static constexpr int kAlloc = kBytes + 1024;  // slack for the alignment
 };
 
+// amax: in two parts, the bits of each [batch, head] slice's largest |x|
+// of q, k, then v ([3, B * H], hopper.cuh's split_parts); unread in one.
 template <int W, bool kCausal, typename Out, int kParts>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv,
-                 Out* __restrict__ o, float* __restrict__ lse, int T, int D,
+                 Out* __restrict__ o, float* __restrict__ lse,
+                 const uint32_t* __restrict__ amax, int T, int D,
                  float scale_log2) {
   using L = Smem<W, kParts>;
   using Prod = Terms<kParts, kParts>;  // S = Q K^T and O += P V
+  using E = typename Part<kParts>::T;
   constexpr int kKeys = L::kKeys;
   // Square tiles: a q-tile takes the key tiles up to its own index, and
   // only the first taken (the diagonal, or T's last keys) is masked.
@@ -196,6 +207,15 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
 
   // Consumer warpgroups.
   setmaxnreg_inc<240>();
+  // In two parts S comes out s_q s_k times, and O s_v kPScale times, too
+  // large: the softmax scale takes the first, the epilogue the second.
+  float post = 1.f;
+  if constexpr (kParts == 2) {
+    const int bh = heads;
+    scale_log2 = scale_log2 * slice_inv_scale(amax[head]) *
+                 slice_inv_scale(amax[bh + head]);
+    post = slice_inv_scale(amax[2 * bh + head]) * (1.f / kPScale);
+  }
   const int wg = threadIdx.x / 128;
   const int warp = (threadIdx.x % 128) / 32;
   const int lane = threadIdx.x % 32;
@@ -227,7 +247,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
     for (int t = 0; t < Prod::kN; ++t) {
 #pragma unroll
       for (int kk = 0; kk < W / 16; ++kk) {
-        wgmma_ss<kKeys>(
+        wgmma_ss<kKeys, E>(
             sc,
             Tile<W>::kmajor(base + L::kQ + Prod::a(t) * L::kQPart, kRows,
                             wg * 64, kk),
@@ -284,29 +304,42 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
     for (int i = 0; i < W / 2; ++i) acc[i] *= corr[(i % 4) / 2];
 
     // O += P V: P's k-slice kk is S's entries 8kk..8kk+7, rounded once
-    // to bf16 beside bf16 V, in two parts beside the parts of f32 V.
+    // to bf16 beside bf16 V, in two fp16 parts (times kPScale) beside the
+    // parts of f32 V.
     uint32_t pf[kParts][kKeys / 16][4];
 #pragma unroll
     for (int kk = 0; kk < kKeys / 16; ++kk) {
       if constexpr (kParts == 1) {
         acc_to_a(pf[0][kk], sc + 8 * kk);
       } else {
-        acc_to_a_split(pf[0][kk], pf[1][kk], sc + 8 * kk);
+        const float ps[2] = {kPScale, kPScale};
+        acc_to_a_split_f16(pf[0][kk], pf[1][kk], sc + 8 * kk, ps);
       }
     }
+    // In two parts the tile's products go into a fresh accumulator,
+    // `part`, added to O in f32 after: the tensor cores add into an
+    // accumulator with truncation, whose bias over a long sum would pass
+    // the ~22-bit operands' rounding.
+    float part[kParts == 2 ? W / 2 : 1];
+    float* o_to = acc;
+    if constexpr (kParts == 2) o_to = part;
     mbar_wait(v_full + 8 * s, parity);
     wgmma_fence();
+    constexpr int kSlices = kKeys / 16;
 #pragma unroll
-    for (int kk = 0; kk < kKeys / 16; ++kk) {
-#pragma unroll
-      for (int t = 0; t < Prod::kN; ++t) {
-        wgmma_rs<W>(acc, pf[Prod::a(t)][kk],
-                    Tile<W>::mnmajor(vs + Prod::b(t) * L::kPart, kKeys, kk),
-                    1);
-      }
+    for (int i = 0; i < Prod::kN * kSlices; ++i) {
+      const int t = Prod::term(i, kSlices), kk = Prod::slice(i, kSlices);
+      wgmma_rs<W, E>(o_to, pf[Prod::a(t)][kk],
+                     Tile<W>::mnmajor(vs + Prod::b(t) * L::kPart, kKeys, kk),
+                     kParts == 1 || i > 0);
     }
     wgmma_commit();
     wgmma_wait<0>();
+    if constexpr (kParts == 2) {
+      fence_regs<W / 2>(part);
+#pragma unroll
+      for (int i = 0; i < W / 2; ++i) acc[i] += part[i];
+    }
     fence_regs<W / 2>(acc);
     mbar_arrive(empty + 8 * s);  // this stage's K and V are read
   }
@@ -328,8 +361,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
     const int row = r0 + 8 * r;
     const int col = 8 * (i / 4) + 2 * c;
     if (row < T && col < D) {
-      store_pair(oh + static_cast<int64_t>(row) * D + col, acc[i] * inv[r],
-                 acc[i + 1] * inv[r]);
+      store_pair(oh + static_cast<int64_t>(row) * D + col,
+                 acc[i] * inv[r] * post, acc[i + 1] * inv[r] * post);
     }
   }
   if (c == 0) {
@@ -343,11 +376,13 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
 // q, k, v: kParts parts of B * H heads each (hopper.cuh).
 template <int W, bool kCausal, typename Out, int kParts>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int B, int H, int T, int D, float scale_log2, cudaStream_t stream) {
+           const uint32_t* amax, int B, int H, int T, int D,
+           float scale_log2, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  int err = make_tile_map<W>(&tq, q, kParts * B * H, T, D);
-  if (err == 0) err = make_tile_map<W>(&tk, k, kParts * B * H, T, D);
-  if (err == 0) err = make_tile_map<W>(&tv, v, kParts * B * H, T, D);
+  constexpr CUtensorMapDataType type = Part<kParts>::kMap;
+  int err = make_tile_map<W>(&tq, q, kParts * B * H, T, D, type);
+  if (err == 0) err = make_tile_map<W>(&tk, k, kParts * B * H, T, D, type);
+  if (err == 0) err = make_tile_map<W>(&tv, v, kParts * B * H, T, D, type);
   // The shared-memory limit is a property of the kernel on a device: set
   // once per device, not on every launch.
   static PerDevice smem_set;
@@ -366,8 +401,8 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   flash_fwd_kernel<W, kCausal, Out, kParts><<<static_cast<unsigned>(blocks),
                                               kThreads, Smem<W, kParts>::kAlloc,
                                               stream>>>(
-      tq, tk, tv, static_cast<Out*>(o), static_cast<float*>(lse), T, D,
-      scale_log2);
+      tq, tk, tv, static_cast<Out*>(o), static_cast<float*>(lse), amax, T,
+      D, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -375,25 +410,26 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
 // most 256 in one part, 128 in two; the entry points check).
 template <bool kCausal, typename Out, int kParts>
 int launch_d(const void* q, const void* k, const void* v, void* o, void* lse,
-             int B, int H, int T, int D, float scale_log2, cudaStream_t s) {
+             const uint32_t* amax, int B, int H, int T, int D,
+             float scale_log2, cudaStream_t s) {
   if (D <= 16) {
-    return launch<16, kCausal, Out, kParts>(q, k, v, o, lse, B, H, T, D,
+    return launch<16, kCausal, Out, kParts>(q, k, v, o, lse, amax, B, H, T, D,
                                             scale_log2, s);
   }
   if (D <= 32) {
-    return launch<32, kCausal, Out, kParts>(q, k, v, o, lse, B, H, T, D,
+    return launch<32, kCausal, Out, kParts>(q, k, v, o, lse, amax, B, H, T, D,
                                             scale_log2, s);
   }
   if (D <= 64) {
-    return launch<64, kCausal, Out, kParts>(q, k, v, o, lse, B, H, T, D,
+    return launch<64, kCausal, Out, kParts>(q, k, v, o, lse, amax, B, H, T, D,
                                             scale_log2, s);
   }
   if (D <= 128) {
-    return launch<128, kCausal, Out, kParts>(q, k, v, o, lse, B, H, T, D,
+    return launch<128, kCausal, Out, kParts>(q, k, v, o, lse, amax, B, H, T, D,
                                              scale_log2, s);
   }
   if constexpr (kParts == 1) {
-    return launch<256, kCausal, Out, 1>(q, k, v, o, lse, B, H, T, D,
+    return launch<256, kCausal, Out, 1>(q, k, v, o, lse, amax, B, H, T, D,
                                         scale_log2, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
@@ -401,12 +437,12 @@ int launch_d(const void* q, const void* k, const void* v, void* o, void* lse,
 
 template <typename Out, int kParts>
 int launch_c(const void* q, const void* k, const void* v, void* o, void* lse,
-             int B, int H, int T, int D, int causal, float scale_log2,
-             cudaStream_t s) {
-  return causal ? launch_d<true, Out, kParts>(q, k, v, o, lse, B, H, T, D,
-                                              scale_log2, s)
-                : launch_d<false, Out, kParts>(q, k, v, o, lse, B, H, T, D,
-                                               scale_log2, s);
+             const uint32_t* amax, int B, int H, int T, int D, int causal,
+             float scale_log2, cudaStream_t s) {
+  return causal ? launch_d<true, Out, kParts>(q, k, v, o, lse, amax, B, H, T,
+                                              D, scale_log2, s)
+                : launch_d<false, Out, kParts>(q, k, v, o, lse, amax, B, H,
+                                               T, D, scale_log2, s);
 }
 
 bool bad_shape(int B, int H, int T, int D, int max_d) {
@@ -430,31 +466,33 @@ extern "C" int flash_attn_fwd_bf16(const void* q, const void* k, const void* v,
   DeviceGuard guard(device);
   if (guard.error()) return guard.error();
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return f32_out ? launch_c<float, 1>(q, k, v, o, lse, B, H, T, D, causal,
-                                      scale_log2, s)
-                 : launch_c<uint16_t, 1>(q, k, v, o, lse, B, H, T, D, causal,
-                                         scale_log2, s);
+  return f32_out ? launch_c<float, 1>(q, k, v, o, lse, nullptr, B, H, T, D,
+                                      causal, scale_log2, s)
+                 : launch_c<uint16_t, 1>(q, k, v, o, lse, nullptr, B, H, T, D,
+                                         causal, scale_log2, s);
 }
 
 // The same for f32 q, k, v and o, D a multiple of 8 up to 128; parts:
-// scratch of [3, 2, B, H, T, D] bf16 (6 x 2 bytes an element of q), which
-// the pre-pass fills with the hi and lo parts of q, k and v before the
-// kernel reads them. Two launches on `stream`.
+// scratch of [3, 2, B, H, T, D] fp16 (6 x 2 bytes an element of q), and
+// amax of [3, B * H] uint32, which the pre-pass fills with the fp16
+// parts of q, k and v and their slices' largest |x| before the kernel
+// reads them. Six launches and a memset on `stream`.
 extern "C" int flash_attn_fwd_f32(const void* q, const void* k, const void* v,
-                                  void* o, void* lse, void* parts, int B,
-                                  int H, int T, int D, int causal,
+                                  void* o, void* lse, void* parts, void* amax,
+                                  int B, int H, int T, int D, int causal,
                                   float scale_log2, int device, void* stream) {
   if (bad_shape(B, H, T, D, 128)) return static_cast<int>(cudaErrorInvalidValue);
   DeviceGuard guard(device);
   if (guard.error()) return guard.error();
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t n = static_cast<int64_t>(B) * H * T * D;
-  uint16_t* p = static_cast<uint16_t*>(parts);
+  const int64_t slices = static_cast<int64_t>(B) * H;
+  const int64_t n = static_cast<int64_t>(T) * D;  // per slice
   const void* src[3] = {q, k, v};
-  for (int i = 0; i < 3; ++i) {
-    const int err = split_parts(src[i], p + 2 * i * n, n, s);
-    if (err != 0) return err;
-  }
-  return launch_c<float, 2>(p, p + 2 * n, p + 4 * n, o, lse, B, H, T, D,
+  const int err = split_operands(src, 3, parts, amax, slices, n, s);
+  if (err != 0) return err;
+  const __half* p = static_cast<const __half*>(parts);
+  const int64_t part = 2 * slices * n;  // an operand's two parts
+  return launch_c<float, 2>(p, p + part, p + 2 * part, o, lse,
+                            static_cast<const uint32_t*>(amax), B, H, T, D,
                             causal, scale_log2, s);
 }

@@ -41,18 +41,30 @@
 //
 // f32 operands. The tensor cores take `.tf32` operands only K-major,
 // and the kernels read V, dO, Q and K as MN-major B operands, which only
-// `.bf16`/`.f16` allow. So an f32 tensor enters as two bf16 tensors, its
-// parts (split_parts): hi, its rounding to bf16, and lo, the rounding of
-// what hi left out; hi + lo carries ~16 significant bits. The parts lie
-// one after the other, [2, heads, T, D], so one tensor map of 2 * heads
-// heads reads both: part p of head h is head h + p * heads. A product of
-// two such operands is three bf16 products summed in the f32
-// accumulator, hi.hi + hi.lo + lo.hi (Terms), dropping lo.lo, ~2^-16 of
-// the product; every layout and wgmma instance stays as it is for bf16.
+// `.bf16`/`.f16` allow. So an f32 tensor enters as two fp16 tensors, its
+// parts (split_parts): under a power of 2 `s` per [batch, head] slice,
+// chosen from the slice's largest |x| so that |x s| < 2^15 (scale_of),
+// hi is the rounding of x s to fp16 and lo the rounding of what hi left
+// out; hi + lo carries ~22 significant bits (fp16 keeps 11, and lo is
+// within 2^-11 of hi), the scale keeping both parts clear of fp16's
+// overflow and, down to 2^-17 of the slice's largest value, of its
+// subnormals. The parts lie one after the other, [2, heads, T, D], so
+// one tensor map of 2 * heads heads reads both: part p of head h is head
+// h + p * heads. A product of two such operands is three fp16 products
+// summed in the f32 accumulator, hi.hi + hi.lo + lo.hi (Terms), dropping
+// lo.lo, ~2^-22 of the product, the small ones first; its result is s_a
+// s_b times the
+// product, which the kernels divide out (folded into the softmax scale
+// for S, into the epilogue for the outputs). P in [0, 1] enters under
+// the fixed scale 2^15 (kPScale), dS under a scale per row of the
+// product it feeds, kept as a running minimum across tiles like the
+// softmax's running max (RowScale). Every layout and wgmma instance
+// stays as it is for bf16; only the operand type is `.f16`.
 #pragma once
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -226,14 +238,14 @@ __device__ __forceinline__ void fence_regs(float* d) {
 }
 
 // d (m64 x N, f32) = A B (+ d if accumulate): A and B K-major in shared
-// memory.
-template <int N>
+// memory, both of 16-bit type E (bf16, or fp16: the parts of f32).
+template <int N, typename E = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss(float* d, uint64_t a, uint64_t b,
                                          int accumulate);
 
-// d (m64 x N, f32) = A B (+ d if accumulate): A in registers (four bf16
-// pairs per thread), B MN-major in shared memory.
-template <int N>
+// d (m64 x N, f32) = A B (+ d if accumulate): A in registers (four pairs
+// of E per thread), B MN-major in shared memory.
+template <int N, typename E = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
                                          uint64_t b, int accumulate);
 
@@ -385,6 +397,119 @@ __device__ __forceinline__ void wgmma_rs<256>(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
+// fp16: the parts of f32 operands (above).
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64, __half>(float* d, uint64_t a,
+                                                      uint64_t b,
+                                                      int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128, __half>(float* d, uint64_t a,
+                                                      uint64_t b,
+                                                      int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16, __half>(float* d,
+                                                      const uint32_t* a,
+                                                      uint64_t b,
+                                                      int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32, __half>(float* d,
+                                                      const uint32_t* a,
+                                                      uint64_t b,
+                                                      int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64, __half>(float* d,
+                                                      const uint32_t* a,
+                                                      uint64_t b,
+                                                      int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128, __half>(float* d,
+                                                      const uint32_t* a,
+                                                      uint64_t b,
+                                                      int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
 // ---- register budget -------------------------------------------------
 
 template <int N>
@@ -442,52 +567,246 @@ __device__ __forceinline__ void acc_to_a_split(uint32_t* hi, uint32_t* lo,
   for (int i = 0; i < 4; ++i) split_pair(hi + i, lo + i, c[2 * i], c[2 * i + 1]);
 }
 
-// The bf16 products that make up one product A B whose A comes in kA
-// parts and B in kB (1: bf16; 2: hi, lo): every pair of parts but lo.lo,
-// in the order (0, 0), (0, 1), (1, 0). Product t takes part a(t) of A
-// and part b(t) of B.
+// Two f32 values (x0 in the low half) times `s`, in two fp16 parts:
+// `hi`, the products rounded to fp16, and `lo`, the fp16 rounding of
+// what `hi` left out. `s` is a power of 2, so x s is exact.
+__device__ __forceinline__ void split_pair_f16(uint32_t* hi, uint32_t* lo,
+                                               float x0, float x1, float s) {
+  x0 *= s;
+  x1 *= s;
+  const __half2 h = __floats2half2_rn(x0, x1);
+  const float2 hf = __half22float2(h);
+  const __half2 l = __floats2half2_rn(x0 - hf.x, x1 - hf.y);
+  *hi = *reinterpret_cast<const uint32_t*>(&h);
+  *lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// acc_to_a_split in fp16 parts of the entries times `s[r]`, r the row
+// of the entry (entries 4i + e lie on row e / 2: rows g and g + 8).
+__device__ __forceinline__ void acc_to_a_split_f16(uint32_t* hi,
+                                                   uint32_t* lo,
+                                                   const float* c,
+                                                   const float* s) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    split_pair_f16(hi + i, lo + i, c[2 * i], c[2 * i + 1], s[i % 2]);
+  }
+}
+
+// The fixed scale of P (in [0, 1]) in fp16 parts: the largest P lands
+// on 2^15, below fp16's largest finite value, and a P down to 2^-29
+// stays a normal fp16 number.
+constexpr float kPScale = 32768.f;
+
+// ---- f32 operands: scales ---------------------------------------------
+
+// The biased f32 exponent of the scale that takes a largest |x| with
+// bits `amax` into [2^14, 2^15): 2^(14 - floor(log2 amax)), at most
+// 2^126 (so its inverse is a normal f32 too); 2^126 for 0 and for
+// subnormal amax.
+__host__ __device__ __forceinline__ int scale_exp(uint32_t amax) {
+  const int e = 268 - static_cast<int>((amax >> 23) & 0xff);
+  return e < 253 ? e : 253;
+}
+
+// 2^(e - 127) for a biased exponent e in [1, 254]; 0 below 1.
+__device__ __forceinline__ float pow2_biased(int e) {
+  return e >= 1 ? __uint_as_float(static_cast<uint32_t>(e) << 23) : 0.f;
+}
+
+// The scale of biased exponent e, and its inverse.
+__device__ __forceinline__ float scale_of(int e) { return pow2_biased(e); }
+__device__ __forceinline__ float inv_scale_of(int e) {
+  return pow2_biased(254 - e);
+}
+
+// The scale of the operand slice whose largest |x| has bits `amax`.
+__device__ __forceinline__ float slice_inv_scale(uint32_t amax) {
+  return inv_scale_of(scale_exp(amax));
+}
+
+// A running scale for the two accumulator rows a thread holds (g and g
+// + 8), for an A operand that a kernel makes itself (dS) and whose range
+// no bound fixes: per tile, each row's largest |x| over the tile's
+// columns (the four lanes of a quad hold a row between them), then the
+// smaller of that row's scale so far and the tile's. When it falls, the
+// accumulator's entries of that row are multiplied by the ratio (an
+// exact power of 2) before the tile's products are added, so the
+// accumulator always holds scale x the sum; the epilogue multiplies by
+// inv().
+struct RowScale {
+  int e[2] = {253, 253};  // biased exponents; 2^126 before any tile
+  float s[2] = {0x1p126f, 0x1p126f};
+
+  // `x`: the tile's n entries of this thread (entry i on row (i % 4) /
+  // 2); `acc`: the m accumulator entries to rescale.
+  template <int n, int m>
+  __device__ __forceinline__ void update(const float* x, float* acc) {
+    float mx[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < n; ++i) {
+      mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], fabsf(x[i]));
+    }
+    float ratio[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const int t = scale_exp(__float_as_uint(mx[r]));
+      const int next = t < e[r] ? t : e[r];
+      ratio[r] = pow2_biased(127 + next - e[r]);
+      e[r] = next;
+      s[r] = scale_of(next);
+    }
+#pragma unroll
+    for (int i = 0; i < m; ++i) acc[i] *= ratio[(i % 4) / 2];
+  }
+  __device__ __forceinline__ float inv(int r) const {
+    return inv_scale_of(e[r]);
+  }
+};
+
+// The element type of an operand's parts: bf16 in one part (a bf16
+// tensor), fp16 in two (the parts of an f32 tensor), with the tensor
+// map type that copies it.
+template <int kParts>
+struct Part {
+  using T = __nv_bfloat16;
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+};
+template <>
+struct Part<2> {
+  using T = __half;
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+};
+
+// The 16-bit products that make up one product A B whose A comes in kA
+// parts and B in kB (1: bf16; 2: hi, lo). In bf16 (a bf16 operand beside
+// P or dS split in two): every pair, (0, 0) then (1, 0). Two operands in
+// fp16 parts (f32): every pair but lo.lo, the small ones first, (0, 1),
+// (1, 0), then (0, 0), since the tensor cores add each product into the
+// accumulator with truncation relative to the accumulator's magnitude:
+// added after the large one, the small products would lose their low
+// bits. Product t takes part a(t) of A and part b(t) of B; a product
+// over K k-slices takes its (term, k-slice) steps in the order term(i,
+// K), slice(i, K): term by term for f32 parts, else term within k-slice.
 template <int kA, int kB>
 struct Terms {
-  static constexpr int kN = kA * kB - (kA == 2 && kB == 2);
-  static constexpr __host__ __device__ int a(int t) { return t / kB; }
-  static constexpr __host__ __device__ int b(int t) { return t % kB; }
+  static constexpr bool kF32 = kA == 2 && kB == 2;
+  static constexpr int kN = kF32 ? 3 : kA * kB;
+  static constexpr __host__ __device__ int a(int t) {
+    return kF32 ? t == 1 : t / kB;
+  }
+  static constexpr __host__ __device__ int b(int t) {
+    return kF32 ? t == 0 : t % kB;
+  }
+  static constexpr __host__ __device__ int term(int i, int K) {
+    return kF32 ? i / K : i % kN;
+  }
+  static constexpr __host__ __device__ int slice(int i, int K) {
+    return kF32 ? i % K : i / kN;
+  }
 };
 
 // ---- f32 operands: the split into parts ---------------------------------
 
 constexpr int kSplitThreads = 256;
+// Blocks per slice of the pre-pass grids: enough to fill an H100 at
+// a few slices, one where a slice is small.
+inline int split_chunks(int64_t n4_slice, int64_t slices) {
+  int64_t c = (n4_slice + kSplitThreads * 8 - 1) / (kSplitThreads * 8);
+  const int64_t fill = (132 * 8 + slices - 1) / slices;
+  if (c > fill) c = fill;
+  return static_cast<int>(c < 1 ? 1 : c > 65535 ? 65535 : c);
+}
 
-// x: n f32 values (n a multiple of 4, 16-byte aligned) -> parts: n bf16
-// values of hi, then n of lo.
+// amax[slice] = bits of the largest |x| over each slice of n4 float4s
+// (blockIdx.x the slice, blockIdx.y a chunk of it): non-negative floats
+// order as their bits, so atomicMax on the bits is max on the values.
 __global__ void __launch_bounds__(kSplitThreads)
-split_parts_kernel(const float4* __restrict__ x, uint2* __restrict__ hi,
-                   uint2* __restrict__ lo, int64_t n4) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kSplitThreads;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kSplitThreads +
+slice_amax_kernel(const float4* __restrict__ x, uint32_t* __restrict__ amax,
+                  int64_t n4) {
+  const float4* xs = x + static_cast<int64_t>(blockIdx.x) * n4;
+  float m = 0.f;
+  for (int64_t i = static_cast<int64_t>(blockIdx.y) * kSplitThreads +
                    threadIdx.x;
-       i < n4; i += stride) {
-    const float4 v = x[i];
-    uint2 h, l;
-    split_pair(&h.x, &l.x, v.x, v.y);
-    split_pair(&h.y, &l.y, v.z, v.w);
-    hi[i] = h;
-    lo[i] = l;
+       i < n4; i += static_cast<int64_t>(gridDim.y) * kSplitThreads) {
+    const float4 v = xs[i];
+    m = fmaxf(m, fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)),
+                       fmaxf(fabsf(v.z), fabsf(v.w))));
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) {
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  }
+  __shared__ float warp_max[kSplitThreads / 32];
+  if (threadIdx.x % 32 == 0) warp_max[threadIdx.x / 32] = m;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < kSplitThreads / 32; ++w) m = fmaxf(m, warp_max[w]);
+    atomicMax(amax + blockIdx.x, __float_as_uint(m));
   }
 }
 
-// The parts of the n f32 values at x (n a multiple of 4) into `parts`
-// ([2, n] bf16), on `stream`. Returns a CUDA error code.
-inline int split_parts(const void* x, void* parts, int64_t n,
-                       cudaStream_t stream) {
+// Each slice of n4 float4s times its scale, in fp16 parts: hi and lo,
+// at the same offset in two arrays.
+__global__ void __launch_bounds__(kSplitThreads)
+split_parts_kernel(const float4* __restrict__ x,
+                   const uint32_t* __restrict__ amax, uint2* __restrict__ hi,
+                   uint2* __restrict__ lo, int64_t n4) {
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * n4;
+  const float s = scale_of(scale_exp(amax[blockIdx.x]));
+  for (int64_t i = static_cast<int64_t>(blockIdx.y) * kSplitThreads +
+                   threadIdx.x;
+       i < n4; i += static_cast<int64_t>(gridDim.y) * kSplitThreads) {
+    const float4 v = x[base + i];
+    uint2 h, l;
+    split_pair_f16(&h.x, &l.x, v.x, v.y, s);
+    split_pair_f16(&h.y, &l.y, v.z, v.w, s);
+    hi[base + i] = h;
+    lo[base + i] = l;
+  }
+}
+
+// The parts of `slices` slices of n f32 values each at x (n a multiple
+// of 4) into `parts` ([2, slices, n] fp16), each slice's largest |x|
+// into amax[slice] (bits; amax zeroed by the caller), on `stream`: two
+// launches. Returns a CUDA error code.
+inline int split_parts(const void* x, void* parts, uint32_t* amax,
+                       int64_t slices, int64_t n, cudaStream_t stream) {
   const int64_t n4 = n / 4;
-  // A grid-stride loop over at most 16 blocks an SM of an H100.
-  const int64_t blocks = (n4 + kSplitThreads - 1) / kSplitThreads;
+  if (slices <= 0 || slices > 0x7fffffff) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(static_cast<unsigned>(slices),
+                  static_cast<unsigned>(split_chunks(n4, slices)));
+  const auto* in = static_cast<const float4*>(x);
+  slice_amax_kernel<<<grid, kSplitThreads, 0, stream>>>(in, amax, n4);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
   auto* out = static_cast<uint2*>(parts);
-  split_parts_kernel<<<static_cast<unsigned>(blocks < 132 * 16 ? blocks
-                                                               : 132 * 16),
-                       kSplitThreads, 0, stream>>>(
-      static_cast<const float4*>(x), out, out + n4, n4);
+  split_parts_kernel<<<grid, kSplitThreads, 0, stream>>>(
+      in, amax, out, out + slices * n4, n4);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The parts of `count` f32 operands (src[i], each `slices` slices of n
+// values) into parts + 2 i slices n and their slices' largest |x| into
+// amax[i * slices ..]: the pre-pass of the f32 entry points.
+inline int split_operands(const void* const* src, int count, void* parts,
+                          void* amax, int64_t slices, int64_t n,
+                          cudaStream_t stream) {
+  auto* a = static_cast<uint32_t*>(amax);
+  cudaError_t e = cudaMemsetAsync(a, 0, sizeof(uint32_t) * count * slices,
+                                  stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  auto* p = static_cast<__half*>(parts);
+  for (int i = 0; i < count; ++i) {
+    const int err = split_parts(src[i], p + 2 * i * slices * n,
+                                a + i * slices, slices, n, stream);
+    if (err != 0) return err;
+  }
+  return 0;
 }
 
 // ---- host: tensor maps -----------------------------------------------
@@ -520,14 +839,16 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// The 3-D map (D, T, heads) of a contiguous [heads, T, D] bf16 tensor,
+// The 3-D map (D, T, heads) of a contiguous [heads, T, D] 16-bit tensor
+// (`type`: bf16, or fp16 for the parts of f32),
 // D a multiple of 8 (TMA takes row strides of 16 bytes) and at most W,
 // boxes of Tile<W>::kBoxCols columns x kTmaRows rows, swizzled as Tile<W>
 // expects; rows past T and columns past D read as zeros. Returns a CUDA
 // error code.
 template <int W>
 int make_tile_map(CUtensorMap* map, const void* ptr, int heads, int T,
-                  int D) {
+                  int D,
+                  CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
@@ -539,7 +860,7 @@ int make_tile_map(CUtensorMap* map, const void* ptr, int heads, int T,
                              static_cast<cuuint32_t>(kTmaRows), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+      map, type, 3, const_cast<void*>(ptr), dims,
       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
       Tile<W>::kSwizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

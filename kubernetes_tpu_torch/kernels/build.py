@@ -35,7 +35,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
-SOURCES = ("vector_add", "flash_attn_fwd", "flash_attn_bwd")
+SOURCES = ("vector_add", "flash_attn_fwd", "flash_attn_bwd", "flash_attn_wide")
 
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 

@@ -21,7 +21,8 @@
   version; :func:`attention_f64`, the same as a differentiable attention
   for a model's train step; :func:`attention_tf32`, plain attention with
   every product in one-pass TF32, the lower-precision control that a
-  rule on an f32 model's steps must reject.
+  rule on an f32 model's steps must reject; :func:`f32_steps_rule`, that
+  rule.
 
 ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` run them.
 """
@@ -42,7 +43,11 @@ from ..workloads.ring_attention import (causal_mask, reference_attention,
 MOE_FLIP_SHARE = 0.01
 #: The f32 instances' largest deviation from an exact version, as a
 #: share of the bf16 instances' deviation from it at the most.
-F32_RULE = 1 / 16
+F32_RULE = 1 / 256
+#: The f32 LM's and f32 MoE's losses against plain f32 attention's,
+#: relative: the forward's and the first step's. After the first step
+#: an f32 model's train steps are held by :func:`f32_steps_rule`.
+F32_LOSS_RTOL = 1e-4
 #: Bytes of f64 scores a chunk of heads may take at once.
 _CHUNK_BYTES = 1 << 30
 
@@ -287,3 +292,33 @@ def attention_tf32(q, k, v) -> torch.Tensor:
     control that shows a rule on an f32 model's steps can tell an
     attention of less than f32 precision from the kernels."""
     return _AttentionTF32.apply(q, k, v)
+
+
+def f32_steps_rule(kernels: list, plain: list, exact: list) -> dict:
+    """An f32 path's train-step losses (``kernels``: one card's through
+    the kernels, or a mesh's through the ring) against one card's with
+    plain f32 attention (``plain``) and with plain attention in f64
+    (``exact``), the three from the same params and batch.
+
+    - Step 1: within F32_LOSS_RTOL of ``plain``.
+    - Every step: no further from ``exact`` than F32_LOSS_RTOL or, where
+      ``plain`` itself is further from it, twice ``plain``'s distance.
+
+    A loss a few steps on is no finer than f32 attention's own rounding
+    carried through AdamW: where ``plain`` is more than F32_LOSS_RTOL
+    from ``exact``, an attention as exact as f64 fails F32_LOSS_RTOL
+    against ``plain``; ``lm_f32`` reads the distances on the card, and
+    shows the rule rejects one-pass TF32 attention. Returns the
+    distances and ``ok``."""
+    def rel(a, b):
+        return [abs(x - y) / abs(y) for x, y in zip(a, b)]
+    row = {"kernels_vs_plain": rel(kernels, plain),
+           "kernels_vs_exact": rel(kernels, exact),
+           "plain_vs_exact": rel(plain, exact)}
+    row["bound"] = [max(F32_LOSS_RTOL, 2 * p) for p in row["plain_vs_exact"]]
+    row["ok"] = (len(kernels) == len(plain) == len(exact)
+                 and all(map(math.isfinite, kernels))
+                 and row["kernels_vs_plain"][0] <= F32_LOSS_RTOL
+                 and all(d <= b for d, b in zip(row["kernels_vs_exact"],
+                                                row["bound"])))
+    return row

@@ -1,5 +1,6 @@
-"""Flash attention: the kernels of ``csrc/flash_attn_fwd.cu`` and
-``csrc/flash_attn_bwd.cu``, causal or not.
+"""Flash attention: the kernels of ``csrc/flash_attn_fwd.cu``,
+``csrc/flash_attn_bwd.cu`` and, at head dims wider than their tiles,
+``csrc/flash_attn_wide.cu``; causal or not.
 
 One forward kernel in place of the reference's two TPU attention
 kernels, ``_splash_attention`` and ``_flash_attention``
@@ -20,18 +21,22 @@ before its queries, and sums its blocks in f32 before it rounds.
 Dtypes: q, k, v (and o, dO) all bf16 or all f32; any other dtype, or
 two dtypes, raise ``TypeError``. bf16 takes the ``*_bf16`` entry points;
 f32 the ``*_f32`` ones, whose pre-pass splits each operand into two
-bf16 parts that the kernels multiply three times (hi.hi + hi.lo +
-lo.hi, ``csrc/hopper.cuh``), so the products keep ~16 significant bits
-where one-pass TF32 keeps ~11; their outputs are f32. The pre-pass
-writes the parts into scratch that the wrapper allocates.
+fp16 parts under a power-of-2 scale per [batch, head] slice that the
+kernels multiply three times (hi.hi + hi.lo + lo.hi,
+``csrc/hopper.cuh``), so the products keep ~22 significant bits, near
+f32's own 24, where one-pass TF32 keeps ~11; their outputs are f32. The
+pre-pass writes the parts and the slices' largest |x| into scratch that
+the wrapper allocates.
 
-Head dims: the bf16 kernels take any head dim up to :data:`MAX_HEAD_DIM`,
-the f32 ones up to :data:`MAX_F32_HEAD_DIM`. A multiple of 8 launches as
-it is (the smallest of their tile widths 16, 32, 64, 128, 256 that holds
-it runs, its extra columns zeros that TMA fills in); any other is copied
-into a zero-padded ``[B, H, T, ceil8(D)]`` buffer first, the result
-sliced back to D, with ``1/sqrt(D)`` of the true D. A wider head dim
-raises ``ValueError``.
+Head dims: every head dim from 1 launches a kernel, in either dtype.
+Up to :data:`MAX_HEAD_DIM` in bf16 and :data:`MAX_F32_HEAD_DIM` in f32
+(:func:`one_tile`) the fused kernels run, on the smallest of their tile
+widths 16, 32, 64, 128, 256 that holds it, its extra columns zeros that
+TMA fills in; over it the wide kernels, which split the head dim into
+64-column slices (``csrc/flash_attn_wide.cu``). A multiple of 8 launches
+as it is; any other is copied into a zero-padded ``[B, H, T, ceil8(D)]``
+buffer first, the result sliced back to D, with ``1/sqrt(D)`` of the
+true D.
 """
 from __future__ import annotations
 
@@ -44,64 +49,59 @@ import torch.nn.functional as F
 from ..kernels import build
 from .ring_attention import causal_mask, reference_attention_with_lse
 
-#: Forward kernel launches so far; the wrapper adds one per launch and
-#: nowhere else, so a run can show that it went through the kernel.
-launches = 0
-#: Backward kernel launches so far (one per :func:`flash_attention_bwd`
-#: call on CUDA tensors), counted like :data:`launches`.
-bwd_launches = 0
-#: Of those, the launches of the non-causal instances, forward and
-#: backward: the ring's blocks before their queries.
-non_causal_launches = 0
-non_causal_bwd_launches = 0
-#: Of all four, the launches on f32 q, k, v: the f32 instances.
-f32_launches = 0
-f32_bwd_launches = 0
-f32_non_causal_launches = 0
-f32_non_causal_bwd_launches = 0
+def _instance(direction: str, wide: bool, causal: bool, f32: bool) -> str:
+    """The name of a kernel instance: ``flash_attn_`` and ``fwd`` or
+    ``bwd``, then ``_wide`` (head dims over :func:`one_tile`), ``_f32``
+    (f32 q, k, v) and ``_non_causal`` where they apply."""
+    return (f"flash_attn_{direction}{'_wide' if wide else ''}"
+            f"{'_f32' if f32 else ''}{'' if causal else '_non_causal'}")
+
+
+#: Launches so far by kernel instance (:func:`_instance`); a wrapper adds
+#: one where it launches and nowhere else, so a run can show that it
+#: went through the kernels.
+_launches = {_instance(d, w, c, f): 0 for d in ("fwd", "bwd")
+             for w in (False, True) for f in (False, True)
+             for c in (True, False)}
 
 
 def counts() -> dict:
-    """The launches so far by kernel instance: bf16 and f32, causal and
-    non-causal apart, forward and backward."""
-    f32 = f32_launches - f32_non_causal_launches
-    f32_bwd = f32_bwd_launches - f32_non_causal_bwd_launches
-    return {"flash_attn_fwd": launches - non_causal_launches - f32,
-            "flash_attn_bwd": bwd_launches - non_causal_bwd_launches - f32_bwd,
-            "flash_attn_fwd_non_causal":
-                non_causal_launches - f32_non_causal_launches,
-            "flash_attn_bwd_non_causal":
-                non_causal_bwd_launches - f32_non_causal_bwd_launches,
-            "flash_attn_fwd_f32": f32, "flash_attn_bwd_f32": f32_bwd,
-            "flash_attn_fwd_f32_non_causal": f32_non_causal_launches,
-            "flash_attn_bwd_f32_non_causal": f32_non_causal_bwd_launches}
+    """The launches so far by kernel instance: the fused and the wide
+    kernels, bf16 and f32, causal and non-causal apart, forward and
+    backward."""
+    return dict(_launches)
 
 
 def zero_counts() -> None:
     """Every launch counter to 0."""
-    global launches, bwd_launches, non_causal_launches, \
-        non_causal_bwd_launches, f32_launches, f32_bwd_launches, \
-        f32_non_causal_launches, f32_non_causal_bwd_launches
-    launches = bwd_launches = non_causal_launches = 0
-    non_causal_bwd_launches = f32_launches = f32_bwd_launches = 0
-    f32_non_causal_launches = f32_non_causal_bwd_launches = 0
+    for name in _launches:
+        _launches[name] = 0
 
-#: The widest head dim the kernels take: their widest tile (GPT-J-6B's
-#: 256). From 1 (the trainer's default LM has 16) to this one, every
-#: head dim launches them.
+
+#: The widest head dim one tile of the fused kernels holds in bf16: their
+#: widest tile (GPT-J-6B's 256). Wider bf16 head dims take the wide
+#: kernels.
 MAX_HEAD_DIM = 256
-#: The widest head dim of the f32 instances: an f32 operand's two bf16
-#: parts take twice a bf16 tile's bytes, so their widest tile, 128, fills
-#: the shared memory of the bf16 tile of 256. Wider f32 heads need the
-#: head dim split across tiles (ROADMAP queue 1 item 3).
+#: The same in f32: an f32 operand's two fp16 parts take twice a bf16
+#: tile's bytes, so the widest f32 tile, 128, fills the shared memory of
+#: the bf16 tile of 256. Wider f32 head dims take the wide kernels.
 MAX_F32_HEAD_DIM = 128
-#: The dtypes the kernels take, and each one's widest head dim.
+#: The dtypes the kernels take, and each one's widest one-tile head dim.
 _MAX_D = {torch.bfloat16: MAX_HEAD_DIM, torch.float32: MAX_F32_HEAD_DIM}
 
 
 def takes_head_dim(d: int, dtype=torch.bfloat16) -> bool:
-    """Whether the kernels take head dim ``d`` in ``dtype``: 1 to
-    :data:`MAX_HEAD_DIM` in bf16, 1 to :data:`MAX_F32_HEAD_DIM` in f32."""
+    """Whether the kernels take head dim ``d`` in ``dtype``: every head
+    dim from 1 in bf16 and in f32 (the wide kernels over
+    :func:`one_tile`), none in any other dtype."""
+    return d > 0 and dtype in _MAX_D
+
+
+def one_tile(d: int, dtype=torch.bfloat16) -> bool:
+    """Whether head dim ``d`` in ``dtype`` runs on one tile of the fused
+    kernels: 1 to :data:`MAX_HEAD_DIM` in bf16, 1 to
+    :data:`MAX_F32_HEAD_DIM` in f32; a wider one takes the wide
+    kernels."""
     return 0 < d <= _MAX_D.get(dtype, 0)
 
 
@@ -124,20 +124,41 @@ _BWD = build.Kernel(
     "flash_attn_bwd", "flash_attn_bwd_bf16",
     (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 6
     + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
+_FWDW = build.Kernel("flash_attn_wide", "flash_attn_fwd_wide_bf16",
+                     _FWD.argtypes)
+_BWDW = build.Kernel("flash_attn_wide", "flash_attn_bwd_wide_bf16",
+                     _BWD.argtypes)
 _FWD32 = build.Kernel(
     "flash_attn_fwd", "flash_attn_fwd_f32",
-    (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 5
+    (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 5
     + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
 _BWD32 = build.Kernel(
     "flash_attn_bwd", "flash_attn_bwd_f32",
-    (ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 5
+    (ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 5
     + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
+_FWDW32 = build.Kernel("flash_attn_wide", "flash_attn_fwd_wide_f32",
+                       _FWD32.argtypes)
+_BWDW32 = build.Kernel("flash_attn_wide", "flash_attn_bwd_wide_f32",
+                       _BWD32.argtypes)
+
+
+def _f32_scratch(n: int, like: torch.Tensor) -> tuple:
+    """What the f32 entry points' pre-pass writes for ``n`` operands
+    shaped as ``like`` [B, H, T, D]: their fp16 hi and lo parts ([n, 2,
+    B, H, T, D]), and the bits of each [batch, head] slice's largest |x|
+    ([n, B * H] int32)."""
+    b, h = like.shape[:2]
+    return (torch.empty((n, 2) + tuple(like.shape), dtype=torch.float16,
+                        device=like.device),
+            torch.empty((n, b * h), dtype=torch.int32, device=like.device))
 
 
 def _check_kernel_inputs(what: str, **tensors) -> None:
     """The checks every kernel wrapper makes on its [B, H, T, D] inputs
-    before a launch: one dtype, bf16 or f32; the head dim; contiguity,
-    alignment and grid limits. Raises on what the kernels do not take."""
+    before a launch: one dtype, bf16 or f32; a head dim of 1 or more (any
+    width: the wide kernels take what one tile does not hold);
+    contiguity, alignment and grid limits. Raises on what the kernels do
+    not take."""
     dtype = next(iter(tensors.values())).dtype
     if dtype not in _MAX_D or any(x.dtype is not dtype
                                   for x in tensors.values()):
@@ -145,13 +166,8 @@ def _check_kernel_inputs(what: str, **tensors) -> None:
         raise TypeError(f"{what} kernel takes bfloat16 or float32, one "
                         f"dtype for all, got {got}")
     b, h, _, d = next(iter(tensors.values())).shape
-    if not takes_head_dim(d, dtype):
-        wider = (" (f32 head dims over 128 need the head dim split across "
-                 "tiles: ROADMAP queue 1 item 3)"
-                 if dtype is torch.float32 and d > 0 else "")
-        raise ValueError(f"{what} kernel takes head dim 1 to {_MAX_D[dtype]}"
-                         f"{' in float32' if dtype is torch.float32 else ''}"
-                         f", not {d}{wider}")
+    if d < 1:
+        raise ValueError(f"{what} kernel takes head dims from 1, not {d}")
     for name, x in tensors.items():
         if not x.is_contiguous():
             raise ValueError(f"{what} kernel takes contiguous tensors; "
@@ -200,9 +216,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Returns ``(o, lse)``: ``o`` [B, H, T, D] in ``out_dtype`` (default
     ``q.dtype``; or f32, unrounded) and the natural-log row sums of the
     scaled scores, ``lse`` [B, H, T] f32. CUDA tensors launch the kernel
-    (contiguous, bf16 with D up to :data:`MAX_HEAD_DIM` or f32 with D up
-    to :data:`MAX_F32_HEAD_DIM`; a D not a multiple of 8 through a
-    zero-padded copy); CPU tensors take
+    (contiguous, bf16 or f32, any head dim: the fused kernel where
+    :func:`one_tile` holds it, else the wide one; a D not a multiple of 8
+    through a zero-padded copy); CPU tensors take
     :func:`~.ring_attention.reference_attention_with_lse`."""
     out_dtype = _out_dtype(q, out_dtype)
     if _check_shapes(q=q, k=k, v=v).type == "cpu":
@@ -228,25 +244,21 @@ def _kernel_fwd(q, k, v, causal: bool, out_dtype):
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr())
     f32 = q.dtype is torch.float32
+    wide = not one_tile(d, q.dtype)
     if f32:
-        # The hi and lo bf16 parts of q, k and v, which the pre-pass writes.
-        parts = torch.empty((3, 2) + q.shape, dtype=torch.bfloat16,
-                            device=q.device)
-        kernel, args = _FWD32, (*ptrs, parts.data_ptr(), b, h, t, w,
-                                int(causal))
+        # The fp16 parts of q, k and v and their slices' largest |x|,
+        # which the pre-pass writes.
+        parts, amax = _f32_scratch(3, q)
+        kernel, args = _FWDW32 if wide else _FWD32, (
+            *ptrs, parts.data_ptr(), amax.data_ptr(), b, h, t, w, int(causal))
     else:
-        kernel, args = _FWD, (*ptrs, b, h, t, w, int(causal),
-                              int(out_dtype == torch.float32))
+        kernel, args = _FWDW if wide else _FWD, (
+            *ptrs, b, h, t, w, int(causal), int(out_dtype == torch.float32))
     rc = kernel.launch(*args, scale_log2, device,
                        build.current_stream(device))
     if rc:
         raise kernel.error(rc)
-    global launches, non_causal_launches, f32_launches, \
-        f32_non_causal_launches
-    launches += 1
-    non_causal_launches += not causal
-    f32_launches += f32
-    f32_non_causal_launches += f32 and not causal
+    _launches[_instance("fwd", wide, causal, f32)] += 1
     return (o if w == d else o[..., :d].contiguous()), lse
 
 
@@ -286,9 +298,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
     ``o`` and ``lse`` and the output gradient ``do``, all [B, H, T, D]
     but ``lse`` [B, H, T] f32; the gradients in ``out_dtype`` (default
     ``q.dtype``; or f32, unrounded). CUDA tensors launch the kernel
-    (contiguous, all bf16 with D up to :data:`MAX_HEAD_DIM` or all f32
-    with D up to :data:`MAX_F32_HEAD_DIM`; a D not a multiple of 8
-    through zero-padded copies); CPU tensors take
+    (contiguous, all bf16 or all f32, any head dim: the fused kernels
+    where :func:`one_tile` holds it, else the wide ones; a D not a
+    multiple of 8 through zero-padded copies); CPU tensors take
     :func:`flash_attention_bwd_plain`."""
     out_dtype = _out_dtype(q, out_dtype)
     dev = _check_shapes(q=q, k=k, v=v, o=o, do=do)
@@ -321,26 +333,23 @@ def _kernel_bwd(q, k, v, o, lse, do, causal: bool, out_dtype):
            do.data_ptr(), lse.data_ptr(), delta.data_ptr())
     outs = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
     f32 = q.dtype is torch.float32
+    wide = not one_tile(d, q.dtype)
     if f32:
-        # The hi and lo bf16 parts of q, k, v and do, which the pre-pass
-        # writes.
-        parts = torch.empty((4, 2) + q.shape, dtype=torch.bfloat16,
-                            device=q.device)
-        kernel, args = _BWD32, (*ins, parts.data_ptr(), *outs, b, h, t, w,
-                                int(causal))
+        # The fp16 parts of q, k, v and do and their slices' largest |x|,
+        # which the pre-pass writes.
+        parts, amax = _f32_scratch(4, q)
+        kernel, args = _BWDW32 if wide else _BWD32, (
+            *ins, parts.data_ptr(), amax.data_ptr(), *outs, b, h, t, w,
+            int(causal))
     else:
-        kernel, args = _BWD, (*ins, *outs, b, h, t, w, int(causal),
-                              int(out_dtype == torch.float32))
+        kernel, args = _BWDW if wide else _BWD, (
+            *ins, *outs, b, h, t, w, int(causal),
+            int(out_dtype == torch.float32))
     rc = kernel.launch(*args, 1.0 / math.sqrt(d), device,
                        build.current_stream(device))
     if rc:
         raise kernel.error(rc)
-    global bwd_launches, non_causal_bwd_launches, f32_bwd_launches, \
-        f32_non_causal_bwd_launches
-    bwd_launches += 1
-    non_causal_bwd_launches += not causal
-    f32_bwd_launches += f32
-    f32_non_causal_bwd_launches += f32 and not causal
+    _launches[_instance("bwd", wide, causal, f32)] += 1
     if w == d:
         return dq, dk, dv
     return tuple(g[..., :d].contiguous() for g in (dq, dk, dv))

@@ -76,9 +76,9 @@ def test_reference_attention_bf16_matches_jax():
 
 def test_flash_wrapper_takes_plain_version_on_cpu():
     q, k, v = map(torch.from_numpy, _qkv(2, 2, 65, 32, seed=11))
-    before = fa.launches
+    before = fa.counts()
     o, lse = fa.flash_attention_fwd(q, k, v)
-    assert fa.launches == before
+    assert fa.counts() == before
     want_o, want_lse = torch_ra.reference_attention_with_lse(q, k, v)
     torch.testing.assert_close(o, want_o, atol=0, rtol=0)
     torch.testing.assert_close(lse, want_lse, atol=0, rtol=0)
@@ -104,7 +104,7 @@ def test_flash_wrapper_rejects_devices(devices, match):
     """The device checks that run before any launch, reached without a
     card: one device for all, and only cuda or cpu."""
     q, k, v = (torch.zeros((1, 2, 8, 32), device=d) for d in devices)
-    before = fa.launches
+    before = fa.counts()
     with pytest.raises(ValueError, match=match):
         fa.flash_attention_fwd(q, k, v)
-    assert fa.launches == before
+    assert fa.counts() == before

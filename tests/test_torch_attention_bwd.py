@@ -67,10 +67,10 @@ def test_flash_function_on_cpu_is_the_plain_pair(dtype):
     q, k, v, do = (torch.from_numpy(x).to(dtype)
                    for x in _inputs(2, 2, 33, 16, seed=5))
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-    fwd, bwd = fa.launches, fa.bwd_launches
+    before = fa.counts()
     out = fa.FlashAttention.apply(*leaves)
     out.backward(do)
-    assert (fa.launches, fa.bwd_launches) == (fwd, bwd)
+    assert fa.counts() == before
     o, lse = torch_ra.reference_attention_with_lse(q, k, v)
     torch.testing.assert_close(out.detach(), o, atol=0, rtol=0)
     want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
@@ -111,7 +111,7 @@ def test_bwd_wrapper_rejects_devices(bad):
     x = torch.zeros((1, 2, 8, 16))
     lse = torch.zeros((1, 2, 8))
     meta = torch.zeros((1, 2, 8, 16), device="meta")
-    before = fa.bwd_launches
+    before = fa.counts()
     if bad == "mixed":
         call, match = (x, x, x, x, lse, meta), "one device"
     elif bad == "meta":
@@ -120,4 +120,4 @@ def test_bwd_wrapper_rejects_devices(bad):
         call, match = (x, x, x, x, lse.to("meta"), x), "lse"
     with pytest.raises(ValueError, match=match):
         fa.flash_attention_bwd(*call)
-    assert fa.bwd_launches == before
+    assert fa.counts() == before

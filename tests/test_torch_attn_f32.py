@@ -2,22 +2,27 @@
 against the reference, its refusals, and the f32 LM through it.
 
 On the card, f32 q, k, v (and o, dO) launch ``flash_attn_fwd_f32`` and
-``flash_attn_bwd_f32``: a pre-pass splits each f32 operand into two bf16
-parts (hi, its rounding; lo, the rounding of the rest), and every
-product that takes Q, K, V or dO is three bf16 products summed in f32,
-hi.hi + hi.lo + lo.hi; P and dS enter split the same way. The kernels
-run only on the card (``tests/test_torch_cuda.py``); here the Python
-route to them (dtype dispatch, the parts scratch, padding, scale,
-slicing, the counters) runs on CPU tensors against a stand-in for the C
-entry points that computes that same arithmetic on the CPU.
+``flash_attn_bwd_f32``: a pre-pass splits each f32 operand into two fp16
+parts under a power-of-2 scale per [batch, head] slice (hi, the rounding
+of x s; lo, the rounding of the rest), and every product that takes Q,
+K, V or dO is three fp16 products summed in f32, hi.hi + hi.lo + lo.hi;
+P enters split under a fixed scale, dS under a scale per row of the
+product it feeds (``perf/moe_f32_routing.py``'s route ``fp16x2``, whose
+:func:`route_forward` and :func:`route_backward` write that arithmetic
+out). The kernels run only on the card (``tests/test_torch_cuda.py``);
+here the Python route to them (dtype dispatch, the parts scratch,
+padding, scale, slicing, the counters) runs on CPU tensors against a
+stand-in for the C entry points that computes that same arithmetic on
+the CPU.
 
-Tolerances: the f32 route within 1e-4 of the reference's f32
-``reference_attention`` and of ``jax.grad`` of it (the parts keep ~16
-significant bits of each operand); its largest deviation from a float64
-version at most 1/16 of the bf16 route's (bf16 inputs, P rounded once in
-the forward, f32 outputs) at T >= 512, the rule the card holds the
-kernels to; the f32 LM through the route within 1e-4 of the reference's
-f32 LM on logits, loss and gradients.
+Tolerances: the f32 route within 1e-5 of the reference's f32
+``reference_attention`` and of ``jax.grad`` of it (the parts keep ~22
+significant bits of each operand; the former bf16 parts, ~16, were held
+to 1e-4); its largest deviation from a float64 version at most
+``gates.F32_RULE`` (1/256) of the bf16 route's (bf16 inputs, P rounded
+once in the forward, f32 outputs) at T >= 512, the rule the card holds
+the kernels to; the f32 LM through the route within 1e-4 of the
+reference's f32 LM on logits, loss and gradients.
 """
 import ctypes
 import math
@@ -97,13 +102,17 @@ def _backward(qp, kp, vp, o, dop, do, lse, scale, causal):
             _prod("bhkq,bhqd->bhkd", [x.transpose(-1, -2) for x in pp], dop))
 
 
+#: The f32 instances' arithmetic.
+ROUTE = moe_f32_routing.ROUTES[moe_f32_routing.KERNEL_ROUTE]
+
+
 class _Route:
     """Stand-ins for the four C entry points, computing on the CPU, from
     the pointers and sizes a wrapper passes, what the kernels compute:
     the bf16 instances (P rounded once in the forward) and the f32 ones
-    (the pre-pass writing each operand's parts into the scratch, then
-    three products each). Each call's name, width, scale and q pointer
-    are kept."""
+    (the pre-pass writing each operand's fp16 parts and its slices'
+    largest |x| into the scratch, then the route's arithmetic). Each
+    call's name, width, scale and q pointer are kept."""
 
     def __init__(self):
         self.calls = []
@@ -135,35 +144,41 @@ class _Route:
             _at(ptr, shape, out)[:] = g
         return 0
 
-    def _split(self, ptrs, partsp, shape):
-        """The pre-pass: each f32 operand's [hi, lo] into the scratch."""
-        scratch = _at(partsp, (len(ptrs), 2) + shape, torch.bfloat16)
+    def _split(self, ptrs, partsp, amaxp, shape):
+        """The pre-pass: each f32 operand's fp16 [hi, lo] (times its
+        slices' scales) into the scratch, its slices' largest |x| into
+        amax; the operands themselves, which the route splits the same
+        way."""
+        n = len(ptrs)
+        scratch = _at(partsp, (n, 2) + shape, torch.float16)
+        amax = _at(amaxp, (n, shape[0] * shape[1]), torch.int32)
         out = []
         for i, p in enumerate(ptrs):
-            scratch[i, 0], scratch[i, 1] = _parts(_at(p, shape,
-                                                      torch.float32), 2)
-            out.append([scratch[i, 0], scratch[i, 1]])
+            x = _at(p, shape, torch.float32)
+            scratch[i, 0], scratch[i, 1] = moe_f32_routing.fp16_parts(x)
+            amax[i] = moe_f32_routing.slice_amax_bits(x)
+            out.append(x)
         return out
 
-    def fwd32(self, qp, kp, vp, op, lsep, partsp, b, h, t, w, causal,
+    def fwd32(self, qp, kp, vp, op, lsep, partsp, amaxp, b, h, t, w, causal,
               scale_log2, device, stream):
         self.calls.append(("fwd32", w, scale_log2, qp))
         shape = (b, h, t, w)
-        q, k, v = self._split((qp, kp, vp), partsp, shape)
-        o, lse = _forward(q, k, v, 2, scale_log2 / math.log2(math.e),
-                          causal)
+        q, k, v = self._split((qp, kp, vp), partsp, amaxp, shape)
+        o, lse = moe_f32_routing.route_forward(
+            q, k, v, causal, ROUTE, scale_log2 / math.log2(math.e))
         _at(op, shape, torch.float32)[:] = o
         _at(lsep, (b, h, t), torch.float32)[:] = lse
         return 0
 
-    def bwd32(self, qp, kp, vp, op, dop, lsep, deltap, partsp, dqp, dkp,
-              dvp, b, h, t, w, causal, scale, device, stream):
+    def bwd32(self, qp, kp, vp, op, dop, lsep, deltap, partsp, amaxp, dqp,
+              dkp, dvp, b, h, t, w, causal, scale, device, stream):
         self.calls.append(("bwd32", w, scale, qp))
         shape = (b, h, t, w)
-        q, k, v, do = self._split((qp, kp, vp, dop), partsp, shape)
-        grads = _backward(q, k, v, _at(op, shape, torch.float32), do,
-                          _at(dop, shape, torch.float32),
-                          _at(lsep, (b, h, t), torch.float32), scale, causal)
+        q, k, v, do = self._split((qp, kp, vp, dop), partsp, amaxp, shape)
+        grads = moe_f32_routing.route_backward(
+            q, k, v, _at(op, shape, torch.float32), do,
+            _at(lsep, (b, h, t), torch.float32), causal, ROUTE, scale)
         for ptr, g in zip((dqp, dkp, dvp), grads):
             _at(ptr, shape, torch.float32)[:] = g
         return 0
@@ -219,7 +234,8 @@ def test_f32_route_matches_the_reference(route, d, causal):
     multiple of 8 (the tensors themselves where D is one), the scale of
     the true D, and come back [B, H, T, D] in f32; each call counts one
     launch of its f32 instance; o, LSE and the gradients within 1e-4 of
-    the reference's f32 attention and ``jax.grad`` of it."""
+    the reference's f32 attention and ``jax.grad`` of it: 1e-5 for
+    ~22-bit operands (the former 16-bit ones were held to 1e-4)."""
     shape = (2, 3, 33, d)
     q, k, v, do = _inputs(shape, seed=3)
     tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
@@ -239,11 +255,11 @@ def test_f32_route_matches_the_reference(route, d, causal):
         assert x.shape == shape and x.dtype == torch.float32
         assert x.is_contiguous()
     want_o, want_grads = _jax_reference(q, k, v, do, causal)
-    np.testing.assert_allclose(o.numpy(), want_o, atol=1e-4, rtol=0)
-    np.testing.assert_allclose(lse.numpy(), _lse64(q, k, causal), atol=1e-4,
+    np.testing.assert_allclose(o.numpy(), want_o, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), _lse64(q, k, causal), atol=1e-5,
                                rtol=0)
     for name, g, want in zip(("dq", "dk", "dv"), grads, want_grads):
-        np.testing.assert_allclose(g.numpy(), want, atol=1e-4, rtol=0,
+        np.testing.assert_allclose(g.numpy(), want, atol=1e-5, rtol=0,
                                    err_msg=name)
 
 
@@ -276,8 +292,9 @@ def _route_outputs(q, k, v, do, causal):
 @pytest.mark.parametrize("causal", [True, False])
 def test_f32_route_within_a_sixteenth_of_the_bf16_route(route, d, causal):
     """At T 512, each output of the f32 route deviates from float64 by at
-    most 1/16 of the bf16 route's deviation on the bf16 rounding of the
-    same inputs (both with f32 outputs)."""
+    most ``gates.F32_RULE`` (1/256; 1/16 for the former 16-bit route) of
+    the bf16 route's deviation on the bf16 rounding of the same inputs
+    (both with f32 outputs)."""
     x = _inputs((1, 2, 512, d), seed=5)
     exact = _f64(*x, causal)
     t32 = [torch.from_numpy(a) for a in x]
@@ -291,17 +308,19 @@ def test_f32_route_within_a_sixteenth_of_the_bf16_route(route, d, causal):
 
 def test_kernel_checks_take_f32_to_128_and_refuse_the_rest():
     """The checks a CUDA tensor passes before a launch: f32 at head dims
-    1 to 128 (bf16 to 256); f32 at 136 ``ValueError`` naming the limit;
-    f16, f64 and two dtypes ``TypeError``, the backward's dO too."""
-    for d in (8, 25, 128):
+    1 to 128 (one tile) and over it (136, 264: the wide kernels), as
+    bf16; head dim 0 ``ValueError``; f16, f64 and two dtypes
+    ``TypeError``, the backward's dO too. Before the wide kernels, f32 at
+    136 raised ``ValueError``."""
+    for d in (8, 25, 128, 136, 264):
         x = torch.zeros((1, 1, 8, d))
         fa._check_kernel_inputs("flash attention", q=x, k=x, v=x)
-    wide = torch.zeros((1, 1, 8, 136))
-    with pytest.raises(ValueError,
-                       match="head dim 1 to 128 in float32, not 136"):
-        fa._check_kernel_inputs("flash attention", q=wide, k=wide, v=wide)
-    fa._check_kernel_inputs("flash attention", q=wide.bfloat16(),
-                            k=wide.bfloat16(), v=wide.bfloat16())
+        fa._check_kernel_inputs("flash attention", q=x.bfloat16(),
+                                k=x.bfloat16(), v=x.bfloat16())
+    empty = torch.zeros((1, 1, 8, 0))
+    with pytest.raises(ValueError, match="head dims from 1, not 0"):
+        fa._check_kernel_inputs("flash attention", q=empty, k=empty,
+                                v=empty)
     x = torch.zeros((1, 1, 8, 32))
     for args in ((x.half(),) * 3, (x.double(),) * 3,
                  (x, x.bfloat16(), x.bfloat16()), (x.bfloat16(), x, x)):
@@ -319,27 +338,40 @@ def test_kernel_checks_take_f32_to_128_and_refuse_the_rest():
     (136, torch.bfloat16, True), (256, torch.bfloat16, True),
     (32, torch.float16, False), (32, torch.float64, False)])
 def test_the_head_dim_rule_by_dtype(d, dtype, ok):
-    assert fa.takes_head_dim(d, dtype) is ok
+    """``ok``: the head dim runs on one tile of the fused kernels. Every
+    head dim from 1 in bf16 or f32 launches a kernel (over one tile, the
+    wide ones); none in f16 or f64."""
+    assert fa.one_tile(d, dtype) is ok
+    assert fa.takes_head_dim(d, dtype) is (dtype in (torch.bfloat16,
+                                                     torch.float32))
 
 
 def test_counts_name_every_instance_and_zero():
     """``counts()`` keeps the bf16 and f32 instances apart, causal and
-    non-causal, forward and backward; ``zero_counts()`` sets each to 0."""
-    names = {"flash_attn_fwd", "flash_attn_bwd", "flash_attn_fwd_non_causal",
-             "flash_attn_bwd_non_causal", "flash_attn_fwd_f32",
-             "flash_attn_bwd_f32", "flash_attn_fwd_f32_non_causal",
-             "flash_attn_bwd_f32_non_causal"}
+    non-causal, forward and backward, of the fused kernels and of the
+    wide ones, one name each; ``zero_counts()`` sets each to 0."""
+    names = {f"flash_attn_{d}{w}{s}" for d in ("fwd", "bwd")
+             for w in ("", "_wide")
+             for s in ("", "_non_causal", "_f32", "_f32_non_causal")}
     assert set(fa.counts()) == names
+    instances = [fa._instance(d, w, c, f) for d in ("fwd", "bwd")
+                 for w in (False, True) for c in (True, False)
+                 for f in (False, True)]
+    assert sorted(instances) == sorted(names)
+    assert fa._instance("fwd", True, False, True) == \
+        "flash_attn_fwd_wide_f32_non_causal"
     fa.zero_counts()
     # Three forward launches: one bf16 causal, two f32 (one non-causal).
-    fa.launches, fa.f32_launches = 3, 2
-    fa.non_causal_launches = fa.f32_non_causal_launches = 1
+    for causal, f32 in ((True, False), (True, True), (False, True)):
+        fa._launches[fa._instance("fwd", False, causal, f32)] += 1
     assert fa.counts() == {**dict.fromkeys(names, 0), "flash_attn_fwd": 1,
                            "flash_attn_fwd_f32": 1,
                            "flash_attn_fwd_f32_non_causal": 1}
+    # counts() is a copy: changing it changes no counter.
+    fa.counts()["flash_attn_fwd"] = 7
+    assert fa.counts()["flash_attn_fwd"] == 1
     fa.zero_counts()
     assert set(fa.counts().values()) == {0}
-    assert fa.launches == fa.bwd_launches == fa.f32_bwd_launches == 0
 
 
 # -- The f32 LM through the kernel route against the reference's. --
@@ -490,6 +522,38 @@ def test_split_operands_keep_sixteen_bits_and_pass_the_gradient():
     assert torch.equal(moe_f32_routing.split_operands(even), even)
     (g,) = torch.autograd.grad(got, x, torch.full_like(x, 3.0))
     assert torch.equal(g, torch.full_like(x, 3.0))
+
+
+def test_fp16_route_keeps_22_bits_on_inputs_spanning_2_to_the_20():
+    """The f32 route's operand rounding (``moe_f32_routing.parts_of`` of
+    the kernel route: fp16 hi + lo under a power-of-2 scale per [batch,
+    head] slice) on slices whose largest |x| is 2^-20, 1 and 2^20: every
+    value down to 2^-17 of its slice's largest within 2^-21 relative of
+    itself, every smaller one (down to 2^-40) within 2^-38 of the slice's
+    largest (lo turns subnormal: absolute, not relative, precision); the
+    pre-pass's fp16 parts finite, the largest under 2^15."""
+    rng = np.random.default_rng(12)
+    shape = (1, 3, 64, 32)
+    slice_max = np.array([2.0 ** -20, 1.0, 2.0 ** 20]).reshape(1, 3, 1, 1)
+
+    def values(lo_exp, hi_exp):
+        x = (2.0 ** rng.uniform(lo_exp, hi_exp, shape)
+             * rng.choice([-1.0, 1.0], shape))
+        x[..., 0, 0] = 1.0  # each slice's largest |x|
+        return torch.from_numpy(x * slice_max).float()
+
+    largest = torch.from_numpy(slice_max).float()
+    for x, lo_exp in ((values(-17, 0), -17), (values(-40, -17), -40)):
+        got = sum(moe_f32_routing.parts_of(x, ROUTE))
+        err = (got - x).abs()
+        if lo_exp == -17:
+            assert bool((err <= 2.0 ** -21 * x.abs()).all())
+        else:
+            assert bool((err <= 2.0 ** -38 * largest).all())
+        hi, lo = moe_f32_routing.fp16_parts(x)
+        assert bool(torch.isfinite(hi.float()).all()
+                    and torch.isfinite(lo.float()).all())
+        assert float(hi.float().abs().max()) <= 2.0 ** 15
 
 
 def test_moe_routing_readings_run_here():

@@ -29,7 +29,8 @@ Every instance, forward and backward, at head dims that are no tile's
 width (8, 24, 25, 40, 48, 80, 96, 112, 136, 144, 200, 250, at T 1, 127,
 129 and 257), at the W-256 tile's own 256, at Phi-3-mini's attention (B4
 H32 T2048 D96) and at GPT-J-6B's (B4 H16 T2048 D256), under the same
-tolerances and drift rule; a head dim over 256 raises.
+tolerances and drift rule; head dim 0 raises (a head dim over 256 takes
+the wide kernels, below).
 
 The non-causal instances, which the ring (``workloads/ring_attention.py``)
 runs for a block of keys before its queries, are held to the same
@@ -62,11 +63,18 @@ The f32 instances (f32 q, k, v, o, dO; head dims up to 128), forward and
 backward, causal and not, at every tile width and at head dims between
 (24, 48, 96; 100 through the padded copy), T at the tile edges and 2048:
 each output's largest deviation from a float64 plain version at most
-1/16 of the bf16 instance's (f32 out) on the bf16 rounding of the same
-inputs; f32 over head dim 128 raises ``ValueError``, f16 and f64
-``TypeError``. The f32 LM (params and compute) through the ring at sp =
-1 and through "flash" within 1e-4 of plain f32 attention on logits and
-loss, counted on the f32 instances.
+``gates.F32_RULE`` (1/256; 1/16 for the former 16-bit route) of the bf16
+instance's (f32 out) on the bf16 rounding of the same inputs; f16, f64
+and mixed dtypes raise ``TypeError``. The f32 LM (params and compute)
+through the ring at sp = 1 and through "flash" within 1e-4 of plain f32
+attention on logits and loss, counted on the f32 instances. The MoE at
+its full width in f32, 3 train steps through the kernels, within
+``gates.f32_steps_rule`` and 1e-4 of plain f32 at every step.
+
+The wide kernels (head dims over one tile: bf16 over 256, f32 over 128):
+every bf16 instance at head dims 264, 272, 384 and 512 under the one-tile
+kernels' tolerances and drift rule, and the f32 instances at 136, 200
+and 256 under ``gates.F32_RULE``, each counted on the wide instances.
 """
 import dataclasses
 
@@ -111,6 +119,15 @@ ODD_HEAD_DIM_SHAPES = ([(1, 2, t, d)
 #: the payload's 2^16 and its neighbours, and the timed 2^26.
 VECTOR_ADD_NS = [1, 3, 4, 5, 1000, 65535, 65536, 65537, (1 << 20) + 3,
                  1 << 26]
+
+
+def _launched() -> tuple:
+    """All forward and all backward attention launches so far, over
+    every kernel instance."""
+    c = fa.counts()
+    return tuple(sum(n for name, n in c.items()
+                     if name.startswith(f"flash_attn_{d}"))
+                 for d in ("fwd", "bwd"))
 
 
 @pytest.fixture
@@ -247,9 +264,9 @@ def test_kernels_launch_on_their_tensors_device(gen):
 def test_flash_kernel_matches_plain(gen, shape):
     q, k, v = (torch.randn(shape, generator=gen, device="cuda")
                .to(torch.bfloat16) for _ in range(3))
-    before = fa.launches
+    before = _launched()[0]
     o, lse = fa.flash_attention_fwd(q, k, v)
-    assert fa.launches == before + 1
+    assert _launched()[0] == before + 1
     o_ref, lse_ref = reference_attention_with_lse(q, k, v)
     assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
     torch.testing.assert_close(o.float(), o_ref.float(), atol=1e-2,
@@ -264,8 +281,10 @@ def test_flash_kernel_rejects_what_it_does_not_take(gen):
             fa.flash_attention_fwd(q.to(dtype), q.to(dtype), q.to(dtype))
     with pytest.raises(TypeError):
         fa.flash_attention_fwd(q.float(), q, q)
-    bad_d = torch.zeros((1, 1, 8, 264), device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head dim 1 to 256, not 264"):
+    # Head dim 264 took a ValueError before the wide kernels; now only
+    # head dim 0 raises.
+    bad_d = torch.zeros((1, 1, 8, 0), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dims from 1, not 0"):
         fa.flash_attention_fwd(bad_d, bad_d, bad_d)
     t = torch.zeros((1, 8, 2, 32), device="cuda",
                     dtype=torch.bfloat16).transpose(1, 2)
@@ -284,9 +303,9 @@ def _bwd_inputs(gen, shape):
 @pytest.mark.parametrize("shape", SHAPES + EDGE_SHAPES)
 def test_flash_bwd_kernel_matches_plain(gen, shape):
     q, k, v, o, lse, do = _bwd_inputs(gen, shape)
-    before = fa.bwd_launches
+    before = _launched()[1]
     got = fa.flash_attention_bwd(q, k, v, o, lse, do)
-    assert fa.bwd_launches == before + 1
+    assert _launched()[1] == before + 1
     want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == torch.bfloat16 and g.shape == q.shape, name
@@ -326,8 +345,8 @@ def test_flash_bwd_kernel_rejects_what_it_does_not_take(gen):
         with pytest.raises(TypeError):
             fa.flash_attention_bwd(*(x.to(dtype) for x in (q, k, v, o)), lse,
                                    do.to(dtype))
-    bad_d = torch.zeros((1, 1, 8, 264), device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head dim 1 to 256, not 264"):
+    bad_d = torch.zeros((1, 1, 8, 0), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dims from 1, not 0"):
         fa.flash_attention_bwd(bad_d, bad_d, bad_d, bad_d,
                                torch.zeros((1, 1, 8), device="cuda"), bad_d)
     strided = torch.zeros((1, 8, 2, 32), device="cuda",
@@ -347,10 +366,10 @@ def test_flash_function_grads_match_local_autograd(gen):
                .to(torch.bfloat16).requires_grad_() for _ in range(3))
     w = torch.randn((2, 100, 3, 64), generator=gen, device="cuda").to(
         torch.bfloat16)
-    fwd, bwd = fa.launches, fa.bwd_launches
+    fwd, bwd = _launched()
     out = fa.FlashAttention.apply(q, k, v)
     (out.transpose(1, 2) * w).float().sum().backward()
-    assert (fa.launches, fa.bwd_launches) == (fwd + 1, bwd + 1)
+    assert _launched() == (fwd + 1, bwd + 1)
     got = [x.grad.float() for x in (q, k, v)]
     for x in (q, k, v):
         x.grad = None
@@ -367,9 +386,9 @@ def test_lm_flash_forward_matches_local(gen):
                       d_ff=256, attn_impl="flash")
     params = lm.init_params(gen, cfg)
     tokens = lm.synthetic_batch(gen, cfg, 2, 97)[:, :-1]
-    before = fa.launches
+    before = _launched()[0]
     got = lm.make_forward(cfg)(params, tokens)
-    assert fa.launches == before + cfg.n_layers
+    assert _launched()[0] == before + cfg.n_layers
     want = lm.make_forward(dataclasses.replace(cfg, attn_impl="local"))(
         params, tokens)
     torch.testing.assert_close(got, want, atol=5e-2, rtol=0)
@@ -389,10 +408,11 @@ def test_lm_train_step_on_the_card_matches_local(gen):
     batch = lm.synthetic_batch(gen, cfg, 2, 130)
     params, opt_state = lm.init_train_state(
         torch.Generator("cuda").manual_seed(1), cfg)
-    va.launches = fa.launches = fa.bwd_launches = 0
+    va.launches = 0
+    fa.zero_counts()
     lm.make_train_step(cfg)(params, opt_state, batch)
     torch.cuda.synchronize()
-    assert (va.launches, fa.launches, fa.bwd_launches) == (
+    assert (va.launches, *_launched()) == (
         0, 2 * cfg.n_layers, cfg.n_layers)
 
     loss_f, grads_f = lm.loss_and_grads(params, batch, cfg)
@@ -409,9 +429,9 @@ def test_lm_train_step_on_the_card_matches_local(gen):
 def test_flash_kernel_non_causal_matches_plain(gen, shape):
     q, k, v = (torch.randn(shape, generator=gen, device="cuda")
                .to(torch.bfloat16) for _ in range(3))
-    before = fa.launches
+    before = _launched()[0]
     o, lse = fa.flash_attention_fwd(q, k, v, causal=False)
-    assert fa.launches == before + 1
+    assert _launched()[0] == before + 1
     o_ref, lse_ref = reference_attention_with_lse(q, k, v, causal=False)
     torch.testing.assert_close(o.float(), o_ref.float(), atol=1e-2,
                                rtol=2 ** -6)
@@ -426,9 +446,9 @@ def test_flash_bwd_kernel_non_causal_drift_from_f32(gen, shape):
     x32 = [torch.randn(shape, generator=gen, device="cuda") for _ in range(4)]
     q, k, v, do = (x.to(torch.bfloat16) for x in x32)
     o, lse = fa.flash_attention_fwd(q, k, v, causal=False)
-    before = fa.bwd_launches
+    before = _launched()[1]
     got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=False)
-    assert fa.bwd_launches == before + 1
+    assert _launched()[1] == before + 1
     plain = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=False)
     o32, lse32 = reference_attention_with_lse(*x32[:3], causal=False)
     exact = fa.flash_attention_bwd_plain(*x32[:3], o32, lse32, x32[3],
@@ -522,12 +542,12 @@ def test_ring_loopback_on_the_card_matches_f32(gen, sp):
     q, k, v, do = (x.to(torch.bfloat16) for x in x32)
     blocks = [list(x.chunk(sp, dim=2)) for x in (q, k, v, do)]
     blocks = [[b.contiguous() for b in bl] for bl in blocks]
-    fwd, bwd = fa.launches, fa.bwd_launches
+    fwd, bwd = _launched()
     out = ra.loopback_forward(*blocks[:3])
     grads = ra.loopback_backward(*blocks[:3], [o for o, _ in out],
                                  [lse for _, lse in out], blocks[3])
     torch.cuda.synchronize()
-    assert (fa.launches - fwd, fa.bwd_launches - bwd) == (
+    assert (_launched()[0] - fwd, _launched()[1] - bwd) == (
         sp * (sp + 1) // 2, sp * (sp + 1) // 2)
     got = {"o": torch.cat([o for o, _ in out], dim=2),
            **{n: torch.cat([g[i] for g in grads], dim=2)
@@ -558,10 +578,10 @@ def test_one_member_ring_on_the_card_is_the_flash_path(gen):
     x = [torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
          for _ in range(4)]
     leaves = [t.clone().requires_grad_() for t in x[:3]]
-    fwd, bwd = fa.launches, fa.bwd_launches
+    fwd, bwd = _launched()
     o = ra.ring_attention(*leaves, None)
     o.backward(x[3])
-    assert (fa.launches - fwd, fa.bwd_launches - bwd) == (1, 1)
+    assert (_launched()[0] - fwd, _launched()[1] - bwd) == (1, 1)
     ref = [t.clone().requires_grad_() for t in x[:3]]
     o_ref = fa.FlashAttention.apply(*ref)
     o_ref.backward(x[3])
@@ -594,9 +614,9 @@ def test_moe_forward_on_the_card_passes_the_layer_gate(gen, name):
     params = moe.init_params(gen, cfg)
     batch = moe.synthetic_batch(gen, cfg, 4, 512)
     cpu = lm._tree_map(lambda p: p.cpu(), params)
-    before = fa.launches
+    before = _launched()[0]
     logits, _ = moe.make_forward(cfg)(params, batch[:, :-1])
-    assert fa.launches == before + cfg.n_layers
+    assert _launched()[0] == before + cfg.n_layers
     assert logits.shape == (4, 512, cfg.vocab)
     for row in gates.moe_layer_gate(params, batch[:, :-1], cfg,
                                     plain_params=cpu):
@@ -620,10 +640,10 @@ def test_moe_full_width_step_fits_the_card(gen):
     step = moe.make_train_step(cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fwd, bwd = fa.launches, fa.bwd_launches
+    fwd, bwd = _launched()
     params, opt_state, loss = step(params, opt_state, batch)
     torch.cuda.synchronize()
-    assert (fa.launches - fwd, fa.bwd_launches - bwd) == (
+    assert (_launched()[0] - fwd, _launched()[1] - bwd) == (
         2 * cfg.n_layers, cfg.n_layers)
     assert torch.isfinite(loss)
     total = torch.cuda.get_device_properties(0).total_memory
@@ -725,9 +745,10 @@ def _run(q, k, v, do, causal, out_dtype=None):
 @pytest.mark.parametrize("shape", F32_SHAPES)
 def test_f32_kernels_within_a_sixteenth_of_bf16(gen, shape, causal):
     """The f32 instances, counted, outputs f32 of the input's shape, each
-    output's deviation from float64 at most 1/16 of the bf16 instance's
-    on the bf16 rounding of the same inputs; at T = 1, where dq and dk
-    are 0 in exact arithmetic, those two within 1e-5."""
+    output's deviation from float64 at most ``gates.F32_RULE`` (1/256
+    since the 22-bit route; 1/16 before) of the bf16 instance's on the
+    bf16 rounding of the same inputs; at T = 1, where dq and dk are 0 in
+    exact arithmetic, those two within 1e-5."""
     x32 = [torch.randn(shape, generator=gen, device="cuda") for _ in range(4)]
     before = fa.counts()
     got = _run(*x32, causal)
@@ -749,13 +770,23 @@ def test_f32_kernels_within_a_sixteenth_of_bf16(gen, shape, causal):
 
 
 def test_f32_kernels_refuse_a_head_dim_over_128(gen):
+    """f32 over head dim 128 raised ``ValueError`` before the wide
+    kernels; now it launches them, counted on the wide f32 instances,
+    and what the kernels still refuse is another dtype: f64, f16 and
+    mixed dtypes raise ``TypeError`` at that head dim, counting
+    nothing."""
     wide = torch.zeros((1, 2, 8, 136), device="cuda")
     before = fa.counts()
-    with pytest.raises(ValueError, match="head dim 1 to 128 in float32"):
-        fa.flash_attention_fwd(wide, wide, wide)
-    with pytest.raises(ValueError, match="head dim 1 to 128 in float32"):
-        fa.flash_attention_bwd(wide, wide, wide, wide,
-                               torch.zeros((1, 2, 8), device="cuda"), wide)
+    o, lse = fa.flash_attention_fwd(wide, wide, wide)
+    fa.flash_attention_bwd(wide, wide, wide, o, lse, wide)
+    assert {n: c - before[n] for n, c in fa.counts().items()} == {
+        **dict.fromkeys(before, 0), "flash_attn_fwd_wide_f32": 1,
+        "flash_attn_bwd_wide_f32": 1}
+    before = fa.counts()
+    for args in ((wide.double(),) * 3, (wide.half(),) * 3,
+                 (wide, wide.bfloat16(), wide.bfloat16())):
+        with pytest.raises(TypeError):
+            fa.flash_attention_fwd(*args)
     assert fa.counts() == before
 
 
@@ -779,3 +810,99 @@ def test_lm_f32_through_the_kernels_matches_local(gen, attn):
     loss, _ = lm.loss_and_grads(params, batch, cfg)
     want_loss, _ = lm.loss_and_grads(params, batch, local)
     assert abs(float(loss) - float(want_loss)) <= 1e-4 * abs(float(want_loss))
+
+
+# -- The wide kernels: head dims over one tile (bf16 over 256, f32 over
+#    128). --
+
+#: bf16 head dims over 256 (264, 272: the dryrun at 17 devices, 384, 512)
+#: at T over the tile and TMA edges.
+WIDE_SHAPES = [(1, 2, t, d) for d in (264, 272, 384, 512)
+               for t in (1, 127, 129, 257)]
+#: f32 head dims over 128 (136, 200, 256: GPT-J-6B's), at T over the
+#: tiles and at 1000, and GPT-J-6B's attention shape.
+WIDE_F32_SHAPES = ([(1, 2, t, d) for d in (136, 200, 256)
+                    for t in (127, 129, 1000)] + [(4, 16, 2048, 256)])
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", WIDE_SHAPES)
+def test_wide_kernels_match_plain(gen, shape, causal, out_dtype):
+    """The wide bf16 instances (causal or not, bf16 or f32 out), counted
+    on the wide instances alone, under the rules of the one-tile
+    kernels: the forward within 1e-2 + 2^-6 |o| and 1e-3 on lse of the
+    plain version, each gradient's deviation from the f32 gradient
+    within 2x the largest and 1.5x the mean of the plain backward's; at
+    T = 1 dq and dk within 1e-2."""
+    x32 = [torch.randn(shape, generator=gen, device="cuda") for _ in range(4)]
+    q, k, v, do = (x.to(torch.bfloat16) for x in x32)
+    before = fa.counts()
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, out_dtype)
+    got = fa.flash_attention_bwd(q, k, v, o.to(q.dtype), lse, do, causal,
+                                 out_dtype)
+    suffix = "" if causal else "_non_causal"
+    assert {n: c - before[n] for n, c in fa.counts().items()} == {
+        **dict.fromkeys(before, 0), f"flash_attn_fwd_wide{suffix}": 1,
+        f"flash_attn_bwd_wide{suffix}": 1}
+    o_ref, lse_ref = reference_attention_with_lse(q, k, v, causal, out_dtype)
+    assert o.shape == shape and o.dtype == out_dtype
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=1e-2,
+                               rtol=2 ** -6)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0)
+    o = o.to(q.dtype)
+    plain = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal,
+                                         out_dtype)
+    o32, lse32 = reference_attention_with_lse(*x32[:3], causal)
+    exact = fa.flash_attention_bwd_plain(*x32[:3], o32, lse32, x32[3],
+                                         causal)
+    for name, g, p, e in zip(("dq", "dk", "dv"), got, plain, exact):
+        assert g.shape == shape and g.dtype == out_dtype, name
+        assert bool(torch.isfinite(g).all()), name
+        dev, dev_plain = (g.float() - e).abs(), (p.float() - e).abs()
+        if name in ("dq", "dk") and shape[2] == 1:
+            assert float(dev.max()) <= 1e-2, name
+            continue
+        assert float(dev.max()) <= 2 * float(dev_plain.max()), name
+        assert float(dev.mean()) <= 1.5 * float(dev_plain.mean()), name
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", WIDE_F32_SHAPES)
+def test_wide_f32_kernels_within_f32_rule(gen, shape, causal):
+    """The wide f32 instances, counted, outputs f32 of the input's
+    shape, each output's deviation from float64 at most
+    ``gates.F32_RULE`` of the bf16 instance's (f32 out) on the bf16
+    rounding of the same inputs."""
+    x32 = [torch.randn(shape, generator=gen, device="cuda") for _ in range(4)]
+    before = fa.counts()
+    got = _run(*x32, causal)
+    suffix = "" if causal else "_non_causal"
+    assert {n: c - before[n] for n, c in fa.counts().items()} == {
+        **dict.fromkeys(before, 0), f"flash_attn_fwd_wide_f32{suffix}": 1,
+        f"flash_attn_bwd_wide_f32{suffix}": 1}
+    bf16 = _run(*(x.to(torch.bfloat16) for x in x32), causal, torch.float32)
+    rule = gates.f32_rule(got, bf16, gates.plain64(*x32, causal))
+    assert rule["ok"], rule
+    for name, g in got.items():
+        assert g.dtype == torch.float32 and g.shape[:3] == shape[:3], name
+
+
+def test_moe_f32_steps_at_full_width_within_the_step_rule(gen):
+    """The MoE at ``chip_bench.MOE_WIDTHS`` (head dim 128) in f32 at
+    B4 T2048, 3 train steps through the kernels' f32 instances, counted,
+    against the same steps with plain f32 and f64 attention: within
+    ``gates.f32_steps_rule`` and within 1e-4 of plain f32 at every
+    step (the 16-bit route drifted 4.97e-3 by step 3)."""
+    from kubernetes_tpu_torch.perf import chip_bench, moe_f32_routing
+    from kubernetes_tpu_torch.workloads import moe
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = moe.MoEConfig(n_layers=8, **chip_bench.MOE_WIDTHS,
+                        compute_dtype=torch.float32)
+    fa.zero_counts()
+    out = moe_f32_routing.readings(cfg, *chip_bench.MOE_BATCH, 3,
+                                   routing=False)
+    rule = out["steps_rule"]["kernels"]
+    assert rule["ok"], rule
+    assert max(rule["kernels_vs_plain"]) <= 1e-4, rule
+    assert fa.counts()["flash_attn_bwd_f32"] >= 3 * cfg.n_layers

@@ -2,9 +2,10 @@
 head dim up to 256 against the reference, and the LM and the MoE at head
 dims that are not powers of 2, and the LM at head dim 256.
 
-The flash kernels take any head dim from 1 to 256
-(``flash_attention.takes_head_dim``): a multiple of 8 launches as it is,
-any other through a zero-padded copy, and 264 raises. The reference's
+The fused flash kernels take any head dim from 1 to 256
+(``flash_attention.one_tile``): a multiple of 8 launches as it is,
+any other through a zero-padded copy, and over 256 the wide kernels
+(``tests/test_torch_wide_heads.py``) take it. The reference's
 TrainJob controller sets no ``LM_*`` env, so the trainer's default LM (2
 heads of a 32-wide model, head dim 16) is what a plain ``MODEL=lm``
 TrainJob trains; ``__graft_entry__.dryrun_multichip``'s dense config has
@@ -94,8 +95,12 @@ def test_graft_entry_moe_config_has_a_kernel_head_dim():
                                   (129, True), (136, True), (256, True),
                                   (257, False), (264, False)])
 def test_the_head_dim_rule(d, ok):
-    assert fa.takes_head_dim(d) is ok
-    if ok:
+    """``ok``: bf16 head dim ``d`` runs on one tile of the fused kernels
+    (1 to 256); every head dim from 1 launches a kernel (the wide ones
+    over 256), at a width padded to a multiple of 8."""
+    assert fa.one_tile(d) is ok
+    assert fa.takes_head_dim(d) is (d > 0)
+    if d > 0:
         assert fa._padded(d) % 8 == 0 and d <= fa._padded(d) < d + 8
 
 
@@ -120,9 +125,9 @@ def test_d16_wrapper_cpu_path_matches_reference(shape):
                for _ in range(3))
     want = np.asarray(jax_ra.reference_attention(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)))
-    before = fa.launches
+    before = fa.counts()
     o, lse = fa.flash_attention_fwd(*map(torch.from_numpy, (q, k, v)))
-    assert fa.launches == before
+    assert fa.counts() == before
     np.testing.assert_allclose(o.numpy(), want, atol=1e-5, rtol=0)
     np.testing.assert_allclose(lse.numpy(), _lse64(q, k), atol=1e-5, rtol=0)
 
@@ -283,16 +288,19 @@ def test_kernel_route_pads_and_slices_at_head_dim(stand_in, d, causal):
 
 
 def test_kernel_checks_refuse_a_head_dim_over_256():
-    """The checks a CUDA tensor passes before a launch refuse D 264 (and
-    take 25, 128, 136 and 256); the plain version on the CPU takes any
-    head dim."""
-    for d in (25, 128, 136, 256):
+    """The checks a CUDA tensor passes before a launch take D 25, 128,
+    136, 256 and, since the wide kernels, 264 and 512 (they refused 264
+    before), and refuse D 0; the plain version on the CPU takes any head
+    dim."""
+    for d in (25, 128, 136, 256, 264, 512):
         x = torch.zeros((1, 1, 8, d), dtype=torch.bfloat16)
         fa._check_kernel_inputs("flash attention", q=x, k=x, v=x)
-    x = torch.zeros((1, 1, 8, 264), dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head dim 1 to 256, not 264"):
-        fa._check_kernel_inputs("flash attention", q=x, k=x, v=x)
-    o, _ = fa.flash_attention_fwd(x.float(), x.float(), x.float())
+    empty = torch.zeros((1, 1, 8, 0), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dims from 1, not 0"):
+        fa._check_kernel_inputs("flash attention", q=empty, k=empty,
+                                v=empty)
+    x = torch.zeros((1, 1, 8, 264))
+    o, _ = fa.flash_attention_fwd(x, x, x)
     assert o.shape == (1, 1, 8, 264)
 
 

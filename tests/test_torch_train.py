@@ -291,13 +291,13 @@ def test_cpu_train_step_counts_no_launches():
                        param_dtype=torch.bfloat16)
     params, opt_state = tlm.init_train_state(
         torch.Generator().manual_seed(0), cfg)
-    before = (va.launches, fa.launches, fa.bwd_launches)
+    before = (va.launches, fa.counts())
     batch = tlm.synthetic_batch(torch.Generator().manual_seed(0), cfg, 2, 16,
                                 device="cpu")
     _, _, loss = tlm.make_train_step(cfg, device="cpu")(params, opt_state,
                                                        batch)
     assert loss.dtype == torch.float32 and loss.dim() == 0
-    assert (va.launches, fa.launches, fa.bwd_launches) == before
+    assert (va.launches, fa.counts()) == before
 
 
 def test_train_step_refuses_a_batch_on_another_device():
