@@ -248,6 +248,7 @@ from __future__ import annotations
 
 import asyncio
 import contextlib
+import ctypes
 import dataclasses
 import importlib.util
 import json
@@ -354,9 +355,12 @@ F32_WIDE_HEAD_DIMS = (136, 200, 256)
 #: are tried.
 WIDE_REFUSAL_HEAD_DIM = 272
 #: The wide kernels timed: bf16 at the dryrun's 272 and f32 at GPT-J-6B's
-#: 256, both at GPT-J-6B's attention shape otherwise (B4 H16 T2048).
+#: 256, both at GPT-J-6B's attention shape otherwise (B4 H16 T2048); and
+#: bf16 at 512, the deepest column-group plan timed (two groups of 4
+#: boxes in every kernel).
 WIDE_ATTN_SHAPE = (4, 16, 2048, 272)
 WIDE_F32_ATTN_SHAPE = (4, 16, 2048, 256)
+WIDE_512_ATTN_SHAPE = (4, 16, 2048, 512)
 #: Phi-3-mini's attention at its serving and training shape (B4 T2048,
 #: 32 heads of 96): the kernels line's D-96 rows.
 PHI3_ATTN_SHAPE = (4, 32, 2048, 96)
@@ -1132,6 +1136,64 @@ def time_instance(row: dict, brow: dict, x32: list, causal: bool, out_dtype,
     brow["tflops"] = 2.5 * flops / (brow["ms"] * 1e-3) / 1e12
 
 
+#: The wide kernels' own plan function (``flash_attn_wide_plan``): kernel
+#: (0 forward, 1 dK/dV, 2 dQ), f32, D -> groups, boxes, resident, slice
+#: and group stages, shared-memory bytes.
+WIDE_PLAN_C = build.Kernel("flash_attn_wide", "flash_attn_wide_plan",
+                           (ctypes.c_int,) * 3 + (ctypes.c_void_p,))
+
+
+def wide_plan_row(d: int, dtype) -> dict:
+    """``fa.wide_plan`` at head dim ``d``, each kernel's part checked
+    against the plan the library launches by; raises where they
+    differ."""
+    plan = fa.wide_plan(d, dtype)
+    out = (ctypes.c_int * 6)()
+    for i, kernel in enumerate(("forward", "dkdv", "dq")):
+        rc = WIDE_PLAN_C.launch(i, int(dtype is torch.float32), d,
+                                ctypes.addressof(out))
+        p = plan[kernel]
+        want = [p["groups"], p["boxes"], int(p["resident"]),
+                p["slice_stages"], p["group_stages"], p["smem_bytes"]]
+        if rc or list(out) != want:
+            raise AssertionError(f"wide plan of {kernel} at D {d} {dtype}: "
+                                 f"library {list(out)} (rc {rc}), "
+                                 f"wide_plan {want}")
+    return plan
+
+
+def wide_build_report(log: str) -> dict:
+    """Each wide-kernel instance's registers (at launch; the consumer
+    warpgroups run at 240 by setmaxnreg), stack and spill bytes from the
+    ``-Xptxas -v`` log of ``flash_attn_wide.cu``, by its kernel and
+    template arguments (operand parts, widest boxes a warpgroup owns)."""
+    out, current = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*?\d(wide_[a-z]+_kernel)"
+                      r"I(\w*?)EEv", line)
+        if m:
+            # Template arguments: <parts, boxes>, or the delta kernel's
+            # input type (t: bf16 bits, f: f32).
+            args = re.findall(r"Li(\d+)E", m.group(2) + "E")
+            kind = {"t": "bf16", "f": "f32"}.get(m.group(2), m.group(2))
+            current = f"{m.group(1)}<{','.join(args) or kind}>"
+            out[current] = {}
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[current].update(stack_bytes=int(m.group(1)),
+                                spill_store_bytes=int(m.group(2)),
+                                spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[current]["registers"] = int(m.group(1))
+            current = None
+    return out
+
+
 def check_instances(gen, name: str, phase: str, shapes: list,
                     timed_shapes: list, causal: bool,
                     out_dtype) -> tuple[list, list]:
@@ -1228,7 +1290,8 @@ def check_head_dims(gen, name: str) -> dict:
     torch.cuda.empty_cache()
 
     rows = {}
-    for shape in (PHI3_ATTN_SHAPE, GPTJ_ATTN_SHAPE, WIDE_ATTN_SHAPE):
+    for shape in (PHI3_ATTN_SHAPE, GPTJ_ATTN_SHAPE, WIDE_ATTN_SHAPE,
+                  WIDE_512_ATTN_SHAPE):
         x32 = [torch.randn(shape, generator=gen, device="cuda")
                for _ in range(4)]
         rows[shape] = gate_instance(x32, True, torch.bfloat16)
@@ -1242,6 +1305,14 @@ def check_head_dims(gen, name: str) -> dict:
                   TF32_FLOPS)
     wide_f32[0]["bound_rate"] = wide_f32[1]["bound_rate"] = "tf32"
     rows[WIDE_F32_ATTN_SHAPE + ("f32",)] = wide_f32
+    # Each wide row beside the column-group plan it ran.
+    for shape, dtype in ((WIDE_ATTN_SHAPE, torch.bfloat16),
+                         (WIDE_512_ATTN_SHAPE, torch.bfloat16),
+                         (WIDE_F32_ATTN_SHAPE + ("f32",), torch.float32)):
+        plan = wide_plan_row(shape[3], dtype)
+        rows[shape][0]["wide_plan"] = plan["forward"]
+        rows[shape][1]["wide_plan"] = {k: plan[k] for k in (
+            "dkdv", "dq", "backward")}
     del x32
     torch.cuda.empty_cache()
     say("head_dims", ok=True, head_dims=list(HEAD_DIMS),
@@ -1263,6 +1334,8 @@ def check_head_dims(gen, name: str) -> dict:
         gptj_backward=rows[GPTJ_ATTN_SHAPE][1],
         wide_forward=rows[WIDE_ATTN_SHAPE][0],
         wide_backward=rows[WIDE_ATTN_SHAPE][1],
+        wide_512_forward=rows[WIDE_512_ATTN_SHAPE][0],
+        wide_512_backward=rows[WIDE_512_ATTN_SHAPE][1],
         wide_f32_forward=wide_f32[0], wide_f32_backward=wide_f32[1])
     return rows
 
@@ -3393,8 +3466,17 @@ def main() -> int:
              for src, log in logs.items()}
     spills = [ln for lines in ptxas.values() for ln in lines
               if re.search(r"[1-9][0-9]* bytes spill", ln)]
+    wide_build = wide_build_report(logs["flash_attn_wide"])
+    # The dynamic shared memory of each wide kernel at the timed head
+    # dims, from the plan the library launches by.
+    wide_smem = {f"{'f32' if dtype is torch.float32 else 'bf16'} D{d}": {
+        k: v["smem_bytes"] for k, v in wide_plan_row(d, dtype).items()
+        if "smem_bytes" in v}
+        for d, dtype in ((WIDE_ATTN_SHAPE[3], torch.bfloat16),
+                         (WIDE_512_ATTN_SHAPE[3], torch.bfloat16),
+                         (WIDE_F32_ATTN_SHAPE[3], torch.float32))}
     say("build", ok=True, seconds=time.perf_counter() - t0, spills=spills,
-        ptxas=ptxas)
+        ptxas=ptxas, wide_instances=wide_build, wide_smem_bytes=wide_smem)
 
     node_launches = check_node()
 
@@ -3608,7 +3690,7 @@ def main() -> int:
     # The wide kernels (head dims over one tile): bf16 at head dim 272,
     # f32 at 256 (bound at the TF32 rate).
     for shape, suffix, extra in (
-            (WIDE_ATTN_SHAPE, "", {}),
+            (WIDE_ATTN_SHAPE, "", {}), (WIDE_512_ATTN_SHAPE, "", {}),
             (WIDE_F32_ATTN_SHAPE + ("f32",), "_f32", {"bound_rate": "tf32"})):
         at = "B{} H{} T{} D{} ".format(*shape[:4]) + (
             "f32" if suffix else "bf16") + ", causal"
@@ -3617,11 +3699,13 @@ def main() -> int:
             {"name": f"flash_attn_fwd_wide{suffix}", "route": "cuda",
              "source": "kubernetes_tpu_torch/csrc/flash_attn_wide.cu",
              "replaces": "kubernetes_tpu/workloads/lm.py:163-239",
-             "at": at, **extra, **{k: fa_row[k] for k in keys}},
+             "at": at, **extra, **{k: fa_row[k] for k in keys},
+             "wide_plan": fa_row["wide_plan"]},
             {"name": f"flash_attn_bwd_wide{suffix}", "route": "cuda",
              "source": "kubernetes_tpu_torch/csrc/flash_attn_wide.cu",
              "replaces": "kubernetes_tpu/workloads/lm.py:193-197, 232-236",
-             "at": at, **extra, **{k: bwd_row[k] for k in keys}}]
+             "at": at, **extra, **{k: bwd_row[k] for k in keys},
+             "wide_plan": bwd_row["wide_plan"]}]
     # The causal instances with f32 outputs: the ring's diagonal blocks.
     at = "B{} H{} T{} D{} bf16 in, f32 out, causal".format(*CAUSAL_F32_SHAPE)
     kernels += [

@@ -105,6 +105,98 @@ def one_tile(d: int, dtype=torch.bfloat16) -> bool:
     return 0 < d <= _MAX_D.get(dtype, 0)
 
 
+#: The wide kernels' plan (``csrc/flash_attn_wide.cu``, ``make_plan``):
+#: a tile part's bytes (64 rows x 64 columns of 16 bits), a block's
+#: shared memory, the slice ring's most stages and the stages a plan
+#: wants first, and each kernel's widest
+#: column group in 64-column boxes by operand parts (1: bf16; 2: the fp16
+#: hi and lo of f32), which the output's registers bound.
+_WIDE_UNIT = 64 * 64 * 2
+_WIDE_SMEM = 232448
+_WIDE_MAX_STAGES = 8
+_WIDE_WANT_STAGES = 3
+_WIDE_GROUP_CAP = {"forward": {1: 5, 2: 2}, "dkdv": {1: 5, 2: 2},
+                   "dq": {1: 6, 2: 4}}
+
+
+def _wide_bytes(kernel: str, parts: int, slices: int, boxes: int,
+                resident: bool, s_stages: int, g_stages: int) -> int:
+    """Shared memory of one wide-kernel block: alignment slack, resident
+    A operands (Q for 128 rows; K and V; Q and dO), the slice ring (K_j
+    and Q_j; Q_j and dO_j, + K_j and V_j; K_j and V_j, + Q_j and dO_j,
+    unless resident), the group ring (V_c; dO_c and Q_c; K_c), the f32
+    exchange buffers (none; P^T; P and dS) and 256 bytes of barriers."""
+    u = _WIDE_UNIT * parts
+    res = 2 * slices * u if resident else 0
+    s_item = (1 if kernel == "forward" else 2) * u + (0 if resident
+                                                     else 2 * u)
+    g_item = (2 if kernel == "dkdv" else 1) * boxes * u
+    xch = {"forward": 0, "dkdv": 1, "dq": 2}[kernel] * 64 * 64 * 4
+    return (1024 + res + s_stages * s_item + g_stages * g_item + xch
+            + 256)
+
+
+def wide_plan(d: int, dtype=torch.bfloat16) -> dict:
+    """The wide kernels' column-group plan at head dim ``d`` in ``dtype``
+    (bf16 or f32), as ``make_plan`` in ``csrc/flash_attn_wide.cu`` makes
+    it for the width ``d`` launches at.
+
+    Per kernel (``"forward"``, ``"dkdv"``, ``"dq"``): ``group_boxes``,
+    the 64-column boxes of each column group a block owns (S and dP are
+    computed once per tile pair for all of them); ``groups``, the blocks
+    per row tile (each recomputing S); ``resident``, whether the score
+    products' A operands stay in shared memory; the rings' stages; the
+    block's shared memory; and ``executed_over_useful``, the products
+    executed (S and dP per group, the outputs over the 64-padded head
+    dim Dp) over those of one pass at ``d``: (groups + 1) Dp / 2d forward
+    and dK/dV, (2 groups + 1) Dp / 3d dQ. ``"backward"`` holds the two
+    backward kernels' ratio together."""
+    parts = 2 if dtype is torch.float32 else 1
+    slices = -(-_padded(d) // 64)
+    dp = 64 * slices
+    plan = {}
+    for kernel in _WIDE_GROUP_CAP:
+        plan[kernel] = _wide_kernel_plan(kernel, parts, slices)
+        groups = plan[kernel]["groups"]
+        plan[kernel]["executed_over_useful"] = (
+            (2 * groups + 1) * dp / (3 * d) if kernel == "dq"
+            else (groups + 1) * dp / (2 * d))
+    kv, q = plan["dkdv"]["groups"], plan["dq"]["groups"]
+    plan["backward"] = {"executed_over_useful":
+                        (2 * kv + 2 + 2 * q + 1) * dp / (7 * d)}
+    return plan
+
+
+def _wide_kernel_plan(kernel: str, parts: int, slices: int) -> dict:
+    """One kernel's plan: the fewest groups of the widest boxes that fit;
+    then :data:`_WIDE_WANT_STAGES` slice stages, resident A operands, two
+    group stages, in that order; then as many slice stages (up to
+    :data:`_WIDE_MAX_STAGES`) as fit; 2 at least."""
+    for want in range(min(_WIDE_GROUP_CAP[kernel][parts], slices), 0, -1):
+        groups = -(-slices // want)
+        boxes = -(-slices // groups)
+        groups = -(-slices // boxes)
+        for s_stages, resident, g_stages in (
+                (s, r, g) for s in (_WIDE_WANT_STAGES, 2)
+                for r in (True, False) for g in (2, 1)):
+            if _wide_bytes(kernel, parts, slices, boxes, resident, s_stages,
+                           g_stages) > _WIDE_SMEM:
+                continue
+            while (s_stages < _WIDE_MAX_STAGES and _wide_bytes(
+                    kernel, parts, slices, boxes, resident, s_stages + 1,
+                    g_stages) <= _WIDE_SMEM):
+                s_stages += 1
+            return {
+                "groups": groups, "boxes": boxes,
+                "group_boxes": [min(boxes, slices - g * boxes)
+                                for g in range(groups)],
+                "resident": resident, "slice_stages": s_stages,
+                "group_stages": g_stages,
+                "smem_bytes": _wide_bytes(kernel, parts, slices, boxes,
+                                          resident, s_stages, g_stages)}
+    raise ValueError(f"no wide-kernel plan fits {slices} slices")
+
+
 def _padded(d: int) -> int:
     """The width a head dim ``d`` launches at: ``d`` rounded up to a
     multiple of 8 (TMA takes row strides of 16 bytes)."""

@@ -72,9 +72,15 @@ its full width in f32, 3 train steps through the kernels, within
 ``gates.f32_steps_rule`` and 1e-4 of plain f32 at every step.
 
 The wide kernels (head dims over one tile: bf16 over 256, f32 over 128):
-every bf16 instance at head dims 264, 272, 384 and 512 under the one-tile
-kernels' tolerances and drift rule, and the f32 instances at 136, 200
-and 256 under ``gates.F32_RULE``, each counted on the wide instances.
+every bf16 instance at head dims on both sides of the column groups'
+edges of ``fa.wide_plan`` (264, 272, 320, 384, 448, 512, 520) and T 1,
+127, 129, 257 under the one-tile kernels' tolerances and drift rule,
+and the f32 instances at 136, 192, 200, 256 and 264 and T 127, 129, 257,
+1000 under ``gates.F32_RULE``, each counted on the wide instances; at T
+1, where dq and dk are 0 and both instances' deviations are rounding
+noise, the f32 ones within 1e-5. The plan the library builds with
+(``flash_attn_wide_plan``) equals ``fa.wide_plan`` at every head dim to
+2048.
 """
 import dataclasses
 
@@ -817,12 +823,14 @@ def test_lm_f32_through_the_kernels_matches_local(gen, attn):
 
 #: bf16 head dims over 256 (264, 272: the dryrun at 17 devices, 384, 512)
 #: at T over the tile and TMA edges.
-WIDE_SHAPES = [(1, 2, t, d) for d in (264, 272, 384, 512)
+WIDE_SHAPES = [(1, 2, t, d) for d in (264, 272, 320, 384, 448, 512, 520)
                for t in (1, 127, 129, 257)]
-#: f32 head dims over 128 (136, 200, 256: GPT-J-6B's), at T over the
-#: tiles and at 1000, and GPT-J-6B's attention shape.
-WIDE_F32_SHAPES = ([(1, 2, t, d) for d in (136, 200, 256)
-                    for t in (127, 129, 1000)] + [(4, 16, 2048, 256)])
+#: f32 head dims over 128 on both sides of the column groups' edges (136,
+#: 192, 200, 256: GPT-J-6B's, 264), at T 1, over the tiles and at 1000,
+#: and GPT-J-6B's attention shape.
+WIDE_F32_SHAPES = ([(1, 2, t, d) for d in (136, 192, 200, 256, 264)
+                    for t in (1, 127, 129, 257, 1000)]
+                   + [(4, 16, 2048, 256)])
 
 
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
@@ -873,7 +881,9 @@ def test_wide_f32_kernels_within_f32_rule(gen, shape, causal):
     """The wide f32 instances, counted, outputs f32 of the input's
     shape, each output's deviation from float64 at most
     ``gates.F32_RULE`` of the bf16 instance's (f32 out) on the bf16
-    rounding of the same inputs."""
+    rounding of the same inputs; at T = 1, where dq and dk are 0 (one
+    key: dS = dP - delta = 0) and the bf16 instance's may be exactly 0,
+    dq and dk within 1e-5 of float64 instead."""
     x32 = [torch.randn(shape, generator=gen, device="cuda") for _ in range(4)]
     before = fa.counts()
     got = _run(*x32, causal)
@@ -882,10 +892,40 @@ def test_wide_f32_kernels_within_f32_rule(gen, shape, causal):
         **dict.fromkeys(before, 0), f"flash_attn_fwd_wide_f32{suffix}": 1,
         f"flash_attn_bwd_wide_f32{suffix}": 1}
     bf16 = _run(*(x.to(torch.bfloat16) for x in x32), causal, torch.float32)
-    rule = gates.f32_rule(got, bf16, gates.plain64(*x32, causal))
+    exact = gates.plain64(*x32, causal)
+    if shape[2] == 1:
+        for name in ("dq", "dk"):
+            assert float((got[name].double() - exact[name]).abs().max()) \
+                <= 1e-5, name
+        got, bf16, exact = ({n: d[n] for n in ("o", "lse", "dv")}
+                            for d in (got, bf16, exact))
+    rule = gates.f32_rule(got, bf16, exact)
     assert rule["ok"], rule
     for name, g in got.items():
         assert g.dtype == torch.float32 and g.shape[:3] == shape[:3], name
+
+
+def test_wide_plan_matches_the_built_plan(gen):
+    """The plan the wide kernels' library launches by (its
+    ``flash_attn_wide_plan``: groups, boxes, resident, ring stages,
+    shared memory) equals ``fa.wide_plan`` for every kernel, dtype and
+    head dim from 8 to 2048."""
+    import ctypes
+    from kubernetes_tpu_torch.kernels import build
+    fn = build.Kernel("flash_attn_wide", "flash_attn_wide_plan",
+                      (ctypes.c_int,) * 3 + (ctypes.c_void_p,))
+    out = (ctypes.c_int * 6)()
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in range(8, 2049, 8):
+            plan = fa.wide_plan(d, dtype)
+            for i, kernel in enumerate(("forward", "dkdv", "dq")):
+                assert fn.launch(i, int(dtype is torch.float32), d,
+                                 ctypes.addressof(out)) == 0
+                p = plan[kernel]
+                assert list(out) == [p["groups"], p["boxes"],
+                                     int(p["resident"]), p["slice_stages"],
+                                     p["group_stages"], p["smem_bytes"]], (
+                    d, dtype, kernel)
 
 
 def test_moe_f32_steps_at_full_width_within_the_step_rule(gen):

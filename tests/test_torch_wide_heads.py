@@ -3,13 +3,17 @@ the wide kernels' route against the reference.
 
 Over head dim 256 in bf16 and over 128 in f32, q, k, v launch
 ``csrc/flash_attn_wide.cu``: the head dim is split into 64-column
-slices, S = Q K^T summed over the slices, and every output (o, dq, dk,
-dv) made one 64-column block at a time, the forward's softmax online
-over 64-key tiles. The kernels run only on the card
+slices, S = Q K^T summed over the slices, and each output (o; dk, dv;
+dq) made one column group of ``fa.wide_plan`` at a time, S and dP
+computed once per (query tile, key tile) for the whole group, the
+forward's softmax online over 64-key tiles from the last. The kernels
+run only on the card
 (``tests/test_torch_cuda.py``); here the Python route to them (width,
 padding, scale, scratch, slicing back, the counters) runs on CPU tensors
 against stand-ins for the four C entry points that compute that
-split-across-tiles arithmetic on the CPU, in each dtype's parts: bf16
+split-across-tiles arithmetic on the CPU, group by group as the plan
+makes them (each output element's sums in the kernels' order, which the
+groups do not change), in each dtype's parts: bf16
 with P rounded once in the forward and P, dS as bf16 hi + lo in the
 backward; f32 as ``perf/moe_f32_routing.py``'s kernel route (fp16 hi +
 lo under a power-of-2 scale, three products).
@@ -106,6 +110,17 @@ def _slice_scores(ar, qp, kp, m0, n0, d):
                for c in range(0, d, SLICE))
 
 
+def _groups(kernel, d, f32):
+    """The head-dim columns of each column group of ``kernel``'s plan at
+    the launch width ``d``: [(first, end)]."""
+    plan = fa.wide_plan(d, torch.float32 if f32 else torch.bfloat16)
+    out, c0 = [], 0
+    for nb in plan[kernel]["group_boxes"]:
+        out.append((c0, min(c0 + SLICE * nb, d)))
+        c0 += SLICE * nb
+    return out
+
+
 def _mask(s, m0, n0, t, causal):
     q = torch.arange(m0, m0 + s.shape[-2])[:, None]
     k = torch.arange(n0, n0 + s.shape[-1])[None, :]
@@ -113,10 +128,11 @@ def _mask(s, m0, n0, t, causal):
 
 
 def wide_forward(q, k, v, causal, scale, f32):
-    """o (f32) and lse as the wide forward computes them: per query tile
-    and 64-column block of o, the key tiles from the last taken to the
-    first, S summed over slices, the softmax online, P in the dtype's
-    parts."""
+    """o (f32) and lse as the wide forward computes them: per 64-row
+    query tile (a warpgroup's) and column group of o, the key tiles from
+    the last taken to the first, S summed over slices once per tile pair,
+    the softmax online, P in the dtype's parts times the group's
+    columns of V."""
     ar = _Arith(f32)
     b, h, t, d = q.shape
     qp, kp, vp = (ar.parts(x) for x in (q, k, v))
@@ -125,8 +141,8 @@ def wide_forward(q, k, v, causal, scale, f32):
     for m0 in _tiles(t):
         keys = [n0 for n0 in _tiles(t) if not causal or n0 <= m0][::-1]
         rows = min(ROWS, t - m0)
-        for c0 in range(0, d, SLICE):
-            acc = torch.zeros((b, h, rows, min(SLICE, d - c0)))
+        for c0, c1 in _groups("forward", d, f32):
+            acc = torch.zeros((b, h, rows, c1 - c0))
             m = torch.full((b, h, rows, 1), -math.inf)
             l = torch.zeros((b, h, rows, 1))
             for n0 in keys:
@@ -138,44 +154,52 @@ def wide_forward(q, k, v, causal, scale, f32):
                 l = l * corr + p.sum(-1, keepdim=True)
                 acc = acc * corr + ar.product(
                     "bhqk,bhkd->bhqd", ar.a_parts(p, 2 if f32 else 1, None),
-                    [x[:, :, n0:n0 + ROWS, c0:c0 + SLICE] for x in vp])
+                    [x[:, :, n0:n0 + ROWS, c0:c1] for x in vp])
                 m = new
-            o[:, :, m0:m0 + rows, c0:c0 + SLICE] = acc / l
+            o[:, :, m0:m0 + rows, c0:c1] = acc / l
             lse[:, :, m0:m0 + rows] = (m + torch.log(l))[..., 0]
     return o, lse
 
 
 def wide_backward(q, k, v, o, do, lse, causal, scale, f32):
-    """dq, dk, dv (f32) as the wide backward computes them: per 64-row
-    tile and 64-column block of the output, S and dP summed over slices
-    for every tile pair, P and dS in the dtype's parts (dS under a scale
-    per row of the product it feeds)."""
+    """dq, dk, dv (f32) as the wide backward computes them: per column
+    group of the dK/dV kernel's plan and of the dQ kernel's, S and dP
+    summed over slices once per tile pair, P and dS in the dtype's parts
+    (dS under a scale per row of the product it feeds) times the group's
+    columns."""
     ar = _Arith(f32)
     b, h, t, d = q.shape
     qp, kp, vp, dop = (ar.parts(x) for x in (q, k, v, do))
     delta = (do.float() * o.float()).sum(-1, keepdim=True)
     dq, dk, dv = (torch.zeros((b, h, t, d)) for _ in range(3))
-    for m0 in _tiles(t):
-        for n0 in _tiles(t):
-            if causal and n0 > m0:
-                continue
-            p = torch.exp(_mask(_slice_scores(ar, qp, kp, m0, n0, d) * scale,
-                                m0, n0, t, causal)
-                          - lse[:, :, m0:m0 + ROWS, None])
-            ds = p * (_slice_scores(ar, dop, vp, m0, n0, d)
-                      - delta[:, :, m0:m0 + ROWS])
-            pp = ar.a_parts(p, 2, None)
-            for c0 in range(0, d, SLICE):
-                cols = slice(c0, c0 + SLICE)
-                dv[:, :, n0:n0 + ROWS, cols] += ar.product(
-                    "bhqk,bhqd->bhkd", pp,
-                    [x[:, :, m0:m0 + ROWS, cols] for x in dop])
-                dk[:, :, n0:n0 + ROWS, cols] += ar.product(
-                    "bhqk,bhqd->bhkd", ar.a_parts(ds, 2, (-2,)),
-                    [x[:, :, m0:m0 + ROWS, cols] for x in qp]) * scale
-                dq[:, :, m0:m0 + ROWS, cols] += ar.product(
-                    "bhqk,bhkd->bhqd", ar.a_parts(ds, 2, (-1,)),
-                    [x[:, :, n0:n0 + ROWS, cols] for x in kp]) * scale
+
+    def pairs():
+        """P and dS of every tile pair the kernels take."""
+        for m0 in _tiles(t):
+            for n0 in _tiles(t):
+                if causal and n0 > m0:
+                    continue
+                p = torch.exp(_mask(_slice_scores(ar, qp, kp, m0, n0, d)
+                                    * scale, m0, n0, t, causal)
+                              - lse[:, :, m0:m0 + ROWS, None])
+                ds = p * (_slice_scores(ar, dop, vp, m0, n0, d)
+                          - delta[:, :, m0:m0 + ROWS])
+                yield m0, n0, p, ds
+
+    for c0, c1 in _groups("dkdv", d, f32):
+        for m0, n0, p, ds in pairs():
+            rows, keys = slice(m0, m0 + ROWS), slice(n0, n0 + ROWS)
+            dv[:, :, keys, c0:c1] += ar.product(
+                "bhqk,bhqd->bhkd", ar.a_parts(p, 2, None),
+                [x[:, :, rows, c0:c1] for x in dop])
+            dk[:, :, keys, c0:c1] += ar.product(
+                "bhqk,bhqd->bhkd", ar.a_parts(ds, 2, (-2,)),
+                [x[:, :, rows, c0:c1] for x in qp]) * scale
+    for c0, c1 in _groups("dq", d, f32):
+        for m0, n0, p, ds in pairs():
+            dq[:, :, m0:m0 + ROWS, c0:c1] += ar.product(
+                "bhqk,bhkd->bhqd", ar.a_parts(ds, 2, (-1,)),
+                [x[:, :, n0:n0 + ROWS, c0:c1] for x in kp]) * scale
     return dq, dk, dv
 
 
@@ -424,6 +448,61 @@ def test_wide_counts_stay_apart_from_the_fused_ones(wide):
                    "flash_attn_fwd_wide_f32": 1}
     fa.zero_counts()
     assert set(fa.counts().values()) == {0}
+
+
+#: A block's shared memory on an H100 (227 KB).
+SMEM_MAX = 232448
+#: Each kernel's widest column group in 64-column boxes: the forward's
+#: and dK/dV's outputs in one warpgroup's registers, dQ's in two.
+GROUP_CAP = {torch.bfloat16: {"forward": 5, "dkdv": 5, "dq": 6},
+             torch.float32: {"forward": 2, "dkdv": 2, "dq": 4}}
+
+
+@pytest.mark.parametrize("d,dtype,most", [
+    # bf16: one group up to 320 (5 boxes), then two.
+    (264, torch.bfloat16, 1.25), (272, torch.bfloat16, 1.18),
+    (320, torch.bfloat16, 1.0), (384, torch.bfloat16, 1.5),
+    (448, torch.bfloat16, 1.67), (512, torch.bfloat16, 1.67),
+    (520, torch.bfloat16, 1.85),
+    # f32: groups of 2 boxes (4 in dQ).
+    (136, torch.float32, 2.12), (192, torch.float32, 1.5),
+    (256, torch.float32, 1.5), (264, torch.float32, 2.43)])
+def test_wide_plan_at_group_boundaries(d, dtype, most):
+    """Every kernel's plan at head dims at and past its groups' edges:
+    each of the ceil(D / 64) boxes owned by exactly one group, no group
+    wider than the kernel's widest, at least as many groups as the width
+    needs, the block's shared memory within an H100's 227 KB (ring stages
+    2-8 and 1-2), and executed over useful products at most ``most``
+    (1.18 at D 272 bf16 and 1.5 at D 256 f32, where the design with one
+    64-column block a block executed 3.53 forward and 2.71 backward)."""
+    plan = fa.wide_plan(d, dtype)
+    slices = -(-d // SLICE)
+    for kernel, cap in GROUP_CAP[dtype].items():
+        p = plan[kernel]
+        boxes = p["group_boxes"]
+        owner = [g for g, nb in enumerate(boxes) for _ in range(nb)]
+        assert len(owner) == slices and sorted(set(owner)) == list(
+            range(len(boxes))), (kernel, boxes)
+        assert max(boxes) == p["boxes"] <= cap and min(boxes) >= 1
+        assert p["groups"] == len(boxes) >= -(-slices // cap)
+        assert p["smem_bytes"] <= SMEM_MAX, kernel
+        assert 2 <= p["slice_stages"] <= 8 and p["group_stages"] in (1, 2)
+        assert p["executed_over_useful"] <= most + 1e-9, (kernel, p)
+    assert plan["backward"]["executed_over_useful"] <= most + 1e-9
+
+
+def test_wide_plan_at_the_timed_shapes():
+    """The plans the timed rows run: D 272 bf16 one group of 5 boxes in
+    every kernel, its score operands resident; D 256 f32 two groups of 2
+    (forward, dK/dV) and one of 4 (dQ); D 512 bf16 two of 4."""
+    bf = fa.wide_plan(272)
+    assert all(bf[k]["group_boxes"] == [5] and bf[k]["resident"]
+               for k in ("forward", "dkdv", "dq"))
+    f32 = fa.wide_plan(256, torch.float32)
+    assert [f32[k]["group_boxes"] for k in ("forward", "dkdv", "dq")] == [
+        [2, 2], [2, 2], [4]]
+    assert f32["forward"]["resident"]
+    assert fa.wide_plan(512)["forward"]["group_boxes"] == [4, 4]
 
 
 # -- The f32 LM at head dim 256 through the wide route. --
