@@ -93,8 +93,7 @@ CASES = [
 #: The MoE at the 600M widths: the cases' widths with ``MoEConfig``'s
 #: own expert defaults (4 experts, top-2, capacity factor 1.25), f32
 #: params and bf16 compute, at MOE_BATCH (B, T): ``chip_smoke.py``'s
-#: ``moe`` and ``moe_ep`` phases, ``profile_forward --moe``. The
-#: reference has no MoE bench case.
+#: ``moe`` and ``moe_ep`` phases. The reference has no MoE bench case.
 MOE_WIDTHS = dict(vocab=32768, d_model=2048, n_heads=16, d_ff=8192,
                   n_experts=4, top_k=2)
 MOE_BATCH = (4, 2048)

@@ -17,7 +17,9 @@ transpose, and the gradient sums of a mesh.
   once;
 - :func:`reduce_gradients_`: each gradient summed over the ranks that
   hold a replica of its leaf's block (in f32) and divided by the number
-  of token blocks, the one rule of the dense LM's and the MoE's steps.
+  of token blocks, the one rule of the dense LM's and the MoE's steps;
+- :func:`counts`: the train steps' exchanges of their loss and
+  gradients so far, the all-reduces those issued and their bytes.
 
 Every sum of activations or gradients runs in f32 and casts back once:
 a bf16 sum would round each partial and each running total, where one
@@ -36,6 +38,35 @@ import torch
 def _dist():
     from torch import distributed as dist
     return dist
+
+
+#: The loss and gradient exchanges so far: ``exchanges``, one a train
+#: step under a group or mesh (:func:`count_exchange`); ``calls`` and
+#: ``bytes``, the all-reduces they issued and the bytes each reduced
+#: (:func:`count_all_reduce`, where they are issued).
+_exchanged = {"exchanges": 0, "calls": 0, "bytes": 0}
+
+
+def counts() -> dict:
+    """The exchanges, all-reduce calls and bytes so far."""
+    return dict(_exchanged)
+
+
+def zero_counts() -> None:
+    """Every exchange counter to 0."""
+    for name in _exchanged:
+        _exchanged[name] = 0
+
+
+def count_exchange() -> None:
+    """One train step's exchange of its loss and gradients begins."""
+    _exchanged["exchanges"] += 1
+
+
+def count_all_reduce(x: torch.Tensor, calls: int = 1) -> None:
+    """``calls`` all-reduces of ``x`` for the loss or gradients."""
+    _exchanged["calls"] += calls
+    _exchanged["bytes"] += calls * x.numel() * x.element_size()
 
 
 def all_reduce(x: torch.Tensor, groups) -> torch.Tensor:
@@ -161,6 +192,8 @@ def reduce_gradients_(grads: list, specs: list, mesh,
         buckets.setdefault(axes, []).append(g)
     for axes, same in buckets.items():
         flat = torch.cat([g.reshape(-1).float() for g in same])
-        flat = all_reduce(flat, axis_groups(mesh, axes)).div_(blocks)
+        groups = axis_groups(mesh, axes)
+        count_all_reduce(flat, len(groups))
+        flat = all_reduce(flat, groups).div_(blocks)
         for g, part in zip(same, flat.split([g.numel() for g in same])):
             g.copy_(part.view_as(g))

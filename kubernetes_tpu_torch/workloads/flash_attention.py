@@ -47,6 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import build
+from ..tracing import span
 from .ring_attention import causal_mask, reference_attention_with_lse
 
 def _instance(direction: str, wide: bool, causal: bool, f32: bool) -> str:
@@ -447,20 +448,32 @@ def _kernel_bwd(q, k, v, o, lse, do, causal: bool, out_dtype):
     return tuple(g[..., :d].contiguous() for g in (dq, dk, dv))
 
 
+_SHORT = {torch.bfloat16: "bf16", torch.float32: "f32"}
+
+
+def _causal_shape(q: torch.Tensor) -> str:
+    """A span's ``args``: ``"B4 H16 T2048 D256 bf16 causal"``."""
+    b, h, t, d = q.shape
+    return f"B{b} H{h} T{t} D{d} {_SHORT.get(q.dtype, q.dtype)} causal"
+
+
 class FlashAttention(torch.autograd.Function):
     """Differentiable causal attention: the forward kernel, saving
     ``q, k, v, o, lse``, and the backward kernel (the plain versions of
     both on CPU tensors). ``dO`` from autograd is often a strided view,
     so the backward makes it contiguous; the kernel wrapper refuses
-    strided input."""
+    strided input. Spans: ``attention.fwd`` and ``attention.bwd``, their
+    pads, slices and copies included, the shape as ``args``."""
 
     @staticmethod
     def forward(ctx, q, k, v):
-        o, lse = flash_attention_fwd(q, k, v)
-        ctx.save_for_backward(q, k, v, o, lse)
-        return o
+        with span("attention.fwd", _causal_shape, q):
+            o, lse = flash_attention_fwd(q, k, v)
+            ctx.save_for_backward(q, k, v, o, lse)
+            return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        return flash_attention_bwd(q, k, v, o, lse, do.contiguous())
+        with span("attention.bwd", _causal_shape, q):
+            return flash_attention_bwd(q, k, v, o, lse, do.contiguous())

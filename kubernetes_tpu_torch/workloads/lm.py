@@ -59,8 +59,10 @@ from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
+from ..tracing import span
 from . import sharding
-from .collectives import enter_tp, gather, leave_tp, reduce_gradients_
+from .collectives import (count_all_reduce, count_exchange, enter_tp, gather,
+                          leave_tp, reduce_gradients_)
 from .flash_attention import FlashAttention, flash_attention
 from .rendezvous import barrier
 from .ring_attention import reference_attention, ring_apply, ring_of
@@ -328,26 +330,28 @@ def _layer(x: torch.Tensor, cfg: LMConfig, lay: Layout, attend,
     dtype: gathered over fsdp and cast to the compute dtype here, inside
     the rematerialized region, as the reference casts inside its scan.
     Under tp the rank runs its ``H / tp`` heads and ``d_ff / tp`` FFN
-    columns."""
-    cdt = cfg.compute_dtype
-    lp = {name: (w if _FSDP_DIMS[name] is None
-                 else gather(w, lay.fsdp, _FSDP_DIMS[name])).to(cdt)
-          for name, w in zip(_LAYER_KEYS, weights)}
-    b, t, _ = x.shape
-    dh = cfg.head_dim
-    h = lp["wq"].shape[1] // dh
-    y = enter_tp(_rms_norm(x, lp["ln1"]), lay.tp)
-    q = (y @ lp["wq"]).reshape(b, t, h, dh).transpose(1, 2)
-    k = (y @ lp["wk"]).reshape(b, t, h, dh).transpose(1, 2)
-    v = (y @ lp["wv"]).reshape(b, t, h, dh).transpose(1, 2)
-    q, k = _rope(q, cfg, offset), _rope(k, cfg, offset)
-    o = attend(q, k, v).to(q.dtype)
-    o = o.transpose(1, 2).reshape(b, t, h * dh)
-    x = x + leave_tp(o @ lp["wo"], lay.tp)
+    columns. Its span, ``lm.layer``, opens again where remat recomputes
+    it in the backward."""
+    with span("lm.layer"):
+        cdt = cfg.compute_dtype
+        lp = {name: (w if _FSDP_DIMS[name] is None
+                     else gather(w, lay.fsdp, _FSDP_DIMS[name])).to(cdt)
+              for name, w in zip(_LAYER_KEYS, weights)}
+        b, t, _ = x.shape
+        dh = cfg.head_dim
+        h = lp["wq"].shape[1] // dh
+        y = enter_tp(_rms_norm(x, lp["ln1"]), lay.tp)
+        q = (y @ lp["wq"]).reshape(b, t, h, dh).transpose(1, 2)
+        k = (y @ lp["wk"]).reshape(b, t, h, dh).transpose(1, 2)
+        v = (y @ lp["wv"]).reshape(b, t, h, dh).transpose(1, 2)
+        q, k = _rope(q, cfg, offset), _rope(k, cfg, offset)
+        o = attend(q, k, v).to(q.dtype)
+        o = o.transpose(1, 2).reshape(b, t, h * dh)
+        x = x + leave_tp(o @ lp["wo"], lay.tp)
 
-    y = enter_tp(_rms_norm(x, lp["ln2"]), lay.tp)
-    gate = F.silu(y @ lp["w1"]) * (y @ lp["w3"])
-    return x + leave_tp(gate @ lp["w2"], lay.tp)
+        y = enter_tp(_rms_norm(x, lp["ln2"]), lay.tp)
+        gate = F.silu(y @ lp["w1"]) * (y @ lp["w3"])
+        return x + leave_tp(gate @ lp["w2"], lay.tp)
 
 
 def hidden_states(params: dict, tokens: torch.Tensor, cfg: LMConfig,
@@ -605,6 +609,7 @@ def _average_(tensors: list, group) -> None:
         by_dtype.setdefault(x.dtype, []).append(x)
     for same in by_dtype.values():
         flat = torch.cat([x.reshape(-1) for x in same])
+        count_all_reduce(flat)
         dist.all_reduce(flat, group=group)
         flat.div_(world)
         for x, part in zip(same, flat.split([x.numel() for x in same])):
@@ -659,18 +664,25 @@ def loss_and_grads(params: dict, batch: torch.Tensor, cfg: LMConfig,
     ``sp`` (never over tp: see ``collectives.reduce_gradients_``) and
     divided by ``dp * fsdp * sp``, the number of token blocks. Either
     way: the loss and gradients of the whole batch. ``attention`` as in
-    :func:`hidden_states`."""
+    :func:`hidden_states`. Spans: ``lm.forward`` (the loss), then
+    ``lm.backward``, then, under a group or mesh, ``lm.grad_sync``."""
     group = _one_of(group, mesh)
     wrt = _tree_map(lambda p: p.detach().requires_grad_(), params)
-    loss = loss_fn(wrt, batch, cfg, mesh, attention)
-    grads = torch.autograd.grad(loss, _leaves(wrt))
+    with span("lm.forward"):
+        loss = loss_fn(wrt, batch, cfg, mesh, attention)
+    with span("lm.backward"):
+        grads = torch.autograd.grad(loss, _leaves(wrt))
     loss = loss.detach()
-    if group is not None and mesh is not None:
-        _average_([loss], group)
-        reduce_gradients_(list(grads), _spec_leaves(wrt, param_specs(cfg)),
-                          mesh, TOKEN_AXES)
-    elif group is not None:
-        _average_([loss, *grads], group)
+    if group is not None:
+        with span("lm.grad_sync"):
+            count_exchange()
+            if mesh is not None:
+                _average_([loss], group)
+                reduce_gradients_(list(grads),
+                                  _spec_leaves(wrt, param_specs(cfg)),
+                                  mesh, TOKEN_AXES)
+            else:
+                _average_([loss, *grads], group)
     grads = iter(grads)
     return loss, _tree_map(lambda _: next(grads), wrt)
 
@@ -689,7 +701,9 @@ def make_train_step(cfg: LMConfig, lr: float = 3e-3, device=None,
     whole batch (:func:`loss_and_grads`) before AdamW. ``attention`` as
     in :func:`hidden_states`. The kernels take bf16 and f32 q, k, v
     (f32 up to head dim 128), so an f32 step (``compute_dtype=
-    torch.float32``) runs through them by default too."""
+    torch.float32``) runs through them by default too. The update (the
+    gradients' f32 cast, AdamW, the cast back to the params) is the
+    span ``lm.update``."""
     dev = resolve_device(device)
     opt = make_optimizer(lr)
     _one_of(group, mesh)
@@ -700,7 +714,7 @@ def make_train_step(cfg: LMConfig, lr: float = 3e-3, device=None,
                              f"made for {dev}")
         loss, grads = loss_and_grads(params, batch, cfg, group, mesh,
                                      attention)
-        with torch.no_grad():
+        with torch.no_grad(), span("lm.update"):
             if _is_mixed(cfg):
                 inner, master = opt_state
                 opt.update_(master, _tree_map(lambda g: g.float(), grads),

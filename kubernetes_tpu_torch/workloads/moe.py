@@ -59,8 +59,9 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from . import lm, sharding
-from .collectives import (_AllReduce, all_gather, all_reduce, enter_tp,
-                          leave_tp, reduce_gradients_, reduce_scatter)
+from .collectives import (_AllReduce, all_gather, all_reduce, count_exchange,
+                          enter_tp, leave_tp, reduce_gradients_,
+                          reduce_scatter)
 from .lm import Layout, _leaves, _rms_norm, _rope, _tree_map, make_optimizer
 from .ring_attention import ring_apply
 from .sharding import mesh_sizes, shard
@@ -528,6 +529,7 @@ def loss_and_grads(params: dict, batch: torch.Tensor, cfg: MoEConfig,
     loss = loss.detach()
     if expert_mesh(mesh) is not None:
         from torch import distributed as dist
+        count_exchange()
         lm._average_([loss], dist.group.WORLD)
         reduce_gradients_(grads, lm._spec_leaves(wrt, param_specs(cfg)),
                           mesh, TOKEN_AXES)

@@ -50,7 +50,7 @@ def test_port_imports_no_jax_at_run_time():
                 "workloads.rendezvous", "workloads.sharding",
                 "workloads.collectives", "workloads.mnist",
                 "workloads.trainer", "workloads.distributed_demo",
-                "preemption", "perf.chip_bench", "perf.profile_forward",
+                "preemption", "perf.chip_bench", "tracing",
                 "kernels.build", "native", "deviceplugin.gpu_plugin",
                 "deviceplugin.stub", "deviceplugin.service",
                 "deviceplugin.api_pb2", "node.runtimehook", "node.telemetry",
