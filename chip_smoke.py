@@ -104,7 +104,8 @@ run after the kernels line, so the phases after it still run):
    both attention kernels under remat, AdamW against an f32 master) at
    t2k and t8k, then the train bench's ring cases (t512, t1k, and t2k
    with f32 params) at sp = 1, every counter set to 0 just before one
-   step and read just after; its time, tokens/s, MFU and peak memory,
+   step and read just after (the AdamW kernel's too: one update of every
+   leaf, 28 bytes a parameter); its time, tokens/s, MFU and peak memory,
    and the loss over 10 steps, which must fall;
 10. train_grads: at full width but 2 layers (t2k), every gradient of the
    kernel path against an f32 plain-attention step, no further from it
@@ -143,6 +144,14 @@ run after the kernels line, so the phases after it still run):
    f32 attention's; 3 train steps at 6 layers, counted, under
    ``f32_steps_rule`` against plain f32 and f64 attention; forward and
    step ms, tokens/s, MFU against the bf16 peak, peak memory;
+   adamw: the AdamW kernel (``csrc/adamw.cu``) at Phi-3-mini's leaves
+   at 16 layers and GPT-J-6B's at 6 (the benchmark cells'), bf16
+   gradients and params with an f32 master, mu and nu: timed by CUDA
+   events beside the plain foreach chain with its casts, in turns, with
+   the wrapper's host time and the bound of 28 bytes a parameter over
+   the memory rate; one counted step against the plain chain from the
+   same state, mu, nu and the master within 2 f32 ulps, the bf16 params
+   bit for bit the round to nearest even of the kernel's master;
 12. trainer (the TrainJob worker payload): ``trainer.main()`` in this
    process as a one-rank gang, ``MODEL=lm`` at the 600M width and depth
    (f32 params, as the reference trainer's), B4 T2048, 3 steps, every
@@ -177,8 +186,9 @@ run after the kernels line, so the phases after it still run):
    lm_sp: with two cards or more, the 600M LM (bf16 params, f32 master,
    the ring) sequence-parallel over NCCL, one rank process per card:
    sp = 2 at full depth, B1 T8192, 3 steps; with four cards also sp = 4
-   and dp = 2 x sp = 2 at 2 layers. Every rank counted (rank i launches
-   i + 1 blocks a ring call, i of them non-causal); the losses the same
+   and dp = 2 x sp = 2 at 2 layers. Every rank counted (one AdamW kernel
+   update a step; rank i launches i + 1 blocks a ring call, i of them
+   non-causal); the losses the same
    on every rank and held by the mesh gate (``mesh_gate``): the bf16
    mesh within 1e-3 relative of one card's bf16 step at step 1; an f32
    witness (the mesh in f32 with the ring's plain version) within 1e-4
@@ -284,6 +294,7 @@ from kubernetes_tpu_torch.perf.launch_cost import host_us
 from kubernetes_tpu_torch.entry import (dryrun_config, dryrun_inputs,
                                          dryrun_multichip, entry)
 from kubernetes_tpu_torch.preemption import read_marker
+from kubernetes_tpu_torch.workloads import adamw
 from kubernetes_tpu_torch.workloads import checkpoint as ckpt
 from kubernetes_tpu_torch.workloads import collectives
 from kubernetes_tpu_torch.workloads import flash_attention as fa
@@ -472,6 +483,17 @@ MOE_EP_STEPS = 3
 #: Steps of the MNIST payload on the card, and the accuracy it must pass.
 MNIST_STEPS = 40
 MNIST_ACCURACY = 0.85
+#: The AdamW kernel's row: the update of each published model's leaves
+#: at its train depth (the benchmark cells' leaf lists), at this step
+#: and with these settings (``lm.make_optimizer``'s but for lr), timed
+#: over ADAMW_ITERS updates; mu, nu and the master within ADAMW_ULPS
+#: f32 ulps of the plain chain's, compared ADAMW_CHUNK elements at a
+#: time.
+ADAMW_STEP = 10
+ADAMW_HYPER = dict(lr=1e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.01)
+ADAMW_ITERS = 5
+ADAMW_ULPS = 2
+ADAMW_CHUNK = 1 << 26
 #: Seconds any subprocess may take before it is killed and the run fails.
 SUBPROCESS_TIMEOUT = 600
 
@@ -1598,13 +1620,152 @@ def causal_only(**launches) -> dict:
     return {**dict.fromkeys(counters(), 0), **launches}
 
 
+def adamw_counted(what: str, leaves: list) -> int:
+    """The AdamW kernel's launches since ``adamw.zero_counts()``, which
+    must be one update of every one of the params ``leaves``: 28 bytes a
+    parameter (bf16 gradient, f32 master, mu and nu in and out, bf16
+    param out; or f32 gradient and the param its own master)."""
+    leaves = [p for p in leaves if p.numel()]
+    n = sum(p.numel() for p in leaves)
+    got = adamw.counts()
+    want = {"updates": 1, "launches": got["launches"], "leaves": len(leaves),
+            "elements": n, "bytes": 28 * n}
+    if got != want or not 1 <= got["launches"] <= len(leaves):
+        raise AssertionError(f"{what}: AdamW kernel counts {got}, want {want}")
+    return got["launches"]
+
+
+def _f32_ulps(got: torch.Tensor, want: torch.Tensor,
+              scale: torch.Tensor) -> float:
+    """The largest ``|got - want|`` in f32 ulps of ``|scale|``."""
+    ulp = torch.exp2(torch.floor(torch.log2(
+        scale.double().abs().clamp_min(2.0 ** -126))) - 23)
+    return float(((got.double() - want.double()).abs() / ulp).max())
+
+
+def adamw_gate(state: dict, before: tuple, t: int) -> dict:
+    """The kernel's step of ``state`` (its ``params``, ``mu``, ``nu``,
+    ``out``, from ``before``: the master, mu and nu it started from)
+    against the plain chain's on ``before``, leaf by leaf: the largest
+    distance in f32 ulps of mu (of the larger term of its sum), nu, the
+    master (of the larger of the old master and the step), the bf16
+    out's elements off the round-to-nearest-even of the kernel's own
+    master and off the plain chain's out."""
+    h = ADAMW_HYPER
+    worst = {"mu": 0.0, "nu": 0.0, "master": 0.0, "out_not_rne": 0,
+             "out_off_plain": 0}
+    for i, (p0, mu0, nu0) in enumerate(zip(*before)):
+        g, p, mu, nu, out = (state[k][i] for k in
+                             ("grads", "params", "mu", "nu", "out"))
+        want_out = torch.empty_like(out)
+        wp, wmu, wnu = p0.clone(), mu0.clone(), nu0.clone()
+        adamw.adamw_plain([wp], [g], [wmu], [wnu], **h, t=t, out=[want_out])
+        for a in range(0, p.numel(), ADAMW_CHUNK):
+            sl = slice(a, a + ADAMW_CHUNK)
+            g_, p0_, mu0_ = (x.view(-1)[sl].double() for x in (g, p0, mu0))
+            mu_scale = torch.maximum((h["b1"] * mu0_).abs(),
+                                     ((1 - h["b1"]) * g_).abs())
+            den = (wnu.view(-1)[sl].double() / (1 - h["b2"] ** t)).sqrt() \
+                + h["eps"]
+            step = h["lr"] * (mu_scale / (1 - h["b1"] ** t) / den
+                              + h["weight_decay"] * p0_.abs())
+            for key, got, want, scale in (
+                    ("mu", mu, wmu, mu_scale), ("nu", nu, wnu, None),
+                    ("master", p, wp, torch.maximum(p0_.abs(), step))):
+                w = want.view(-1)[sl]
+                worst[key] = max(worst[key], _f32_ulps(
+                    got.view(-1)[sl], w, w if scale is None else scale))
+        worst["out_not_rne"] += int((out != p.to(out.dtype)).sum())
+        worst["out_off_plain"] += int((out != want_out).sum())
+        del wp, wmu, wnu, want_out
+    return worst
+
+
+def check_adamw(name: str) -> list[dict]:
+    """The AdamW kernel (``adamw.adamw_``, bf16 gradients and params, f32
+    master, mu and nu) at Phi-3-mini's and GPT-J-6B's leaves at their
+    train depths, the benchmark cells' leaf lists (``lm.init_params``):
+    timed by CUDA events beside the plain ``torch._foreach_*`` chain with
+    its f32 cast and copy back (``adamw.adamw_plain``), in turns (kernel,
+    plain, plain, kernel), with the wrapper's ``host_us`` and the bytes
+    bound (28 a parameter over the card's memory rate); then one counted
+    step, held by :func:`adamw_gate` against the plain chain from the
+    same state: mu, nu and the master within ADAMW_ULPS ulps, the bf16
+    out bit for bit its master's round to nearest even. Says ``adamw``
+    per model; returns the kernels line's rows."""
+    rows = []
+    t = ADAMW_STEP
+    for model, widths, layers in (("Phi-3-mini", PHI3, PHI3_TRAIN_LAYERS),
+                                  ("GPT-J-6B", GPTJ, GPTJ_TRAIN_LAYERS)):
+        cfg = lm.LMConfig(**dict(widths, n_layers=layers),
+                          param_dtype=torch.bfloat16)
+        gen = torch.Generator("cuda").manual_seed(0)
+        out = lm._leaves(lm.init_params(gen, cfg))
+        state = {"out": out, "params": [p.float() for p in out],
+                 "grads": [(torch.randn(p.shape, generator=gen,
+                                        device="cuda") * 1e-3).to(p.dtype)
+                           for p in out],
+                 "mu": [torch.randn(p.shape, generator=gen, device="cuda")
+                        * 1e-4 for p in out],
+                 "nu": [torch.rand(p.shape, generator=gen, device="cuda")
+                        * 1e-8 for p in out]}
+        n = sum(p.numel() for p in out)
+
+        def kernel():
+            adamw.adamw_(**state, **ADAMW_HYPER, t=t)
+
+        def plain():
+            adamw.adamw_plain(**state, **ADAMW_HYPER, t=t)
+
+        runs = {"kernel": [], "plain": []}
+        for which in ("kernel", "plain", "plain", "kernel"):
+            runs[which].append(time_ms(kernel if which == "kernel" else plain,
+                                       ADAMW_ITERS, 1))
+        wrapper_us = host_us(kernel, 20)
+        torch.cuda.empty_cache()
+        before = tuple([x.clone() for x in state[k]]
+                       for k in ("params", "mu", "nu"))
+        adamw.zero_counts()
+        kernel()
+        torch.cuda.synchronize()
+        launches = adamw_counted(f"adamw {model}", out)
+        gate = adamw_gate(state, before, t)
+        del before
+        ok = (max(gate["mu"], gate["nu"], gate["master"]) <= ADAMW_ULPS
+              and gate["out_not_rne"] == 0)
+        row = {"name": "adamw", "route": "cuda",
+               "source": "kubernetes_tpu_torch/csrc/adamw.cu",
+               "replaces": "none: optax.adamw, kubernetes_tpu/workloads/"
+                           "lm.py:352-353, fused by XLA",
+               "at": f"{model} at {layers} layers: {len(out)} leaves, {n} "
+                     f"params, bf16 grads and params, f32 master, mu, nu",
+               "ms": sum(runs["kernel"]) / 2, "ms_runs": runs["kernel"],
+               "plain_ms": sum(runs["plain"]) / 2,
+               "plain_runs": runs["plain"], "library_ms": None,
+               "library": None, "host_us": wrapper_us,
+               "launches_per_update": launches, "max_ulps": gate}
+        add_bound(row, 0.0, 28.0 * n, name)
+        row["gb_per_s"] = 28 * n / row["ms"] * 1e-6
+        say("adamw", ok=ok, model=model, **{k: v for k, v in row.items()
+                                            if k not in ("name", "route")})
+        if not ok:
+            raise AssertionError(f"adamw {model}: kernel off the plain "
+                                 f"chain: {gate}")
+        rows.append(row)
+        del state, out, kernel, plain
+        torch.cuda.empty_cache()
+    return rows
+
+
 def check_train(base: lm.LMConfig, cases, peak: float, known: bool) -> dict:
     """The training path: one counted step per case (at the case's
     attention and param dtype: the ring cases at sp = 1, one causal
-    launch a layer), then the loss over TRAIN_STEPS steps on one batch
-    and the time of the steps after the first TRAIN_WARM. Returns the
-    launches of the counted steps."""
+    launch a layer, one AdamW update of every leaf), then the loss over
+    TRAIN_STEPS steps on one batch and the time of the steps after the
+    first TRAIN_WARM. Returns the launches of the counted steps, the
+    AdamW kernel's under ``adamw``."""
     total = dict.fromkeys(counters(), 0)
+    total["adamw"] = 0
     want = causal_only(flash_attn_fwd=2 * base.n_layers,
                        flash_attn_bwd=base.n_layers)
     for case in cases:
@@ -1619,12 +1780,14 @@ def check_train(base: lm.LMConfig, cases, peak: float, known: bool) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         zero_counters()
+        adamw.zero_counts()
         params, opt_state, loss = step(params, opt_state, batch)
         torch.cuda.synchronize()
         launches = counters()
         if launches != want:
             raise AssertionError(f"{case.name}: launches per train step "
                                  f"{launches}, want {want}")
+        total["adamw"] += adamw_counted(case.name, lm._leaves(params))
         for key, n in launches.items():
             total[key] += n
         losses = [loss]
@@ -2307,7 +2470,8 @@ def timed_steps(cfg: lm.LMConfig, batch: int, seq: int, mesh=None,
     """LM_SP_STEPS train steps from the params of seed 0 (each rank its
     blocks, ``lm.init_sharded``) on the global batch of seed 1, with
     ``attention`` (default ``cfg.attn_impl``'s), every counter set to 0
-    just before and read just after: each step's loss (read at once, so
+    just before and read just after (the AdamW kernel's updates too):
+    each step's loss (read at once, so
     the host clock between reads is the step time), the host time until
     the step returns (its enqueue: where it is close to the step time,
     the host sets the pace), the peak memory and the steps' seconds."""
@@ -2322,6 +2486,7 @@ def timed_steps(cfg: lm.LMConfig, batch: int, seq: int, mesh=None,
         torch.cuda.reset_peak_memory_stats()
     losses, ends, host_ms = [], [time.perf_counter()], []
     zero_counters()
+    adamw.zero_counts()
     for _ in range(LM_SP_STEPS):
         params, opt_state, loss = step(params, opt_state, tokens)
         host_ms.append((time.perf_counter() - ends[-1]) * 1e3)
@@ -2329,6 +2494,7 @@ def timed_steps(cfg: lm.LMConfig, batch: int, seq: int, mesh=None,
         ends.append(time.perf_counter())
     launches = counters()
     return {"losses": losses, "launches": launches,
+            "adamw_updates": adamw.counts()["updates"],
             "step_ms": [(b - a) * 1e3 for a, b in zip(ends, ends[1:])],
             "host_ms": host_ms, "seconds": ends[-1] - ends[0],
             "peak_memory_gb": (torch.cuda.max_memory_allocated() / 1e9
@@ -2627,10 +2793,13 @@ def check_lm_mesh(phase: str, runs: list, rank_fn: str, rank_keys: tuple,
                 flash_attn_fwd=2 * layers, flash_attn_bwd=layers,
                 flash_attn_fwd_non_causal=2 * layers * i,
                 flash_attn_bwd_non_causal=layers * i)
-            if out["launches"] != want:
+            if out["launches"] != want \
+                    or out["adamw_updates"] != LM_SP_STEPS:
                 raise AssertionError(f"{phase} {run['name']} rank "
                                      f"{out['rank']}: launches "
-                                     f"{out['launches']}, want {want}")
+                                     f"{out['launches']}, want {want}; "
+                                     f"{out['adamw_updates']} AdamW kernel "
+                                     f"updates, want {LM_SP_STEPS}")
             for k, count in out["launches"].items():
                 total[k] += count
         losses = {"bf16": ranks[0]["losses"], "f32": ranks[0]["f32_losses"]}
@@ -3047,7 +3216,7 @@ def moe_steps(cfg: moe.MoEConfig, batch: int, seq: int, mesh=None,
     """MOE_EP_STEPS train steps from the params of seed 0 (each rank its
     shards) on the global batch of seed 1, with ``attention`` (default
     the ring through the kernels), every counter set to 0 just before and
-    read just after: each step's loss, read at once (the host clock
+    read just after (the AdamW kernel's updates too): each step's loss, read at once (the host clock
     between reads is the step time), the peak memory and the wall
     seconds of the steps."""
     params, opt_state = moe.init_train_state(
@@ -3060,12 +3229,14 @@ def moe_steps(cfg: moe.MoEConfig, batch: int, seq: int, mesh=None,
         torch.cuda.reset_peak_memory_stats()
     losses, ends = [], [time.perf_counter()]
     zero_counters()
+    adamw.zero_counts()
     for _ in range(MOE_EP_STEPS):
         params, opt_state, loss = step(params, opt_state, tokens)
         losses.append(float(loss))
         ends.append(time.perf_counter())
     launches = counters()
     return {"losses": losses, "launches": launches,
+            "adamw_updates": adamw.counts()["updates"],
             "step_ms": [(b - a) * 1e3 for a, b in zip(ends, ends[1:])],
             "seconds": ends[-1] - ends[0],
             "peak_memory_gb": (torch.cuda.max_memory_allocated() / 1e9
@@ -3136,10 +3307,11 @@ def check_published(name: str, widths: dict, train_layers: int,
     gradient of the kernel path under the same rule against an f32
     plain-attention step, then ``lm.make_train_step`` (f32 master, AdamW)
     for PUBLISHED_STEPS steps on one batch, the first counted (2 x layers
-    forward and layers backward launches), the loss falling; step ms,
+    forward and layers backward launches, one AdamW update of every
+    leaf), the loss falling; step ms,
     tokens/s, MFU, peak memory. Says ``<name>_forward`` and
     ``<name>_train``; returns the launches of the counted forward and
-    step."""
+    step, the AdamW kernel's under ``adamw``."""
     b, t = PUBLISHED_BATCH
     cfg = lm.LMConfig(**widths, param_dtype=torch.bfloat16,
                       attn_impl="flash")
@@ -3213,6 +3385,7 @@ def check_published(name: str, widths: dict, train_layers: int,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counters()
+    adamw.zero_counts()
     params, opt_state, loss = step(params, opt_state, batch)
     torch.cuda.synchronize()
     train_launches = counters()
@@ -3221,6 +3394,8 @@ def check_published(name: str, widths: dict, train_layers: int,
     if train_launches != want:
         raise AssertionError(f"{name} train step launches {train_launches}, "
                              f"want {want}")
+    adamw_launches = adamw_counted(f"{name} train step",
+                                   lm._leaves(params))
     losses = [loss]
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -3249,7 +3424,8 @@ def check_published(name: str, widths: dict, train_layers: int,
         grads_worst_leaf=max(worst, key=worst.get))
     del params, opt_state, step, batch
     torch.cuda.empty_cache()
-    return {k: fwd_launches[k] + train_launches[k] for k in fwd_launches}
+    return {**{k: fwd_launches[k] + train_launches[k] for k in fwd_launches},
+            "adamw": adamw_launches}
 
 
 def check_gptj_f32(peak: float, known: bool) -> dict:
@@ -3392,10 +3568,13 @@ def check_moe_ep(peak: float, known: bool, failed: list) -> dict:
                 flash_attn_fwd=2 * layers, flash_attn_bwd=layers,
                 flash_attn_fwd_non_causal=2 * layers * i,
                 flash_attn_bwd_non_causal=layers * i)
-            if out["launches"] != want:
+            if out["launches"] != want \
+                    or out["adamw_updates"] != MOE_EP_STEPS:
                 raise AssertionError(f"moe_ep {run['name']} rank "
                                      f"{out['rank']}: launches "
-                                     f"{out['launches']}, want {want}")
+                                     f"{out['launches']}, want {want}; "
+                                     f"{out['adamw_updates']} AdamW kernel "
+                                     f"updates, want {MOE_EP_STEPS}")
             for key, count in out["launches"].items():
                 total[key] += count
         losses = {"bf16": ranks[0]["losses"], "f32": ranks[0]["f32_losses"]}
@@ -3595,6 +3774,9 @@ def main() -> int:
     # The LM at GPT-J-6B's widths in f32: head dim 256 on the wide
     # kernels' f32 instances, counted inside.
     gptj_f32_launches = check_gptj_f32(peak, known)
+    # The AdamW kernel at Phi-3-mini's and GPT-J-6B's train leaves, timed
+    # beside the foreach chain and held against it.
+    adamw_rows = check_adamw(name)
 
     # The TrainJob worker payload, counted inside check_trainer; then the
     # trainer's group, resume and demo paths and, with two cards, dp.
@@ -3631,6 +3813,10 @@ def main() -> int:
                    "moe": moe_launches[k], "moe_f32": moe_f32_launches[k],
                    "moe_ep": moe_ep_launches[k]}
                for k in launches}
+    # The AdamW kernel's launches in the counted train steps.
+    by_path["adamw"] = {"train": train_launches["adamw"],
+                        "phi3": phi3_launches["adamw"],
+                        "gptj": gptj_launches["adamw"]}
 
     # Last of all: the profiled phases (K1's device_us, then the f32
     # entry points' kernels one by one).
@@ -3733,6 +3919,7 @@ def main() -> int:
              "replaces": "kubernetes_tpu/workloads/lm.py:193-197, 232-236",
              "at": at, "bound_rate": "tf32",
              **{k: bwd_row[k] for k in keys}}]
+    kernels += adamw_rows
     for kern in kernels:
         kern["launches"] = sum(by_path[kern["name"]].values())
         kern["launches_by_path"] = by_path[kern["name"]]

@@ -35,7 +35,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
-SOURCES = ("vector_add", "flash_attn_fwd", "flash_attn_bwd", "flash_attn_wide")
+SOURCES = ("vector_add", "flash_attn_fwd", "flash_attn_bwd", "flash_attn_wide",
+           "adamw")
 
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 

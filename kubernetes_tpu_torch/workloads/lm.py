@@ -61,6 +61,7 @@ from torch.utils.checkpoint import (checkpoint,
 from ..device import resolve_device
 from ..tracing import span
 from . import sharding
+from .adamw import adamw_
 from .collectives import (count_all_reduce, count_exchange, enter_tp, gather,
                           leave_tp, reduce_gradients_)
 from .flash_attention import FlashAttention, flash_attention
@@ -513,7 +514,8 @@ class AdamW:
 
     State ``{"count", "mu", "nu"}`` as optax's ``ScaleByAdamState``;
     ``count`` is a CPU int64 scalar, so the bias corrections need no
-    device sync."""
+    device sync. The arithmetic is ``adamw.adamw_``'s: one hand-written
+    kernel on the card, ``torch._foreach_*`` on the CPU."""
     lr: float
     b1: float
     b2: float
@@ -526,23 +528,22 @@ class AdamW:
                 "nu": _tree_map(torch.zeros_like, params)}
 
     @torch.no_grad()
-    def update_(self, params: dict, grads: dict, state: dict) -> None:
-        p, g = _leaves(params), _leaves(grads)
-        mu, nu = _leaves(state["mu"]), _leaves(state["nu"])
+    def update_(self, params: dict, grads: dict, state) -> None:
+        """One step of ``params`` in place. ``state`` is this optimizer's
+        state over ``params``, or, for params stored low-precision, the
+        pair ``(state over the master, master)`` that
+        :func:`init_opt_state` makes: then the f32 master takes the step,
+        ``grads`` are read in the params' dtype, and ``params`` are
+        written as the new master rounded to nearest even."""
+        out = None
+        if isinstance(state, tuple):
+            state, master = state
+            out, params = _leaves(params), master
         state["count"] += 1
-        t = int(state["count"])
-        torch._foreach_mul_(mu, self.b1)
-        torch._foreach_add_(mu, g, alpha=1 - self.b1)
-        torch._foreach_mul_(nu, self.b2)
-        torch._foreach_addcmul_(nu, g, g, value=1 - self.b2)
-        denom = torch._foreach_div(nu, 1 - self.b2 ** t)
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, self.eps)
-        upd = torch._foreach_div(mu, 1 - self.b1 ** t)
-        torch._foreach_div_(upd, denom)
-        del denom
-        torch._foreach_add_(upd, p, alpha=self.weight_decay)
-        torch._foreach_add_(p, upd, alpha=-self.lr)
+        adamw_(_leaves(params), _leaves(grads), _leaves(state["mu"]),
+               _leaves(state["nu"]), lr=self.lr, b1=self.b1, b2=self.b2,
+               eps=self.eps, weight_decay=self.weight_decay,
+               t=int(state["count"]), out=out)
 
 
 def make_optimizer(lr: float = 3e-3) -> AdamW:
@@ -701,9 +702,9 @@ def make_train_step(cfg: LMConfig, lr: float = 3e-3, device=None,
     whole batch (:func:`loss_and_grads`) before AdamW. ``attention`` as
     in :func:`hidden_states`. The kernels take bf16 and f32 q, k, v
     (f32 up to head dim 128), so an f32 step (``compute_dtype=
-    torch.float32``) runs through them by default too. The update (the
-    gradients' f32 cast, AdamW, the cast back to the params) is the
-    span ``lm.update``."""
+    torch.float32``) runs through them by default too. The update (AdamW
+    against the master, which writes the params) is the span
+    ``lm.update``."""
     dev = resolve_device(device)
     opt = make_optimizer(lr)
     _one_of(group, mesh)
@@ -715,15 +716,7 @@ def make_train_step(cfg: LMConfig, lr: float = 3e-3, device=None,
         loss, grads = loss_and_grads(params, batch, cfg, group, mesh,
                                      attention)
         with torch.no_grad(), span("lm.update"):
-            if _is_mixed(cfg):
-                inner, master = opt_state
-                opt.update_(master, _tree_map(lambda g: g.float(), grads),
-                            inner)
-                del grads
-                for p, m in zip(_leaves(params), _leaves(master)):
-                    p.copy_(m)
-            else:
-                opt.update_(params, grads, opt_state)
+            opt.update_(params, grads, opt_state)
         return params, opt_state, loss
 
     return step
