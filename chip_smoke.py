@@ -235,6 +235,16 @@ run after the kernels line, so the phases after it still run):
    steps through the kernels, counted, against the same steps with
    plain f32 and f64 attention: within ``f32_steps_rule`` and within
    1e-4 of plain f32 at every step;
+   lfm2: LFM2-8B-A1B (``portbench/configs/lfm2-8b-a1b.json``) at its
+   widths, cut to 4 layers (a dense conv layer, then attention, conv,
+   conv over 32 experts, top-4, the dropless sorted dispatch), B2 T2048:
+   the benchmark's entry (``portbench/entries/moe_train.py``) drives
+   ``moe.make_train_step`` through 2 checked steps, every counter set to
+   0 before and read after (the attention's launches, 2 forward and 1
+   backward a step; the grouped GEMMs, 12 a sparse layer a step); the
+   port's readings against the plain f32 reference's
+   (``portbench/reference/lfm2.py``) under the cell's limits; then a
+   step timed by CUDA events, tokens/s, MFU and peak memory;
    moe_ep: with two cards or more, that MoE expert-parallel over NCCL,
    one rank process per card: ep = 2 at full depth; with four cards also
    ep = 2 x sp = 2, dp = 2 x ep = 2 and ep = 2 x tp = 2 at 2 layers.
@@ -3211,6 +3221,66 @@ def check_moe_f32() -> dict:
                     "step_ms": {p: paths[p]["step_ms"] for p in paths}})
     return total
 
+#: The lfm2 phase: the cell's layers cut to a dense layer and three
+#: sparse ones, at B2 T2048.
+LFM2_TYPES = ["conv", "attention", "conv", "conv"]
+LFM2_BATCH = (2, 2048)
+
+
+def check_lfm2(peak: float, known: bool) -> dict:
+    """LFM2-8B-A1B on one card through the benchmark's MoE entry, cut to
+    ``LFM2_TYPES``: 2 checked steps counted, the readings held to the
+    cell's limits against the plain f32 reference, a step timed.
+    Returns the attention's launches."""
+    import copy
+    from portbench import check, spec
+    from portbench.accounting import moe as moe_acc
+    from portbench.cell import checked_steps
+    from portbench.entries import moe_train
+    cell = copy.deepcopy(spec.load("lfm2-8b-a1b-train-t8k"))
+    run = cell["config"]["run"]
+    run.update(n_layers=len(LFM2_TYPES), layer_types=LFM2_TYPES,
+               n_dense_layers=1)
+    traffic = dict(cell["traffic"], global_batch=LFM2_BATCH[0],
+                   seq=LFM2_BATCH[1])
+    seed = 2147480011
+    sparse = len(LFM2_TYPES) - 1
+    torch.cuda.reset_peak_memory_stats()
+    entry = moe_train.Entry(cell["config"], traffic, seed, "cuda")
+    zero_counters()
+    moe.zero_counts()
+    ours, took = checked_steps(entry, 2, torch.cuda.synchronize)
+    launches, routed = counters(), moe.counts()
+    attention = LFM2_TYPES.count("attention")
+    want = causal_only(flash_attn_fwd=4 * attention,
+                       flash_attn_bwd=2 * attention)
+    if launches != want or routed["gemm_calls"] != 2 * 12 * sparse:
+        raise AssertionError(f"lfm2: launches {launches} (want {want}), "
+                             f"moe counts {routed}")
+    ms = time_ms(lambda: entry.step(2), 3, 0)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    entry.free()
+    del entry
+    torch.cuda.empty_cache()
+    ref = moe_train.reference_readings(cell["config"], traffic, seed, 2,
+                                       "cuda")
+    numbers = check.numbers(ours, ref)
+    limits = cell["workload"]["limits"]
+    ok = all(numbers[k] <= limits[k] for k in limits)
+    tokens = LFM2_BATCH[0] * LFM2_BATCH[1]
+    flops = moe_acc.train_flops_per_token(run, LFM2_BATCH[1]) * tokens
+    say("lfm2", ok=ok, layers=LFM2_TYPES, batch=LFM2_BATCH[0],
+        seq=LFM2_BATCH[1], numbers=numbers, limits=limits,
+        losses=ours["loss"], reference_losses=ref["loss"],
+        launches={k: v for k, v in launches.items() if v}, moe_counts=routed,
+        checked_step_s=took, step_ms=ms, tokens_per_s=tokens / (ms * 1e-3),
+        mfu=flops / (ms * 1e-3) / peak, peak_known=known,
+        peak_gib=peak_gib)
+    if not ok:
+        raise AssertionError(f"lfm2: {numbers} over {limits}")
+    return launches
+
+
 def moe_steps(cfg: moe.MoEConfig, batch: int, seq: int, mesh=None,
               device="cuda", attention=None) -> dict:
     """MOE_EP_STEPS train steps from the params of seed 0 (each rank its
@@ -3797,6 +3867,7 @@ def main() -> int:
     # over NCCL; each counted inside.
     moe_launches = check_moe(peak, known)
     moe_f32_launches = check_moe_f32()
+    lfm2_launches = check_lfm2(peak, known)
     moe_ep_launches = check_moe_ep(peak, known, mesh_failed)
     by_path = {k: {"node": node_launches[k], "forward": launches[k],
                    "train": train_launches[k], "trainer": trainer_launches[k],
@@ -3811,6 +3882,7 @@ def main() -> int:
                    "lm_sp": lm_sp_launches[k],
                    "lm_fsdp_tp": lm_fsdp_tp_launches[k],
                    "moe": moe_launches[k], "moe_f32": moe_f32_launches[k],
+                   "lfm2": lfm2_launches[k],
                    "moe_ep": moe_ep_launches[k]}
                for k in launches}
     # The AdamW kernel's launches in the counted train steps.

@@ -18,11 +18,19 @@ among the host's operations, beside the aten ops it holds. Else it is
 
 The spans the port opens: ``lm.forward``, ``lm.backward``,
 ``lm.grad_sync`` and ``lm.update`` around the phases of
-``lm.make_train_step``'s step, one after another on the host;
-``lm.layer`` around each layer, again inside ``lm.backward`` (on
-autograd's thread) where remat recomputes it; ``attention.fwd`` and
-``attention.bwd`` around the flash attention Function's forward and
-backward, the shape as their ``args``.
+``lm.make_train_step``'s step, one after another on the host (and
+``lm.forward``, ``lm.backward`` and ``lm.update`` around those of
+``moe.make_train_step``'s); ``lm.layer`` around each layer, again inside
+``lm.backward`` (on autograd's thread) where remat recomputes it (the
+MoE's per-kind stacks too); ``attention.fwd`` and ``attention.bwd``
+around the flash attention Function's forward and backward, the shape
+as their ``args``. In the MoE's per-kind stacks (``moe.py``,
+``layer_types``): ``moe.conv`` around each gated short-conv mixer;
+``moe.route`` around the sigmoid router, top-k and the sort by expert;
+``moe.dispatch``, ``moe.experts`` and ``moe.combine`` around the
+forwards of the gather into expert order, the grouped expert GEMMs and
+the weighted scatter-add back, and ``moe.dispatch.bwd``,
+``moe.experts.bwd`` and ``moe.combine.bwd`` around their backwards.
 """
 from __future__ import annotations
 

@@ -47,6 +47,19 @@ arrays under ``jit``, and the port keeps their semantics exactly:
 At any ``(dp, ep, sp, tp)`` the forward logits, the loss and every
 gradient are the one-process forward's and step's on the global batch
 (``tests/test_torch_moe_ep.py``).
+
+``MoEConfig.layer_types`` (LFM2's hybrid stack; one device) stacks the
+params per kind, not per layer (:func:`_hybrid_shapes`): each layer's
+mixer is a gated short conv (:func:`causal_conv`) or GQA attention with
+q/k norms (one causal launch of the flash kernels, k and v repeated to
+the query heads), its FFN a dense SwiGLU (the first ``n_dense_layers``)
+or the experts. Their router picks by sigmoid score plus an expert bias
+that only selects and moves after each step outside the gradient
+(:func:`update_bias_`); its picks, sorted by expert, run through
+:class:`Dispatch`, :class:`Experts` (grouped GEMMs over each expert's
+rows: ``torch._grouped_mm`` on the card, a loop on the CPU) and
+:class:`Combine`, with no capacity, so nothing dropped, and nothing that
+waits for the device. :func:`counts` counts that work.
 """
 from __future__ import annotations
 
@@ -58,10 +71,12 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..tracing import span
 from . import lm, sharding
 from .collectives import (_AllReduce, all_gather, all_reduce, count_exchange,
                           enter_tp, leave_tp, reduce_gradients_,
                           reduce_scatter)
+from .flash_attention import FlashAttention, flash_attention
 from .lm import Layout, _leaves, _rms_norm, _rope, _tree_map, make_optimizer
 from .ring_attention import ring_apply
 from .sharding import mesh_sizes, shard
@@ -96,16 +111,80 @@ class MoEConfig:
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.bfloat16
     remat: bool = True
+    # The options below, at their defaults, are the GShard model above;
+    # any other value needs ``layer_types`` (the stack of per-kind
+    # parameter groups, :func:`init_params`) and one device.
+    #: Each layer's token mixer, "attention" or "conv" (the gated short
+    #: conv); () is every layer attention, in one stacked tree. Given, the
+    #: experts are routed by sigmoid score plus an expert bias and
+    #: dispatched without a capacity (:func:`sorted_moe_ffn`): no capacity
+    #: factor, no aux loss.
+    layer_types: tuple = ()
+    #: Key/value heads of the attention (GQA); 0: ``n_heads``.
+    n_kv_heads: int = 0
+    #: RMSNorm over the head dim on q and k, before RoPE.
+    qk_norm: bool = False
+    #: The short conv's kernel size (depthwise, causal).
+    conv_kernel: int = 3
+    #: The leading layers whose FFN is one dense SwiGLU of ``dense_d_ff``.
+    n_dense_layers: int = 0
+    dense_d_ff: int = 0
+    #: The sigmoid router's top-k weights over their sum (+ 1e-6), then
+    #: times ``routed_scale``.
+    norm_topk: bool = True
+    routed_scale: float = 1.0
+    #: The expert bias's step after each train step:
+    #: bias += rate * sign(mean load - load).
+    bias_rate: float = 1e-3
 
     def __post_init__(self):
         if self.d_model % self.n_heads:
             raise ValueError("d_model must divide into heads")
         if not 1 <= self.top_k <= self.n_experts:
             raise ValueError("need 1 <= top_k <= n_experts")
+        if self.n_heads % self.kv_heads:
+            raise ValueError(f"n_kv_heads={self.n_kv_heads} must divide "
+                             f"n_heads={self.n_heads}")
+        if not self.layer_types:
+            changed = [f.name for f in dataclasses.fields(self)
+                       if f.name in _HYBRID_OPTIONS
+                       and getattr(self, f.name) != f.default]
+            if changed:
+                raise ValueError(f"{changed} need layer_types (the per-kind "
+                                 f"stacks)")
+            return
+        if len(self.layer_types) != self.n_layers \
+                or set(self.layer_types) - set(MIXERS):
+            raise ValueError(f"layer_types must give each of the "
+                             f"{self.n_layers} layers one of {MIXERS}")
+        if not 0 <= self.n_dense_layers <= self.n_layers \
+                or (self.n_dense_layers and self.dense_d_ff <= 0):
+            raise ValueError("need 0 <= n_dense_layers <= n_layers, and "
+                             "dense_d_ff > 0 with dense layers")
 
     @property
     def head_dim(self) -> int:
         return self.d_model // self.n_heads
+
+    @property
+    def kv_heads(self) -> int:
+        return self.n_kv_heads or self.n_heads
+
+    @property
+    def hybrid(self) -> bool:
+        """Whether the layers are stacked per kind (``layer_types``)."""
+        return bool(self.layer_types)
+
+    @property
+    def sparse_layers(self) -> int:
+        return self.n_layers - self.n_dense_layers
+
+
+#: The mixers of ``layer_types``.
+MIXERS = ("attention", "conv")
+#: The options that need ``layer_types``.
+_HYBRID_OPTIONS = ("n_kv_heads", "qk_norm", "conv_kernel", "n_dense_layers",
+                   "dense_d_ff", "norm_topk", "routed_scale", "bias_rate")
 
 
 def make_moe_mesh(devices=None, *, dp: int = 1, ep: int = 1, sp: int = 1,
@@ -128,7 +207,12 @@ def make_moe_mesh(devices=None, *, dp: int = 1, ep: int = 1, sp: int = 1,
 def param_specs(cfg: MoEConfig) -> dict:
     """The reference's specs, one entry per dim: q/k/v columns and ``wo``
     rows over tp, as in the dense LM; the experts over ep, their
-    ``w1/w3`` columns and ``w2`` rows over tp; the rest replicated."""
+    ``w1/w3`` columns and ``w2`` rows over tp; the rest replicated. The
+    per-kind stacks (``cfg.hybrid``) run on one device: every leaf
+    replicated."""
+    if cfg.hybrid:
+        return _tree_map(lambda shape: (None,) * len(shape),
+                         _hybrid_shapes(cfg))
     return {
         "embed": (None, None),
         "layers": {
@@ -150,8 +234,12 @@ def param_specs(cfg: MoEConfig) -> dict:
 def init_params(generator: torch.Generator, cfg: MoEConfig) -> dict:
     """Random params on ``generator``'s device, the reference's tree,
     shapes and scales. The numbers differ from ``jax.random``'s; use
-    :func:`params_from_jax` where both sides need the same params."""
+    :func:`params_from_jax` where both sides need the same params. With
+    ``cfg.hybrid`` the per-kind stacks (:func:`_hybrid_shapes`), and
+    with sparse layers ``expert_bias``, f32 zeros."""
     dt, dev = cfg.param_dtype, generator.device
+    if cfg.hybrid:
+        return _hybrid_init(generator, cfg)
 
     def norm(shape, scale):
         x = torch.randn(shape, generator=generator, device=dev,
@@ -189,6 +277,11 @@ def _check_mesh(cfg: MoEConfig, mesh) -> dict:
     and experts that do not split over ep."""
     if mesh is None:
         return dict.fromkeys(MOE_AXES, 1)
+    if cfg.hybrid and mesh.size() > 1:
+        raise ValueError(
+            "layer_types and its options run on one device: the sorted "
+            "dispatch has no all-to-all over ep, kv heads do not split "
+            "over tp, and the short conv has no halo over sp")
     if tuple(mesh.mesh_dim_names) != MOE_AXES:
         raise ValueError(f"an MoE mesh has the axes {MOE_AXES} "
                          f"(make_moe_mesh), not {mesh.mesh_dim_names}")
@@ -445,8 +538,392 @@ def _layer(x: torch.Tensor, cfg: MoEConfig, attend, offset: int,
     return x + moe_out, aux
 
 
+# -- The per-kind stacks (``cfg.hybrid``): gated short-conv and GQA
+# mixers, leading dense FFNs, and experts behind a sorted dispatch. --
+
+#: Each group's leaves, in the order its layer function takes them; a
+#: group holds one stack per leaf, its layers on the leading axis.
+CONV_KEYS = ("ln", "in_proj", "conv", "out_proj")
+DENSE_KEYS = ("ln", "w1", "w3", "w2")
+SPARSE_KEYS = ("ln", "router", "w1", "w3", "w2")
+
+
+def _group_keys(cfg: MoEConfig) -> dict:
+    attention = ("ln", "wq", "wk", "wv",
+                 *(("q_norm", "k_norm") if cfg.qk_norm else ()), "wo")
+    return {"attention": attention, "conv": CONV_KEYS, "dense": DENSE_KEYS,
+            "sparse": SPARSE_KEYS}
+
+
+def _hybrid_shapes(cfg: MoEConfig) -> dict:
+    """The per-kind stacks' shapes: ``embed``; a group per mixer kind and
+    FFN kind that some layer has (``attention``, ``conv``, ``dense``,
+    ``sparse``), each of its leaves stacked over that kind's layers;
+    ``ln_f``; and with sparse layers ``expert_bias``, [sparse layers, E],
+    which no gradient reaches."""
+    d, v, E, f = cfg.d_model, cfg.vocab, cfg.n_experts, cfg.d_ff
+    dh, h, kv, k = cfg.head_dim, cfg.n_heads, cfg.kv_heads, cfg.conv_kernel
+    la, lc = cfg.layer_types.count("attention"), cfg.layer_types.count("conv")
+    ld, ls = cfg.n_dense_layers, cfg.sparse_layers
+    groups = {
+        "attention": (la, {"ln": (d,), "wq": (d, h * dh),
+                           "wk": (d, kv * dh), "wv": (d, kv * dh),
+                           "q_norm": (dh,), "k_norm": (dh,),
+                           "wo": (h * dh, d)}),
+        "conv": (lc, {"ln": (d,), "in_proj": (d, 3 * d), "conv": (d, k),
+                      "out_proj": (d, d)}),
+        "dense": (ld, {"ln": (d,), "w1": (d, cfg.dense_d_ff),
+                       "w3": (d, cfg.dense_d_ff), "w2": (cfg.dense_d_ff, d)}),
+        "sparse": (ls, {"ln": (d,), "router": (d, E), "w1": (E, d, f),
+                        "w3": (E, d, f), "w2": (E, f, d)}),
+    }
+    out = {"embed": (v, d)}
+    for name, keys in _group_keys(cfg).items():
+        n, shapes = groups[name]
+        if n:
+            out[name] = {key: (n, *shapes[key]) for key in keys}
+    out["ln_f"] = (d,)
+    if ls:
+        out["expert_bias"] = (ls, E)
+    return out
+
+
+def _hybrid_init(generator: torch.Generator, cfg: MoEConfig) -> dict:
+    """:func:`init_params` of the per-kind stacks: norms at 1, the expert
+    bias at 0 (f32), each weight normal over the square root of its
+    fan-in (the short conv's: its kernel size)."""
+    dt, dev = cfg.param_dtype, generator.device
+
+    def make(path: str, shape: tuple):
+        leaf = path.rsplit("/", 1)[-1]
+        if path == "expert_bias":
+            return torch.zeros(shape, dtype=torch.float32, device=dev)
+        if leaf in ("ln", "q_norm", "k_norm", "ln_f"):
+            return torch.ones(shape, dtype=dt, device=dev)
+        fan_in = shape[-1] if leaf in ("conv", "embed") else shape[-2]
+        x = torch.randn(shape, generator=generator, device=dev,
+                        dtype=torch.float32)
+        return (x * fan_in ** -0.5).to(dt)
+
+    def build(tree, prefix=""):
+        return {key: build(val, f"{prefix}{key}/") if isinstance(val, dict)
+                else make(f"{prefix}{key}", val) for key, val in tree.items()}
+
+    return build(_hybrid_shapes(cfg))
+
+
+def trainable(params: dict) -> dict:
+    """``params`` but for ``expert_bias``: the leaves of the gradient and
+    of AdamW."""
+    return {key: val for key, val in params.items() if key != "expert_bias"}
+
+
+# The counter of the routed experts' work, counted where the program
+# launches it: MoE layer calls (``layers``), rows routed (``rows``, n x
+# k), grouped-GEMM calls and the rows summed over them (``gemm_calls``,
+# ``gemm_rows``; on CUDA only: the CPU's per-expert loop counts none) and
+# the most-loaded expert's rows summed over calls (``max_rows``, kept on
+# the device until :func:`counts` reads it, so counting syncs nothing).
+_counts: dict = {}
+
+
+def zero_counts() -> None:
+    """Every count to 0."""
+    _counts.update(layers=0, rows=0, gemm_calls=0, gemm_rows=0, max_rows=0)
+
+
+zero_counts()
+
+
+def counts() -> dict:
+    """The counts so far, as ints (reading ``max_rows`` waits for the
+    device)."""
+    return {key: int(val) for key, val in _counts.items()}
+
+
+def grouped_mm(a: torch.Tensor, b: torch.Tensor, offs: torch.Tensor):
+    """Group ``g``'s rows of ``a`` [rows, k] (rows ``offs[g-1]`` to
+    ``offs[g]``, ``offs`` int32 cumulative ends) times ``b[g]`` [k, n]:
+    [rows, n]. ``torch._grouped_mm`` on CUDA bf16, ``offs`` read on the
+    device; a loop over the groups on CPU tensors."""
+    if a.device.type == "cpu":
+        ends = [0, *offs.tolist()]
+        return torch.cat([a[s:e] @ b[g] for g, (s, e)
+                          in enumerate(zip(ends, ends[1:]))])
+    _check_grouped(a, b)
+    _counts["gemm_calls"] += 1
+    _counts["gemm_rows"] += a.shape[0]
+    return torch._grouped_mm(a, b, offs=offs)
+
+
+def grouped_mm_wgrad(a: torch.Tensor, g: torch.Tensor, offs: torch.Tensor):
+    """Per group, ``a``'s rows transposed times ``g``'s: [groups, k, n]
+    from ``a`` [rows, k] and ``g`` [rows, n] (the weight gradient of
+    :func:`grouped_mm`); a group of no rows gives zeros."""
+    if a.device.type == "cpu":
+        ends = [0, *offs.tolist()]
+        return torch.stack([a[s:e].t() @ g[s:e]
+                            for s, e in zip(ends, ends[1:])])
+    _check_grouped(a, g)
+    _counts["gemm_calls"] += 1
+    _counts["gemm_rows"] += a.shape[0]
+    return torch._grouped_mm(a.t(), g, offs=offs)
+
+
+def _check_grouped(*tensors) -> None:
+    if any(x.device.type != "cuda" or x.dtype != torch.bfloat16
+           for x in tensors):
+        raise TypeError("the grouped GEMMs take bf16 CUDA tensors (or CPU "
+                        "tensors, through the loop); got "
+                        f"{[(str(x.device), x.dtype) for x in tensors]}")
+
+
+@dataclasses.dataclass
+class SortedRoute:
+    """A layer's picks in expert order: for each of the n * k rows its
+    ``token`` and combine ``weight`` (f32), ``offs`` (int32 cumulative
+    ends of each expert's rows) and ``load`` (picks per expert), all on
+    the device."""
+    token: torch.Tensor
+    weight: torch.Tensor
+    offs: torch.Tensor
+    load: torch.Tensor
+
+
+def route_sorted(y: torch.Tensor, router_w: torch.Tensor,
+                 bias: torch.Tensor | None, cfg: MoEConfig) -> SortedRoute:
+    """The sigmoid router over ``y`` [n, d], in f32: s = sigmoid(y W),
+    each token's experts ``topk(s + bias, k)``, their weights s at the
+    picks over their sum + 1e-6 (``norm_topk``), times ``routed_scale``;
+    the n * k picks sorted stably by expert. Nothing waits for the
+    device: the loads are a scatter-add, not ``bincount`` (which reads
+    its largest input on the host)."""
+    n, E, K = y.shape[0], cfg.n_experts, cfg.top_k
+    s = torch.sigmoid(y.float() @ router_w.float())
+    pick = s.detach() if bias is None else s.detach() + bias
+    idx = torch.topk(pick, K, dim=-1).indices
+    w = torch.gather(s, 1, idx)
+    if cfg.norm_topk:
+        w = w / (w.sum(-1, keepdim=True) + 1e-6)
+    w = w * cfg.routed_scale
+    flat = idx.t().reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    load = torch.zeros(E, dtype=torch.int64, device=y.device).scatter_add_(
+        0, flat, torch.ones_like(flat))
+    _counts["layers"] += 1
+    _counts["rows"] += n * K
+    _counts["max_rows"] += load.max()
+    return SortedRoute(order % n, w.t().reshape(-1)[order],
+                       load.cumsum(0).to(torch.int32), load)
+
+
+class Dispatch(torch.autograd.Function):
+    """Token rows [n, d] -> their copies in expert order [n * k, d]
+    (``token``: each row's token); backward: each token's gradient the
+    f32 sum of its rows', cast back. Spans ``moe.dispatch`` and
+    ``moe.dispatch.bwd``."""
+
+    @staticmethod
+    def forward(ctx, x, token):
+        with span("moe.dispatch"):
+            ctx.save_for_backward(token)
+            ctx.n = x.shape[0]
+            return x.index_select(0, token)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (token,) = ctx.saved_tensors
+        with span("moe.dispatch.bwd"):
+            dx = grad.new_zeros((ctx.n, grad.shape[1]), dtype=torch.float32)
+            return dx.index_add_(0, token, grad.float()).to(grad.dtype), None
+
+
+class Combine(torch.autograd.Function):
+    """Expert rows [n * k, d] -> tokens [n, d]: each token the f32 sum of
+    its rows times their weights (``index_add_``), cast to the rows'
+    dtype; backward: the rows' gradient, the token's times the weight,
+    and the weights', the row's dot the token's gradient. Spans
+    ``moe.combine`` and ``moe.combine.bwd``."""
+
+    @staticmethod
+    def forward(ctx, rows, weight, token, n: int):
+        with span("moe.combine"):
+            ctx.save_for_backward(rows, weight, token)
+            out = rows.new_zeros((n, rows.shape[1]), dtype=torch.float32)
+            out.index_add_(0, token, rows * weight[:, None])
+            return out.to(rows.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        rows, weight, token = ctx.saved_tensors
+        with span("moe.combine.bwd"):
+            g = grad.index_select(0, token)
+            d_rows = (g * weight[:, None]).to(rows.dtype)
+            d_weight = (g.float() * rows).sum(-1)
+            return d_rows, d_weight, None, None
+
+
+class Experts(torch.autograd.Function):
+    """Each expert's SwiGLU over its rows: ``(silu(x W1) * (x W3)) W2``,
+    three grouped GEMMs over the ``offs`` segments; backward: six (the
+    input's gradient through W2, W1 and W3, and the three weights'),
+    SwiGLU's derivative in f32. Spans ``moe.experts`` and
+    ``moe.experts.bwd``."""
+
+    @staticmethod
+    def forward(ctx, x, w1, w3, w2, offs):
+        with span("moe.experts"):
+            h1, h3 = grouped_mm(x, w1, offs), grouped_mm(x, w3, offs)
+            ctx.save_for_backward(x, w1, w3, w2, offs, h1, h3)
+            return grouped_mm(F.silu(h1) * h3, w2, offs)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w1, w3, w2, offs, h1, h3 = ctx.saved_tensors
+        with span("moe.experts.bwd"):
+            grad = grad.contiguous()
+            d_w2 = grouped_mm_wgrad(F.silu(h1) * h3, grad, offs)
+            d_act = grouped_mm(grad, w2.transpose(1, 2), offs)
+            h1f = h1.float()
+            sig = torch.sigmoid(h1f)
+            d_h3 = (d_act * h1f * sig).to(x.dtype)
+            d_h1 = (d_act * h3.float() * sig * (1 + h1f * (1 - sig))) \
+                .to(x.dtype)
+            del d_act, h1f, sig
+            d_x = grouped_mm(d_h1, w1.transpose(1, 2), offs)
+            d_x += grouped_mm(d_h3, w3.transpose(1, 2), offs)
+            return (d_x, grouped_mm_wgrad(x, d_h1, offs),
+                    grouped_mm_wgrad(x, d_h3, offs), d_w2, None)
+
+
+def sorted_moe_ffn(y: torch.Tensor, lp: dict, bias, cfg: MoEConfig):
+    """[B, T, d] -> ``([B, T, d], load [E])`` through the sigmoid router
+    and the experts in expert order (:func:`route_sorted`,
+    :class:`Dispatch`, :class:`Experts`, :class:`Combine`)."""
+    b, t, d = y.shape
+    yf = y.reshape(b * t, d)
+    with span("moe.route"):
+        route = route_sorted(yf, lp["router"], bias, cfg)
+    rows = Experts.apply(Dispatch.apply(yf, route.token), lp["w1"],
+                         lp["w3"], lp["w2"], route.offs)
+    out = Combine.apply(rows, route.weight, route.token, b * t)
+    return out.reshape(b, t, d), route.load
+
+
+def causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv of [B, T, d] by ``w`` [d, K]: out[t] =
+    sum_j w[:, j] x[t + j - K + 1] (x before 0 taken as 0), in f32, cast
+    back."""
+    k, t = w.shape[-1], x.shape[1]
+    padded = F.pad(x, (0, 0, k - 1, 0))
+    taps = w.float().t().contiguous()
+    out = padded[:, :t] * taps[0]
+    for j in range(1, k):
+        out += padded[:, j:j + t] * taps[j]
+    return out.to(x.dtype)
+
+
+def _conv_mixer(y: torch.Tensor, lp: dict) -> torch.Tensor:
+    """The gated short conv: B, C, u = split3(y W_in); out_proj(C *
+    conv(B * u)). Span ``moe.conv``."""
+    with span("moe.conv"):
+        b_gate, c_gate, u = (y @ lp["in_proj"]).chunk(3, dim=-1)
+        return (c_gate * causal_conv(b_gate * u, lp["conv"])) \
+            @ lp["out_proj"]
+
+
+def _gqa_mixer(y: torch.Tensor, lp: dict, cfg: MoEConfig, attend):
+    """Causal attention of ``n_heads`` query heads over ``kv_heads`` key
+    and value heads (query head i reads kv head i // (H / KV)), q and k
+    rms-normed over the head dim (``qk_norm``) before RoPE; k and v
+    repeated to H heads for ``attend``."""
+    b, t, _ = y.shape
+    dh, h, kv = cfg.head_dim, cfg.n_heads, cfg.kv_heads
+    q = (y @ lp["wq"]).reshape(b, t, h, dh)
+    k = (y @ lp["wk"]).reshape(b, t, kv, dh)
+    v = (y @ lp["wv"]).reshape(b, t, kv, dh).transpose(1, 2)
+    if cfg.qk_norm:
+        q, k = _rms_norm(q, lp["q_norm"]), _rms_norm(k, lp["k_norm"])
+    q, k = _rope(q.transpose(1, 2), cfg), _rope(k.transpose(1, 2), cfg)
+    if kv != h:
+        k = k.repeat_interleave(h // kv, dim=1)
+        v = v.repeat_interleave(h // kv, dim=1)
+    o = attend(q.contiguous(), k.contiguous(), v.contiguous()).to(q.dtype)
+    return o.transpose(1, 2).reshape(b, t, h * dh) @ lp["wo"]
+
+
+def _flash(q, k, v):
+    """One causal launch of the flash kernels, differentiable under grad
+    (spans ``attention.fwd`` / ``attention.bwd``)."""
+    if torch.is_grad_enabled():
+        return FlashAttention.apply(q, k, v)
+    return flash_attention(q, k, v)
+
+
+def _hybrid_layer(x: torch.Tensor, cfg: MoEConfig, attend, mixer: str,
+                  ffn: str, n_mixer: int, bias, *weights):
+    """One pre-norm layer of the per-kind stacks: ``x + mixer(rms(x))``,
+    then ``h + ffn(rms(h))``; ``weights`` the mixer's group's leaves then
+    the FFN's, each in its group's key order, cast to the compute dtype
+    here (the router stays as it is: routing is f32). Returns ``(x,
+    load)``: the picks per expert, or None after a dense FFN. Span
+    ``lm.layer``, again where remat recomputes it."""
+    with span("lm.layer"):
+        keys = _group_keys(cfg)
+        cdt = cfg.compute_dtype
+        mp = dict(zip(keys[mixer], (w.to(cdt) for w in weights[:n_mixer])))
+        fp = {key: w if key == "router" else w.to(cdt)
+              for key, w in zip(keys[ffn], weights[n_mixer:])}
+        y = _rms_norm(x, mp["ln"])
+        x = x + (_conv_mixer(y, mp) if mixer == "conv"
+                 else _gqa_mixer(y, mp, cfg, attend))
+        y = _rms_norm(x, fp["ln"])
+        if ffn == "dense":
+            return x + (F.silu(y @ fp["w1"]) * (y @ fp["w3"])) @ fp["w2"], None
+        out, load = sorted_moe_ffn(y, fp, bias, cfg)
+        return x + out, load
+
+
+def _hybrid_hidden(params: dict, tokens: torch.Tensor, cfg: MoEConfig,
+                   attention, stats: dict | None):
+    """:func:`hidden_states` of the per-kind stacks on one device:
+    ``(x, None)``; ``stats``, where given, receives each sparse layer's
+    load under its index."""
+    cdt = cfg.compute_dtype
+    x = params["embed"].to(cdt)[tokens.long()]
+    stacks = {name: list(zip(*(params[name][key].unbind(0) for key in keys)))
+              for name, keys in _group_keys(cfg).items() if name in params}
+    bias = params.get("expert_bias")
+    bias = None if bias is None else bias.detach().unbind(0)
+    seen = dict.fromkeys(MIXERS, 0)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for i, mixer in enumerate(cfg.layer_types):
+        mixer_w = stacks[mixer][seen[mixer]]
+        seen[mixer] += 1
+        dense = i < cfg.n_dense_layers
+        j = i - cfg.n_dense_layers
+        ffn_w = stacks["dense"][i] if dense else stacks["sparse"][j]
+        args = (x, cfg, attention, mixer, "dense" if dense else "sparse",
+                len(mixer_w), None if dense else bias[j], *mixer_w, *ffn_w)
+        x, load = (checkpoint(_hybrid_layer, *args, use_reentrant=False)
+                   if remat else _hybrid_layer(*args))
+        if load is not None and stats is not None:
+            stats[j] = load
+    return _rms_norm(x, params["ln_f"].to(cdt)), None
+
+
+@torch.no_grad()
+def update_bias_(bias: torch.Tensor, stats: dict, cfg: MoEConfig) -> None:
+    """The expert bias's step after a train step, outside the gradient
+    (DeepSeek-V3's aux-loss-free balancing, arXiv:2412.19437 section
+    2.1.2): bias += rate * sign(mean load - load), per sparse layer."""
+    load = torch.stack([stats[j] for j in range(bias.shape[0])]).float()
+    bias.add_(torch.sign(load.mean(-1, keepdim=True) - load),
+              alpha=cfg.bias_rate)
+
+
 def hidden_states(params: dict, tokens: torch.Tensor, cfg: MoEConfig,
-                  mesh=None, attention=None):
+                  mesh=None, attention=None, stats: dict | None = None):
     """tokens [B, T] -> ``(x, aux)``: final hidden states (post-ln_f) of
     this rank's block, [B / (dp * ep), T / sp, d_model], and the aux loss
     averaged over layers. ``attention(q, k, v)``, default the ring over
@@ -455,8 +932,17 @@ def hidden_states(params: dict, tokens: torch.Tensor, cfg: MoEConfig,
     grad enabled each layer is one ``torch.utils.checkpoint`` region: a
     train step at sp = 1 makes 2 x n_layers causal forward launches and
     n_layers backward ones, and every collective of a layer runs again,
-    on every rank in the same order, in its backward."""
+    on every rank in the same order, in its backward.
+
+    With ``cfg.hybrid``, one device: each layer's mixer and FFN by
+    ``layer_types`` and ``n_dense_layers`` (the attention layers' one
+    causal launch each through the flash kernels, by default), ``aux``
+    None (no aux loss), and ``stats``, where given, each sparse layer's
+    picks per expert under its index."""
     _check_mesh(cfg, mesh)
+    if cfg.hybrid:
+        return _hybrid_hidden(params, tokens, cfg, attention or _flash,
+                              stats)
     em = expert_mesh(mesh)
     tokens = shard(mesh, tokens, MOE_DATA_SPEC)
     offset = 0 if em is None else em.coord["sp"] * tokens.shape[1]
@@ -479,25 +965,27 @@ def hidden_states(params: dict, tokens: torch.Tensor, cfg: MoEConfig,
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: MoEConfig, mesh=None,
-            attention=None):
+            attention=None, stats: dict | None = None):
     """tokens [B, T] -> ``(logits, aux)``: this rank's block of the f32
     logits, [B / (dp * ep), T / sp, vocab], and the mean aux loss of the
-    global batch."""
-    x, aux = hidden_states(params, tokens, cfg, mesh, attention)
+    global batch (None with ``layer_types``)."""
+    x, aux = hidden_states(params, tokens, cfg, mesh, attention, stats)
     return (x @ params["embed"].to(cfg.compute_dtype).T).float(), aux
 
 
 def loss_fn(params: dict, batch: torch.Tensor, cfg: MoEConfig, mesh=None,
-            attention=None) -> torch.Tensor:
+            attention=None, stats: dict | None = None) -> torch.Tensor:
     """batch [B, T+1] -> mean next-token cross-entropy of this rank's
     block plus ``aux_loss_weight`` times the global aux loss: averaged
-    over the mesh's ranks (equal shares), the reference's loss."""
+    over the mesh's ranks (equal shares), the reference's loss. The
+    sigmoid router adds no aux loss."""
     inputs, targets = batch[:, :-1], batch[:, 1:]
     targets = shard(mesh, targets, MOE_DATA_SPEC)
-    logits, aux = forward(params, inputs, cfg, mesh, attention)
+    logits, aux = forward(params, inputs, cfg, mesh, attention, stats)
     b, t = targets.shape
-    return (lm._xent_sum(logits.reshape(b * t, -1), targets.reshape(b * t))
-            / (b * t) + cfg.aux_loss_weight * aux)
+    loss = lm._xent_sum(logits.reshape(b * t, -1), targets.reshape(b * t)) \
+        / (b * t)
+    return loss if aux is None else loss + cfg.aux_loss_weight * aux
 
 
 def _paths(tree, prefix="") -> list[str]:
@@ -513,7 +1001,7 @@ def is_expert(path: str) -> bool:
 
 
 def loss_and_grads(params: dict, batch: torch.Tensor, cfg: MoEConfig,
-                   mesh=None, attention=None):
+                   mesh=None, attention=None, stats: dict | None = None):
     """``(loss, grads)`` of the global ``batch``: the loss detached,
     grads shaped like this rank's ``params``. Under a mesh the loss is
     averaged over its ranks; a dense gradient is summed over the token
@@ -521,11 +1009,15 @@ def loss_and_grads(params: dict, batch: torch.Tensor, cfg: MoEConfig,
     gradient on every tp rank, a tp-sharded one its own block), an
     expert's over its replicas (the dp and sp ranks of its ep index, each
     of which saw the output gradients of its own ep group's tokens), and
-    each divided by the number of token blocks. ``attention`` as in
-    :func:`hidden_states`."""
-    wrt = _tree_map(lambda p: p.detach().requires_grad_(), params)
-    loss = loss_fn(wrt, batch, cfg, mesh, attention)
-    grads = list(torch.autograd.grad(loss, _leaves(wrt)))
+    each divided by the number of token blocks. ``attention`` and
+    ``stats`` as in :func:`hidden_states`; the grads are of
+    :func:`trainable`'s leaves. Spans ``lm.forward`` (the loss), then
+    ``lm.backward``."""
+    wrt = _tree_map(lambda p: p.detach().requires_grad_(), trainable(params))
+    with span("lm.forward"):
+        loss = loss_fn({**params, **wrt}, batch, cfg, mesh, attention, stats)
+    with span("lm.backward"):
+        grads = list(torch.autograd.grad(loss, _leaves(wrt)))
     loss = loss.detach()
     if expert_mesh(mesh) is not None:
         from torch import distributed as dist
@@ -543,7 +1035,16 @@ def init_train_state(generator: torch.Generator, cfg: MoEConfig,
     the same on every rank from the same seed) and AdamW's state over
     them: the counterpart of the reference's ``init_sharded``."""
     params = shard_params(init_params(generator, cfg), cfg, mesh)
+    if cfg.hybrid:
+        return params, init_opt_state(params, cfg, lr)
     return params, make_optimizer(lr).init(params)
+
+
+def init_opt_state(params: dict, cfg: MoEConfig, lr: float = 3e-3):
+    """AdamW's state over :func:`trainable`'s leaves of ``params``, or
+    with params stored low-precision ``(state over the master, f32
+    master)`` (``lm.init_opt_state``)."""
+    return lm.init_opt_state(trainable(params), cfg, lr)
 
 
 def make_forward(cfg: MoEConfig, device=None, mesh=None):
@@ -570,17 +1071,26 @@ def make_train_step(cfg: MoEConfig, mesh=None, lr: float = 3e-3,
     place where the reference donates them. ``batch`` is the global
     batch; ``attention`` as in :func:`hidden_states`. The kernels take
     bf16 and f32 q, k, v (f32 up to head dim 128), so an f32 step
-    (``compute_dtype=torch.float32``) runs through them by default too."""
+    (``compute_dtype=torch.float32``) runs through them by default too.
+    ``opt_state`` is :func:`init_opt_state`'s (or AdamW's state over f32
+    params); the update, AdamW then the expert bias's step
+    (:func:`update_bias_`), is the span ``lm.update``. Nothing in the
+    step waits for the device."""
     dev = resolve_device(device)
     opt = make_optimizer(lr)
     _check_mesh(cfg, mesh)
 
-    def step(params: dict, opt_state: dict, batch: torch.Tensor):
+    def step(params: dict, opt_state, batch: torch.Tensor):
         if batch.device != dev:
             raise ValueError(f"batch is on {batch.device}, the step was "
                              f"made for {dev}")
-        loss, grads = loss_and_grads(params, batch, cfg, mesh, attention)
-        opt.update_(params, grads, opt_state)
+        stats = {}
+        loss, grads = loss_and_grads(params, batch, cfg, mesh, attention,
+                                     stats)
+        with torch.no_grad(), span("lm.update"):
+            opt.update_(trainable(params), grads, opt_state)
+            if stats:
+                update_bias_(params["expert_bias"], stats, cfg)
         return params, opt_state, loss
 
     return step
