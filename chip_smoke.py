@@ -243,8 +243,17 @@ run after the kernels line, so the phases after it still run):
    0 before and read after (the attention's launches, 2 forward and 1
    backward a step; the grouped GEMMs, 12 a sparse layer a step); the
    port's readings against the plain f32 reference's
-   (``portbench/reference/lfm2.py``) under the cell's limits; then a
-   step timed by CUDA events, tokens/s, MFU and peak memory;
+   (``portbench/reference/lfm2.py``) under the cell's limits, and the
+   permutation kernels' launches (6 a sparse layer a step); then a
+   step timed by CUDA events, tokens/s, MFU and peak memory; then the
+   ``moe_permute`` rows: the permutation kernels (``csrc/moe_permute.cu``)
+   at the cell's sparse layer (n 16384, k 4, d 2048, 32 experts), each
+   of their four uses (dispatch, its backward, combine, its backward)
+   timed by CUDA events beside the bytes bound, the plain version and
+   the ``index_add_`` / ``index_select`` chain the port ran before them
+   (``library_ms``, timed only), held to the plain version bit for bit
+   (the weights' gradient, a sum in another order, within 1e-5 of its
+   terms' magnitudes) and counted;
    moe_ep: with two cards or more, that MoE expert-parallel over NCCL,
    one rank process per card: ep = 2 at full depth; with four cards also
    ep = 2 x sp = 2, dp = 2 x ep = 2 and ep = 2 x tp = 2 at 2 layers.
@@ -3227,11 +3236,11 @@ LFM2_TYPES = ["conv", "attention", "conv", "conv"]
 LFM2_BATCH = (2, 2048)
 
 
-def check_lfm2(peak: float, known: bool) -> dict:
+def check_lfm2(peak: float, known: bool) -> tuple[dict, int]:
     """LFM2-8B-A1B on one card through the benchmark's MoE entry, cut to
     ``LFM2_TYPES``: 2 checked steps counted, the readings held to the
     cell's limits against the plain f32 reference, a step timed.
-    Returns the attention's launches."""
+    Returns the attention's launches and the permutation kernels'."""
     import copy
     from portbench import check, spec
     from portbench.accounting import moe as moe_acc
@@ -3254,7 +3263,8 @@ def check_lfm2(peak: float, known: bool) -> dict:
     attention = LFM2_TYPES.count("attention")
     want = causal_only(flash_attn_fwd=4 * attention,
                        flash_attn_bwd=2 * attention)
-    if launches != want or routed["gemm_calls"] != 2 * 12 * sparse:
+    if launches != want or routed["gemm_calls"] != 2 * 12 * sparse \
+            or routed["permute_launches"] != 2 * 6 * sparse:
         raise AssertionError(f"lfm2: launches {launches} (want {want}), "
                              f"moe counts {routed}")
     ms = time_ms(lambda: entry.step(2), 3, 0)
@@ -3278,7 +3288,112 @@ def check_lfm2(peak: float, known: bool) -> dict:
         peak_gib=peak_gib)
     if not ok:
         raise AssertionError(f"lfm2: {numbers} over {limits}")
-    return launches
+    return launches, routed["permute_launches"]
+
+
+#: The lfm2 cell's sparse layer: tokens (B2 T8192), picks, width, experts.
+MOE_PERMUTE_SHAPE = (16384, 4, 2048, 32)
+MOE_PERMUTE_ITERS = 20
+#: The weights' gradient: within this share of the sum of its terms'
+#: magnitudes of the plain version's (the same sum in another order).
+MOE_PERMUTE_DOT_RTOL = 1e-5
+
+
+def check_moe_permute(name: str) -> list[dict]:
+    """The permutation kernels at :data:`MOE_PERMUTE_SHAPE`, a route drawn
+    by ``moe.route_sorted``: each use timed by CUDA events in turns
+    (kernel, the old chain, the chain, kernel), its plain version timed
+    once, the wrapper's ``host_us``, the bytes bound of the bytes it
+    counts; each output against the plain version's. Says
+    ``moe_permute`` per use; returns the kernels line's rows."""
+    n, k, d, experts = MOE_PERMUTE_SHAPE
+    bf16 = torch.bfloat16
+    gen = torch.Generator("cuda").manual_seed(0)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    cfg = moe.MoEConfig(d_model=d, n_experts=experts, top_k=k,
+                        layer_types=("conv", "conv"), n_dense_layers=0)
+    y = draw(n, d)
+    route = moe.route_sorted(y, draw(d, experts) * d ** -0.5, None, cfg)
+    token, weight, pos = route.token, route.weight, route.pos
+    x, grad = y.to(bf16), draw(n, d).to(bf16)
+    rows, grad_rows = draw(n * k, d).to(bf16), draw(n * k, d).to(bf16)
+    del y
+
+    def old_dispatch_bwd():
+        dx = grad_rows.new_zeros((n, d), dtype=torch.float32)
+        return dx.index_add_(0, token, grad_rows.float()).to(bf16)
+
+    def old_combine():
+        out = rows.new_zeros((n, d), dtype=torch.float32)
+        return out.index_add_(0, token, rows * weight[:, None]).to(bf16)
+
+    def old_combine_bwd():
+        g = grad.index_select(0, token)
+        return (g * weight[:, None]).to(bf16), (g.float() * rows).sum(-1)
+
+    uses = {
+        "dispatch": (lambda: moe.scatter_rows(x, pos),
+                     lambda: moe.scatter_rows_plain(x, pos),
+                     lambda: x.index_select(0, token)),
+        "dispatch.bwd": (lambda: moe.gather_reduce(grad_rows, pos),
+                         lambda: moe.gather_reduce_plain(grad_rows, pos),
+                         old_dispatch_bwd),
+        "combine": (lambda: moe.gather_reduce(rows, pos, weight),
+                    lambda: moe.gather_reduce_plain(rows, pos, weight),
+                    old_combine),
+        "combine.bwd": (lambda: moe.scatter_rows(grad, pos, weight, rows),
+                        lambda: moe.scatter_rows_plain(grad, pos, weight,
+                                                       rows),
+                        old_combine_bwd)}
+    out_rows = []
+    for use, (kernel, plain, old) in uses.items():
+        moe.zero_counts()
+        got = kernel()
+        torch.cuda.synchronize()
+        counted = moe.counts()
+        want = plain()
+        got, want = ((got,), (want,)) if torch.is_tensor(got) else (got, want)
+        exact = all(torch.equal(a, b) for a, b in zip(got, want)
+                    if a.dtype == bf16)
+        dot_err = None
+        if use == "combine.bwd":
+            terms = (grad.float()[token] * rows.float()).abs().sum(-1)
+            dot_err = float(((got[1] - want[1]).abs() / terms).max())
+        del got, want
+        runs = {"kernel": [], "old": []}
+        for which in ("kernel", "old", "old", "kernel"):
+            runs[which].append(time_ms(kernel if which == "kernel" else old,
+                                       MOE_PERMUTE_ITERS))
+        row = {"name": "moe_permute", "route": "cuda",
+               "source": "kubernetes_tpu_torch/csrc/moe_permute.cu",
+               "replaces": "none: the JAX MoE's one-hot einsums, "
+                           "kubernetes_tpu/workloads/moe.py:191,199",
+               "at": f"{use}: n {n}, k {k}, d {d} bf16, {experts} experts",
+               "use": use, "ms": sum(runs["kernel"]) / 2,
+               "ms_runs": runs["kernel"], "plain_ms": time_ms(plain, 3, 1),
+               "library_ms": sum(runs["old"]) / 2,
+               "library": "the index_add_ / index_select chain before "
+                          "the kernels (timed only)",
+               "library_runs": runs["old"],
+               "host_us": host_us(kernel, 20),
+               "bytes": counted["permute_bytes"],
+               "launches_per_call": counted["permute_launches"],
+               "bit_exact": exact, "max_dot_err": dot_err}
+        add_bound(row, 0.0, counted["permute_bytes"], name)
+        row["gb_per_s"] = counted["permute_bytes"] / row["ms"] * 1e-6
+        ok = exact and counted["permute_launches"] == 1 and (
+            dot_err is None or dot_err <= MOE_PERMUTE_DOT_RTOL)
+        say("moe_permute", ok=ok, **{key: val for key, val in row.items()
+                                     if key not in ("name", "route")})
+        if not ok:
+            raise AssertionError(f"moe_permute {use}: kernel off the plain "
+                                 f"version: {row}")
+        out_rows.append(row)
+    torch.cuda.empty_cache()
+    return out_rows
 
 
 def moe_steps(cfg: moe.MoEConfig, batch: int, seq: int, mesh=None,
@@ -3867,7 +3982,8 @@ def main() -> int:
     # over NCCL; each counted inside.
     moe_launches = check_moe(peak, known)
     moe_f32_launches = check_moe_f32()
-    lfm2_launches = check_lfm2(peak, known)
+    lfm2_launches, lfm2_permute = check_lfm2(peak, known)
+    permute_rows = check_moe_permute(name)
     moe_ep_launches = check_moe_ep(peak, known, mesh_failed)
     by_path = {k: {"node": node_launches[k], "forward": launches[k],
                    "train": train_launches[k], "trainer": trainer_launches[k],
@@ -3889,6 +4005,8 @@ def main() -> int:
     by_path["adamw"] = {"train": train_launches["adamw"],
                         "phi3": phi3_launches["adamw"],
                         "gptj": gptj_launches["adamw"]}
+    # The permutation kernels' launches in the counted lfm2 steps.
+    by_path["moe_permute"] = {"lfm2": lfm2_permute}
 
     # Last of all: the profiled phases (K1's device_us, then the f32
     # entry points' kernels one by one).
@@ -3991,7 +4109,7 @@ def main() -> int:
              "replaces": "kubernetes_tpu/workloads/lm.py:193-197, 232-236",
              "at": at, "bound_rate": "tf32",
              **{k: bwd_row[k] for k in keys}}]
-    kernels += adamw_rows
+    kernels += adamw_rows + permute_rows
     for kern in kernels:
         kern["launches"] = sum(by_path[kern["name"]].values())
         kern["launches_by_path"] = by_path[kern["name"]]

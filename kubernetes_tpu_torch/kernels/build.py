@@ -36,7 +36,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 SOURCES = ("vector_add", "flash_attn_fwd", "flash_attn_bwd", "flash_attn_wide",
-           "adamw")
+           "adamw", "moe_permute")
 
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 

@@ -58,11 +58,14 @@ that only selects and moves after each step outside the gradient
 (:func:`update_bias_`); its picks, sorted by expert, run through
 :class:`Dispatch`, :class:`Experts` (grouped GEMMs over each expert's
 rows: ``torch._grouped_mm`` on the card, a loop on the CPU) and
-:class:`Combine`, with no capacity, so nothing dropped, and nothing that
-waits for the device. :func:`counts` counts that work.
+:class:`Combine` (the hand-written gather kernels of
+``csrc/moe_permute.cu`` on the card, their plain versions on the CPU),
+with no capacity, so nothing dropped, and nothing that waits for the
+device. :func:`counts` counts that work.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Any
 
@@ -71,6 +74,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..kernels import build
 from ..tracing import span
 from . import lm, sharding
 from .collectives import (_AllReduce, all_gather, all_reduce, count_exchange,
@@ -621,15 +625,19 @@ def trainable(params: dict) -> dict:
 # The counter of the routed experts' work, counted where the program
 # launches it: MoE layer calls (``layers``), rows routed (``rows``, n x
 # k), grouped-GEMM calls and the rows summed over them (``gemm_calls``,
-# ``gemm_rows``; on CUDA only: the CPU's per-expert loop counts none) and
-# the most-loaded expert's rows summed over calls (``max_rows``, kept on
-# the device until :func:`counts` reads it, so counting syncs nothing).
+# ``gemm_rows``; on CUDA only: the CPU's per-expert loop counts none), the
+# most-loaded expert's rows summed over calls (``max_rows``, kept on the
+# device until :func:`counts` reads it, so counting syncs nothing), and the
+# permutation kernels' launches and the bytes they have to move
+# (``permute_launches``, ``permute_bytes``: each row, token row, index and
+# weight read or written once; on CUDA only, as the GEMMs).
 _counts: dict = {}
 
 
 def zero_counts() -> None:
     """Every count to 0."""
-    _counts.update(layers=0, rows=0, gemm_calls=0, gemm_rows=0, max_rows=0)
+    _counts.update(layers=0, rows=0, gemm_calls=0, gemm_rows=0, max_rows=0,
+                   permute_launches=0, permute_bytes=0)
 
 
 zero_counts()
@@ -682,12 +690,14 @@ def _check_grouped(*tensors) -> None:
 class SortedRoute:
     """A layer's picks in expert order: for each of the n * k rows its
     ``token`` and combine ``weight`` (f32), ``offs`` (int32 cumulative
-    ends of each expert's rows) and ``load`` (picks per expert), all on
-    the device."""
+    ends of each expert's rows), ``load`` (picks per expert) and ``pos``
+    (int32 [k, n]: the row of each token's j-th pick, the sort's
+    inverse), all on the device."""
     token: torch.Tensor
     weight: torch.Tensor
     offs: torch.Tensor
     load: torch.Tensor
+    pos: torch.Tensor
 
 
 def route_sorted(y: torch.Tensor, router_w: torch.Tensor,
@@ -697,7 +707,8 @@ def route_sorted(y: torch.Tensor, router_w: torch.Tensor,
     picks over their sum + 1e-6 (``norm_topk``), times ``routed_scale``;
     the n * k picks sorted stably by expert. Nothing waits for the
     device: the loads are a scatter-add, not ``bincount`` (which reads
-    its largest input on the host)."""
+    its largest input on the host), and ``pos`` a scatter of the rows'
+    numbers into the sort's places."""
     n, E, K = y.shape[0], cfg.n_experts, cfg.top_k
     s = torch.sigmoid(y.float() @ router_w.float())
     pick = s.detach() if bias is None else s.detach() + bias
@@ -710,57 +721,188 @@ def route_sorted(y: torch.Tensor, router_w: torch.Tensor,
     order = torch.argsort(flat, stable=True)
     load = torch.zeros(E, dtype=torch.int64, device=y.device).scatter_add_(
         0, flat, torch.ones_like(flat))
+    pos = torch.empty(n * K, dtype=torch.int32, device=y.device).scatter_(
+        0, order, torch.arange(n * K, dtype=torch.int32, device=y.device))
     _counts["layers"] += 1
     _counts["rows"] += n * K
     _counts["max_rows"] += load.max()
     return SortedRoute(order % n, w.t().reshape(-1)[order],
-                       load.cumsum(0).to(torch.int32), load)
+                       load.cumsum(0).to(torch.int32), load, pos.view(K, n))
+
+
+def gather_reduce_plain(rows: torch.Tensor, pos: torch.Tensor,
+                        weight: torch.Tensor | None = None) -> torch.Tensor:
+    """[n, d]: token t's row the sum over j of ``weight[r] * rows[r]``, r
+    = ``pos[j, t]`` (no ``weight``: the rows as they are), each product
+    and the running sum in f32 (f64 for f64 rows) in j order, cast to the
+    rows' dtype once."""
+    acc_dtype = torch.promote_types(rows.dtype, torch.float32)
+    acc = None
+    for r in pos.long():
+        term = rows.index_select(0, r).to(acc_dtype)
+        if weight is not None:
+            term = term * weight.index_select(0, r).to(acc_dtype)[:, None]
+        acc = term if acc is None else acc + term
+    return acc.to(rows.dtype)
+
+
+def scatter_rows_plain(src: torch.Tensor, pos: torch.Tensor,
+                       weight: torch.Tensor | None = None,
+                       rows: torch.Tensor | None = None):
+    """[n * k, d]: row ``pos[j, t]`` a copy of token t's row ``src[t]``.
+    With ``weight`` and ``rows`` (both or neither), ``(out, dot)``: the
+    copy times its weight in f32 (f64 for f64 rows), cast to the rows'
+    dtype, and dot[r] the f32 sum of ``src[token of r] * rows[r]``."""
+    k, n = pos.shape
+    token = torch.empty(k * n, dtype=torch.int64, device=src.device)
+    token[pos.reshape(-1).long()] = torch.arange(
+        n, device=src.device).repeat(k)
+    gathered = src.index_select(0, token)
+    if weight is None:
+        return gathered
+    acc = gathered.to(torch.promote_types(src.dtype, torch.float32))
+    return ((acc * weight.to(acc.dtype)[:, None]).to(src.dtype),
+            (acc * rows.to(acc.dtype)).sum(-1))
+
+
+def _check_permute(rows: tuple, pos: torch.Tensor, weights: tuple) -> int:
+    """The kernels' terms: bf16 rows, int32 ``pos`` and f32 weights, all
+    contiguous on one CUDA device; its index."""
+    tensors = (*rows, pos, *weights)
+    device = rows[0].device
+    if any(x.device != device for x in tensors) or device.type != "cuda" \
+            or any(x.dtype != torch.bfloat16 for x in rows) \
+            or pos.dtype != torch.int32 \
+            or any(x.dtype != torch.float32 for x in weights):
+        raise TypeError("the permutation kernels take bf16 rows, int32 pos "
+                        "and f32 weights on one CUDA device (or CPU tensors, "
+                        "through the plain versions); got "
+                        f"{[(str(x.device), x.dtype) for x in tensors]}")
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError("the permutation kernels take contiguous tensors")
+    return device.index
+
+
+def _permuted(nbytes: int) -> None:
+    _counts["permute_launches"] += 1
+    _counts["permute_bytes"] += nbytes
+
+
+_VP, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_GATHER_REDUCE = build.Kernel("moe_permute", "moe_gather_reduce",
+                              (_VP, _VP, _VP, _VP, _I, _I, _I64, _I, _VP))
+_SCATTER_ROWS = build.Kernel("moe_permute", "moe_scatter_rows",
+                             (_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I64, _I,
+                              _VP))
+
+
+def _ptr(x: torch.Tensor | None):
+    return None if x is None else x.data_ptr()
+
+
+def gather_reduce(rows: torch.Tensor, pos: torch.Tensor,
+                  weight: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`gather_reduce_plain` of ``rows`` [n * k, d] by ``pos`` [k,
+    n]: on CUDA the kernel ``moe_gather_reduce``, counted; CPU tensors
+    take the plain version."""
+    weights = () if weight is None else (weight,)
+    if all(x.device.type == "cpu" for x in (rows, pos, *weights)):
+        return gather_reduce_plain(rows, pos, weight)
+    device = _check_permute((rows,), pos, weights)
+    (k, n), d = pos.shape, rows.shape[-1]
+    if rows.dim() != 2 or rows.shape[0] != k * n \
+            or any(w.shape != (k * n,) for w in weights):
+        raise ValueError(f"gather_reduce: rows {tuple(rows.shape)}, pos "
+                         f"{tuple(pos.shape)}, weight "
+                         f"{[tuple(w.shape) for w in weights]}")
+    out = rows.new_empty((n, d))
+    if n:
+        rc = _GATHER_REDUCE.launch(rows.data_ptr(), pos.data_ptr(),
+                                   _ptr(weight), out.data_ptr(), n, k, d,
+                                   device, build.current_stream(device))
+        if rc:
+            raise _GATHER_REDUCE.error(rc)
+        _permuted((k + 1) * n * d * rows.element_size()
+                  + 4 * k * n * (1 + len(weights)))
+    return out
+
+
+def scatter_rows(src: torch.Tensor, pos: torch.Tensor,
+                 weight: torch.Tensor | None = None,
+                 rows: torch.Tensor | None = None):
+    """:func:`scatter_rows_plain` of ``src`` [n, d] by ``pos`` [k, n]: on
+    CUDA the kernel ``moe_scatter_rows``, counted; CPU tensors take the
+    plain version."""
+    if (weight is None) != (rows is None):
+        raise ValueError("scatter_rows takes weight and rows together")
+    weighted = weight is not None
+    row_args = (src, rows) if weighted else (src,)
+    weights = (weight,) if weighted else ()
+    if all(x.device.type == "cpu" for x in (*row_args, pos, *weights)):
+        return scatter_rows_plain(src, pos, weight, rows)
+    device = _check_permute(row_args, pos, weights)
+    (k, n), d = pos.shape, src.shape[-1]
+    if src.dim() != 2 or src.shape[0] != n or (weighted and (
+            weight.shape != (k * n,) or rows.shape != (k * n, d))):
+        shapes = [tuple(x.shape) for x in (*row_args, pos, *weights)]
+        raise ValueError(f"scatter_rows: src, (rows,) pos, (weight): "
+                         f"{shapes}")
+    out = src.new_empty((k * n, d))
+    dot = torch.empty(k * n, dtype=torch.float32, device=src.device) \
+        if weighted else None
+    if n:
+        rc = _SCATTER_ROWS.launch(src.data_ptr(), pos.data_ptr(),
+                                  _ptr(weight), _ptr(rows), out.data_ptr(),
+                                  _ptr(dot), n, k, d, device,
+                                  build.current_stream(device))
+        if rc:
+            raise _SCATTER_ROWS.error(rc)
+        row_bytes = n * d * src.element_size()
+        _permuted((1 + 2 * k) * row_bytes + 12 * k * n if weighted
+                  else (1 + k) * row_bytes + 4 * k * n)
+    return out if dot is None else (out, dot)
 
 
 class Dispatch(torch.autograd.Function):
-    """Token rows [n, d] -> their copies in expert order [n * k, d]
-    (``token``: each row's token); backward: each token's gradient the
-    f32 sum of its rows', cast back. Spans ``moe.dispatch`` and
-    ``moe.dispatch.bwd``."""
+    """Token rows [n, d] -> their copies in expert order [n * k, d] (row
+    ``pos[j, t]`` token t's); backward: each token's gradient the f32 sum
+    of its rows', cast back (:func:`scatter_rows`, :func:`gather_reduce`).
+    Spans ``moe.dispatch`` and ``moe.dispatch.bwd``."""
 
     @staticmethod
-    def forward(ctx, x, token):
+    def forward(ctx, x, pos):
         with span("moe.dispatch"):
-            ctx.save_for_backward(token)
-            ctx.n = x.shape[0]
-            return x.index_select(0, token)
+            ctx.save_for_backward(pos)
+            return scatter_rows(x, pos)
 
     @staticmethod
     def backward(ctx, grad):
-        (token,) = ctx.saved_tensors
+        (pos,) = ctx.saved_tensors
         with span("moe.dispatch.bwd"):
-            dx = grad.new_zeros((ctx.n, grad.shape[1]), dtype=torch.float32)
-            return dx.index_add_(0, token, grad.float()).to(grad.dtype), None
+            return gather_reduce(grad.contiguous(), pos), None
 
 
 class Combine(torch.autograd.Function):
     """Expert rows [n * k, d] -> tokens [n, d]: each token the f32 sum of
-    its rows times their weights (``index_add_``), cast to the rows'
-    dtype; backward: the rows' gradient, the token's times the weight,
-    and the weights', the row's dot the token's gradient. Spans
-    ``moe.combine`` and ``moe.combine.bwd``."""
+    its rows times their weights, cast to the rows' dtype
+    (:func:`gather_reduce`); backward (:func:`scatter_rows`): the rows'
+    gradient, the token's times the weight, and the weights', the row's
+    dot the token's gradient. Spans ``moe.combine`` and
+    ``moe.combine.bwd``."""
 
     @staticmethod
-    def forward(ctx, rows, weight, token, n: int):
+    def forward(ctx, rows, weight, pos):
         with span("moe.combine"):
-            ctx.save_for_backward(rows, weight, token)
-            out = rows.new_zeros((n, rows.shape[1]), dtype=torch.float32)
-            out.index_add_(0, token, rows * weight[:, None])
-            return out.to(rows.dtype)
+            ctx.save_for_backward(rows, weight, pos)
+            return gather_reduce(rows, pos, weight)
 
     @staticmethod
     def backward(ctx, grad):
-        rows, weight, token = ctx.saved_tensors
+        rows, weight, pos = ctx.saved_tensors
         with span("moe.combine.bwd"):
-            g = grad.index_select(0, token)
-            d_rows = (g * weight[:, None]).to(rows.dtype)
-            d_weight = (g.float() * rows).sum(-1)
-            return d_rows, d_weight, None, None
+            d_rows, d_weight = scatter_rows(grad.contiguous(), pos, weight,
+                                            rows)
+            return d_rows, d_weight, None
 
 
 class Experts(torch.autograd.Function):
@@ -804,9 +946,9 @@ def sorted_moe_ffn(y: torch.Tensor, lp: dict, bias, cfg: MoEConfig):
     yf = y.reshape(b * t, d)
     with span("moe.route"):
         route = route_sorted(yf, lp["router"], bias, cfg)
-    rows = Experts.apply(Dispatch.apply(yf, route.token), lp["w1"],
+    rows = Experts.apply(Dispatch.apply(yf, route.pos), lp["w1"],
                          lp["w3"], lp["w2"], route.offs)
-    out = Combine.apply(rows, route.weight, route.token, b * t)
+    out = Combine.apply(rows, route.weight, route.pos)
     return out.reshape(b, t, d), route.load
 
 

@@ -8,7 +8,20 @@ heads.
 
 The port runs in f32 for the parity tests (its bf16 run follows the
 reference within bf16's rounding); both take the same params, the
-port's stacked tree carried to the reference's flat names."""
+port's stacked tree carried to the reference's flat names.
+
+The permutation between tokens and expert rows (``moe.gather_reduce``,
+``moe.scatter_rows``): on the CPU their plain versions against the
+``index_add_`` / ``index_select`` formulation they replace, in float64,
+on balanced picks, on picks biased to two experts (the others' segments
+empty) and with weights zeroed as the capacity fault zeroes them. On the
+card (marked ``cuda``, each test skips without a CUDA device, decided
+inside the fixture) the kernels of ``csrc/moe_permute.cu`` against the
+plain versions in bf16, at the lfm2 cell's shape and at odd and ragged
+ones, the same bits on two calls, their counters, their refusals:
+
+    python -m pytest --noconftest -q tests/test_torch_lfm2.py -m cuda
+"""
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -321,3 +334,276 @@ def test_the_step_opens_its_spans_and_counts_its_layers():
     c = moe.counts()
     assert c["layers"] == 2 * sparse
     assert c["rows"] == 2 * sparse * B * T * cfg.top_k
+
+
+# The permutation between tokens and expert rows.
+
+#: ``(tokens, picks, width, experts)`` of the CPU cases.
+PERMUTE_SHAPES = [(47, 2, 24, 8), (40, 4, 16, 8)]
+PERMUTE_CASES = ("balanced", "biased", "capped")
+
+
+def _sorted_route(case: str, n: int, k: int, experts: int, device="cpu",
+                  seed: int = 0) -> moe.SortedRoute:
+    """``route_sorted``'s picks of n random tokens: ``balanced`` with no
+    bias; ``biased`` with experts 1 and 5 far ahead, so that at k 2 they
+    take every pick and the other segments are empty; ``capped``, the
+    biased picks with each expert's weights past the mean load zeroed, as
+    the benchmark's capacity fault zeroes them."""
+    gen = torch.Generator(device).manual_seed(seed)
+    d = 32
+    y = torch.randn(n, d, generator=gen, device=device)
+    router = torch.randn(d, experts, generator=gen, device=device)
+    bias = torch.zeros(experts, device=device)
+    if case != "balanced":
+        bias[1] = bias[5] = 10.0
+    cfg = moe.MoEConfig(d_model=d, n_experts=experts, top_k=k,
+                        layer_types=("conv", "conv"), n_dense_layers=0)
+    route = moe.route_sorted(y, router, bias, cfg)
+    if case == "capped":
+        cap = k * n // experts
+        start = (route.offs.long() - route.load).repeat_interleave(route.load)
+        rank = torch.arange(n * k, device=device) - start
+        route.weight = torch.where(rank < cap, route.weight, 0.0)
+    return route
+
+
+def _rows(shape: tuple, dtype, device="cpu", seed: int = 1):
+    return torch.randn(shape, generator=torch.Generator(device)
+                       .manual_seed(seed), device=device).to(dtype)
+
+
+@pytest.mark.parametrize("shape", PERMUTE_SHAPES)
+@pytest.mark.parametrize("case", PERMUTE_CASES)
+def test_pos_inverts_the_sort(case, shape):
+    n, k, _, experts = shape
+    route = _sorted_route(case, n, k, experts)
+    assert route.pos.shape == (k, n) and route.pos.dtype == torch.int32
+    assert torch.equal(route.token[route.pos.long()],
+                       torch.arange(n).expand(k, n))
+    assert sorted(route.pos.reshape(-1).tolist()) == list(range(n * k))
+    if case != "balanced" and k == 2:
+        assert route.load.tolist() == [0, n, 0, 0, 0, n, 0, 0]
+
+
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("shape", PERMUTE_SHAPES)
+@pytest.mark.parametrize("case", PERMUTE_CASES)
+def test_plain_gather_reduce_is_the_index_add_it_replaced(case, shape,
+                                                          weighted):
+    """Combine's forward (weighted) and Dispatch's backward (not)."""
+    n, k, d, experts = shape
+    route = _sorted_route(case, n, k, experts)
+    rows = _rows((n * k, d), torch.float64)
+    weight = route.weight.double() if weighted else None
+    got = moe.gather_reduce_plain(rows, route.pos, weight)
+    terms = rows * weight[:, None] if weighted else rows
+    want = torch.zeros(n, d, dtype=torch.float64).index_add_(
+        0, route.token, terms)
+    assert got.dtype == torch.float64
+    torch.testing.assert_close(got, want, rtol=1e-13, atol=1e-13)
+    if case == "capped":
+        kept = (route.weight != 0).sum()
+        assert 0 < kept < n * k
+    assert torch.equal(moe.gather_reduce(rows, route.pos, weight), got)
+
+
+@pytest.mark.parametrize("shape", PERMUTE_SHAPES)
+@pytest.mark.parametrize("case", PERMUTE_CASES)
+def test_plain_scatter_rows_is_the_index_select_it_replaced(case, shape):
+    """Dispatch's forward, and Combine's backward with its weights'
+    gradient."""
+    n, k, d, experts = shape
+    route = _sorted_route(case, n, k, experts)
+    src = _rows((n, d), torch.float64)
+    rows = _rows((n * k, d), torch.float64, seed=2)
+    weight = route.weight.double()
+    assert torch.equal(moe.scatter_rows_plain(src, route.pos),
+                       src.index_select(0, route.token))
+    g = src.index_select(0, route.token)
+    out, dot = moe.scatter_rows_plain(src, route.pos, weight, rows)
+    assert torch.equal(out, g * weight[:, None])
+    torch.testing.assert_close(dot, (g * rows).sum(-1), rtol=1e-13,
+                               atol=1e-13)
+    if case == "capped":
+        assert not out[weight == 0].any()
+
+
+@pytest.mark.parametrize("shape", PERMUTE_SHAPES)
+@pytest.mark.parametrize("case", PERMUTE_CASES)
+def test_dispatch_and_combine_grads_are_autograds_of_the_indexing(case,
+                                                                  shape):
+    n, k, d, experts = shape
+    route = _sorted_route(case, n, k, experts)
+    x = _rows((n, d), torch.float64).requires_grad_()
+    rows = _rows((n * k, d), torch.float64, seed=2).requires_grad_()
+    weight = route.weight.double().requires_grad_()
+    up_rows = _rows((n * k, d), torch.float64, seed=3)
+    up = _rows((n, d), torch.float64, seed=4)
+
+    dispatched = moe.Dispatch.apply(x, route.pos)
+    combined = moe.Combine.apply(rows, weight, route.pos)
+    got = torch.autograd.grad((dispatched * up_rows).sum()
+                              + (combined * up).sum(), (x, rows, weight))
+    want_dispatch = x.index_select(0, route.token)
+    want_combine = torch.zeros(n, d, dtype=torch.float64).index_add(
+        0, route.token, rows * weight[:, None])
+    torch.testing.assert_close(dispatched, want_dispatch, rtol=0, atol=0)
+    torch.testing.assert_close(combined, want_combine, rtol=1e-13,
+                               atol=1e-13)
+    want = torch.autograd.grad((want_dispatch * up_rows).sum()
+                               + (want_combine * up).sum(), (x, rows, weight))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-13, atol=1e-13)
+
+
+def test_plain_path_counts_nothing():
+    route = _sorted_route("balanced", 16, 2, 8)
+    rows = _rows((32, 8), torch.float32)
+    moe.zero_counts()
+    moe.scatter_rows(moe.gather_reduce(rows, route.pos, route.weight),
+                     route.pos, route.weight, rows)
+    c = moe.counts()
+    assert c["permute_launches"] == 0 and c["permute_bytes"] == 0
+
+
+def test_permute_kernels_bear_the_benchmarks_name_marks():
+    """The benchmark tells the permutation's kernels by these names."""
+    from pathlib import Path
+    from portbench.metrics import moe_permute_gbs
+    src = (Path(moe.__file__).parent.parent / "csrc" / "moe_permute.cu"
+           ).read_text()
+    for mark in moe_permute_gbs.KERNELS:
+        assert f"{mark}_kernel(" in src, mark
+    assert moe._GATHER_REDUCE.library == moe._SCATTER_ROWS.library \
+        == "moe_permute"
+
+
+# On the card.
+
+#: ``(tokens, picks, width, experts)``: the lfm2 cell's layer, an odd n at
+#: a ragged width (the one-element path), more picks than a group of 8.
+CARD_SHAPES = [(16384, 4, 2048, 32), (4097, 4, 2046, 32), (333, 10, 72, 16)]
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return "cuda"
+
+
+def _card_inputs(card, shape, case="balanced"):
+    n, k, d, experts = shape
+    route = _sorted_route(case, n, k, experts, card)
+    return (route, _rows((n, d), torch.bfloat16, card),
+            _rows((n * k, d), torch.bfloat16, card, seed=2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PERMUTE_CASES)
+@pytest.mark.parametrize("shape", CARD_SHAPES)
+def test_kernels_match_their_plain_versions(card, shape, case):
+    """Every output bit for bit but the weights' gradient, a sum in
+    another order: within 1e-5 of the sum of its terms' magnitudes."""
+    route, src, rows = _card_inputs(card, shape, case)
+    for weight in (route.weight, None):
+        assert torch.equal(moe.gather_reduce(rows, route.pos, weight),
+                           moe.gather_reduce_plain(rows, route.pos, weight))
+    assert torch.equal(moe.scatter_rows(src, route.pos),
+                       moe.scatter_rows_plain(src, route.pos))
+    out, dot = moe.scatter_rows(src, route.pos, route.weight, rows)
+    want_out, want_dot = moe.scatter_rows_plain(src, route.pos, route.weight,
+                                                rows)
+    assert torch.equal(out, want_out)
+    token = route.token
+    scale = (src.float()[token] * rows.float()).abs().sum(-1)
+    assert bool(((dot - want_dot).abs() <= 1e-5 * scale + 1e-30).all())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CARD_SHAPES)
+def test_the_same_bits_on_two_calls(card, shape):
+    route, src, rows = _card_inputs(card, shape)
+
+    def calls():
+        return [moe.gather_reduce(rows, route.pos, route.weight),
+                moe.gather_reduce(rows, route.pos),
+                moe.scatter_rows(src, route.pos),
+                *moe.scatter_rows(src, route.pos, route.weight, rows)]
+
+    for a, b in zip(calls(), calls()):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_counters_per_call(card):
+    n, k, d, experts = CARD_SHAPES[0]
+    route, src, rows = _card_inputs(card, CARD_SHAPES[0])
+    moe.zero_counts()
+    moe.gather_reduce(rows, route.pos, route.weight)
+    moe.gather_reduce(rows, route.pos)
+    moe.scatter_rows(src, route.pos)
+    moe.scatter_rows(src, route.pos, route.weight, rows)
+    c = moe.counts()
+    rd, td, r = n * k * d * 2, n * d * 2, n * k
+    assert c["permute_launches"] == 4
+    assert c["permute_bytes"] == (rd + td + 8 * r) + (rd + td + 4 * r) \
+        + (td + rd + 4 * r) + (td + 2 * rd + 12 * r)
+    # The lfm2 cell's layer: 335.5 MB a gather-reduce, 604 MB the scatter
+    # with its dot.
+    assert round((rd + td) / 1e6, 1) == 335.5
+    assert round((td + 2 * rd) / 1e6) == 604
+
+
+@pytest.mark.cuda
+def test_refusals(card):
+    route, src, rows = _card_inputs(card, (64, 2, 16, 8))
+    with pytest.raises(TypeError):
+        moe.gather_reduce(rows.float(), route.pos, route.weight)
+    with pytest.raises(TypeError):
+        moe.scatter_rows(src.float(), route.pos)
+    with pytest.raises(TypeError):
+        moe.gather_reduce(rows, route.pos.cpu(), route.weight)
+    with pytest.raises(TypeError):
+        moe.scatter_rows(src, route.pos, route.weight.cpu(), rows)
+    with pytest.raises(TypeError):
+        moe.gather_reduce(rows, route.pos.long(), route.weight)
+    with pytest.raises(TypeError):
+        moe.gather_reduce(rows, route.pos, route.weight.bfloat16())
+    with pytest.raises(ValueError):
+        moe.gather_reduce(rows[:-1], route.pos)
+    with pytest.raises(ValueError):
+        moe.scatter_rows(src.t().contiguous().t(), route.pos)
+    with pytest.raises(ValueError):
+        moe.scatter_rows(src, route.pos, route.weight)
+
+
+@pytest.mark.cuda
+def test_the_sorted_layer_launches_only_the_permutation_kernels(card):
+    """A sparse FFN's forward and backward on the card: the two kernels,
+    twice each, and no index_add_ or mixed-dtype product around them."""
+    cfg = moe.MoEConfig(d_model=256, d_ff=128, n_experts=8, top_k=4,
+                        layer_types=("conv", "conv"), n_dense_layers=0,
+                        param_dtype=torch.bfloat16,
+                        compute_dtype=torch.bfloat16)
+    gen = torch.Generator(card).manual_seed(0)
+    lp = {"router": torch.randn(256, 8, generator=gen, device=card),
+          **{key: (torch.randn(8, *shape, generator=gen, device=card)
+                   * 0.05).bfloat16().requires_grad_()
+             for key, shape in (("w1", (256, 128)), ("w3", (256, 128)),
+                                ("w2", (128, 256)))}}
+    y = torch.randn(2, 512, 256, generator=gen, device=card) \
+        .bfloat16().requires_grad_()
+    moe.zero_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out, _ = moe.sorted_moe_ffn(y, lp, torch.zeros(8, device=card), cfg)
+        out.float().square().sum().backward()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    assert moe.counts()["permute_launches"] == 4
+    assert sum("moe_gather_reduce" in n for n in names) == 2
+    assert sum("moe_scatter_rows" in n for n in names) == 2
+    assert not any("indexFuncLargeIndex" in n or "index_add" in n
+                   for n in names)
